@@ -1,4 +1,5 @@
-"""Batch-inference configuration with the JAX package's flag names.
+"""Configurations with the JAX package's flag names: batch inference
+(`PredictConfig`) and pre-training (`PretrainConfig`).
 
 `PredictConfig` has the fields and defaults of `dig_tpu.config.PredictConfig`
 so that a command line written for `dig_tpu.cli.run_predict` parses the
@@ -12,7 +13,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 
 @dataclasses.dataclass
@@ -97,3 +98,93 @@ def parse_config(cls=PredictConfig, argv=None):
 
 def config_to_json(cfg) -> str:
     return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
+
+
+@dataclasses.dataclass
+class PretrainConfig:
+    """`dig_tpu.config.PretrainConfig`: the same fields and defaults.  The
+    pretrain CLI that parses them is not ported yet."""
+
+    # model
+    model: str = "pretrain_simmim_moco_ori_vit_small_patch4_32x128"
+    input_h: int = 32
+    input_w: int = 128
+    patch_size: int = 4
+    drop_path: float = 0.0
+    normlize_target: bool = True  # (sic -- reference flag spelling)
+    # masking / views
+    mask_ratio: float = 0.7
+    num_view: int = 2
+    # moco
+    moco_dim: int = 256
+    moco_mlp_dim: int = 4096
+    moco_m: float = 0.99
+    use_moco_m_cos: bool = True
+    moco_t: float = 0.2
+    num_windows: int = 4
+    patchnet_name: str = "regular"
+    label_smoothing: float = 0.0
+    # loss weights
+    loss_weight_pixel: float = 1.0
+    loss_weight_contrast: float = 0.1
+    contrast_warmup_steps: int = 500
+    contrast_start_epoch: int = 0
+    only_mim_on_ori_img: bool = True
+    # optimization
+    batch_size: int = 128  # per host
+    epochs: int = 10
+    opt: str = "adamw"
+    opt_betas: Tuple[float, float] = (0.9, 0.999)
+    opt_eps: float = 1e-8
+    clip_grad: Optional[float] = None
+    weight_decay: float = 0.1
+    weight_decay_end: Optional[float] = None
+    lr: float = 1.5e-4
+    warmup_lr: float = 1e-6
+    min_lr: float = 1e-5
+    warmup_epochs: int = 0
+    warmup_steps: int = 5000
+    # data
+    image_alone_path: List[str] = dataclasses.field(default_factory=list)
+    voc_type: str = "ALLCASES_SYMBOLS"
+    max_len: int = 25
+    aloneimage_num_samples: float = float("inf")
+    num_workers: int = 10
+    worker_type: str = "thread"
+    batch_wise_shuffle: bool = False
+    # run
+    output_dir: str = "./output"
+    log_dir: Optional[str] = None
+    seed: int = 0
+    resume: str = ""
+    auto_resume: bool = True
+    start_epoch: int = 0
+    save_ckpt_freq: int = 1
+    keep_ckpt_max: int = 0
+    eval_freq: int = 1000
+    profile_steps: int = 0
+    profile_start_step: int = 10
+    dtype: str = "bfloat16"
+    # the JAX package's additions, kept for flag compatibility
+    device_aug: bool = False
+    remat: bool = False
+    n_fsdp: int = 1
+    n_tensor: int = 1
+
+    @property
+    def input_size(self):
+        return (self.input_h, self.input_w)
+
+    @property
+    def window_size(self):
+        return (self.input_h // self.patch_size, self.input_w // self.patch_size)
+
+    def finalize(self, num_devices: int = 1):
+        """Linear lr scaling: absolute_lr = lr * total batch / 256
+        (run_mae_pretraining_moco.py:382); wd_end defaults to wd."""
+        if self.num_view != 2:
+            raise ValueError(f"--num_view must be 2 (got {self.num_view})")
+        self.absolute_lr = self.lr * (self.batch_size * num_devices) / 256.0
+        if self.weight_decay_end is None:
+            self.weight_decay_end = self.weight_decay
+        return self

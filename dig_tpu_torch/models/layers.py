@@ -4,8 +4,11 @@ Parameters live in fp32 in the reference torch `state_dict` layout
 (modeling_finetune.py:43-210); activations run in the module's `dtype`
 (bf16 on the card by default).  Every matmul casts its input and weight to
 that dtype, as flax's `nn.Dense(dtype=...)` does, so the two packages
-round at the same places.  Dropout and drop-path are absent: this package
-runs inference only so far.
+round at the same places.  Dropout and drop-path are absent: the predict
+path never runs them, and the pre-training step runs at the reference's
+default drop-path rate of 0 (`PretrainConfig.drop_path`).  Gradients flow
+through plain autograd, except through the kernel pairs of
+`ops.attention` and `ops.layernorm`, whose backward passes are kernels too.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dig_tpu_torch.ops.activations import gelu
-from dig_tpu_torch.ops.attention import multi_head_attention_packed
+from dig_tpu_torch.ops.attention import multi_head_attention, multi_head_attention_qkv
 from dig_tpu_torch.ops.layernorm import layer_norm as fused_layer_norm
 
 
@@ -122,15 +125,13 @@ class Attention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x):
-        c = x.shape[-1]
         qkv = self.qkv(x)
         if self.q_bias is not None:
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
             qkv = qkv + bias.to(qkv.dtype)
-        # column slices of the packed projection: views, read in place
-        q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
-        out = multi_head_attention_packed(q, k, v, self.num_heads, scale=self.scale)
-        return self.proj(out)
+        # the kernels read q, k, v as column slices of the packed projection
+        # and write their gradients into one [B, L, 3C] tensor the same way
+        return self.proj(multi_head_attention_qkv(qkv, self.num_heads, self.scale))
 
 
 class Block(nn.Module):
@@ -160,6 +161,51 @@ class Block(nn.Module):
         if self.gamma_2 is not None:
             m = self.gamma_2.to(m.dtype) * m
         return x + m
+
+
+class CrossAttention(nn.Module):
+    """Attention of a few queries over an external token map, with the
+    reference's separate q/k/v projections, without biases as the window
+    extractor builds them (modeling_pretrain_moco_mim_ori.py:21-135)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.linear_q = Dense(dim, dim, bias=False, dtype=dtype)
+        self.linear_k = Dense(dim, dim, bias=False, dtype=dtype)
+        self.linear_v = Dense(dim, dim, bias=False, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
+
+    def forward(self, xq, kv):
+        b, lq, c = xq.shape
+        lk = kv.shape[1]
+        q, k, v = self.linear_q(xq), self.linear_k(kv), self.linear_v(kv)
+        h = self.num_heads
+        out = multi_head_attention(q.view(b, lq, h, c // h), k.view(b, lk, h, c // h),
+                                   v.view(b, lk, h, c // h))
+        return self.proj(out.reshape(b, lq, c))
+
+
+class CrossBlock(nn.Module):
+    """Pre-LN block whose attention takes external k/v, for the window
+    patch extractor (`dig_tpu/models/layers.py:222-265`).  As in the
+    reference, one `norm1` normalizes q and kv alike, and the residual is
+    added onto the *normalized* q.  Its norms are plain flax-semantics
+    `LayerNorm`s (no TPU kernel served them); with Lq = num_windows its
+    attention takes `_ref_attention`."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 ln_eps: float = 1e-6, dtype=torch.float32):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, ln_eps, dtype)
+        self.attn = CrossAttention(dim, num_heads, dtype)
+        self.norm2 = LayerNorm(dim, ln_eps, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+
+    def forward(self, x, kv=None):
+        xq = self.norm1(x)
+        x = xq + self.attn(xq, xq if kv is None else self.norm1(kv))
+        return x + self.mlp(self.norm2(x))
 
 
 class _PatchProj(nn.Module):

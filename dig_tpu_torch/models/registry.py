@@ -17,7 +17,7 @@ def register_model(fn=None, *, name: str = None):
 
 
 def create_model(name: str, **kwargs):
-    from dig_tpu_torch.models import vit  # noqa: F401  (registers the encoders)
+    from dig_tpu_torch.models import moco, vit  # noqa: F401  (registers the models)
 
     if name not in _REGISTRY:
         raise KeyError(f"unknown model '{name}'; known: {sorted(_REGISTRY)}")

@@ -1,13 +1,17 @@
-"""LayerNorm forward: a Hopper CUDA kernel and its plain PyTorch version.
+"""LayerNorm: Hopper CUDA kernels (forward and backward) and their plain
+PyTorch versions.
 
 Counterpart of `dig_tpu/ops/layernorm.py`.  `layer_norm` takes the kernel
-under the JAX package's gate (`_use_pallas_ln`: c % 128 == 0, at least 512
-rows and a multiple of 512), so the same LayerNorms take it as on the
-TPU: `norm1`/`norm2` of every ViT `Block`.  What the CUDA kernel accepts
-narrows the gate further: c <= 1024 and a float32 or bfloat16 input.
-Semantics match `flax.linen.LayerNorm` up to the variance form (see
-`csrc/layernorm_fwd.cu`): fp32 statistics, biased variance, eps inside
-the rsqrt.
+pair under the JAX package's gate (`_use_pallas_ln`: c % 128 == 0, at
+least 512 rows and a multiple of 512), so the same LayerNorms take it as
+on the TPU: `norm1`/`norm2` of every ViT `Block`, on the predict path and
+in both branches of the pre-training step.  It goes through an autograd
+Function whose forward is `layer_norm_fwd` and whose backward is
+`layer_norm_bwd` (the `jax.custom_vjp` of `_pallas_ln`).  What the CUDA
+kernels accept narrows the gate further: c <= 1024 and a float32 or
+bfloat16 input.  Semantics match `flax.linen.LayerNorm` up to the
+variance form (see `csrc/layernorm_fwd.cu`): fp32 statistics, biased
+variance, eps inside the rsqrt.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import torch
 from dig_tpu_torch.ops import _build
 
 _ROW_BLOCK = 512
+_BWD_ROWS = 128  # rows per CTA of the backward kernel, one partial row each (see the .cu)
 _MAX_C = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -32,6 +37,25 @@ def _ln_ref(x, gamma, beta, eps):
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * gamma.to(acc) + beta.to(acc)).to(x.dtype)
+
+
+def _ln_bwd_ref(x, gamma, dy, eps):
+    """Plain version of the backward kernel (`_ln_bwd_kernel`,
+    `dig_tpu/ops/layernorm.py:54-71`) with the two-pass variance of the
+    forward: dx = rstd * (dy*g - mean(dy*g) - xhat * mean(dy*g*xhat)) in x's
+    dtype, dgamma = sum(dy * xhat) and dbeta = sum(dy) over all rows in
+    gamma's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf, dyf = x.to(acc), dy.to(acc)
+    mu = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mu) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (xf - mu) * rstd
+    dyg = dyf * gamma.to(acc)
+    dx = rstd * (dyg - dyg.mean(-1, keepdim=True) - xhat * (dyg * xhat).mean(-1, keepdim=True))
+    c = x.shape[-1]
+    dgamma = (dyf * xhat).reshape(-1, c).sum(0)
+    dbeta = dyf.reshape(-1, c).sum(0)
+    return dx.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
 def _lib():
@@ -75,6 +99,71 @@ def layer_norm_fwd(x, gamma, beta, eps: float):
 layer_norm_fwd.launches = 0
 
 
+def _bwd_lib():
+    lib = _build.load("layernorm_bwd")
+    fn = lib.dig_ln_bwd
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def layer_norm_bwd(x, gamma, dy, eps: float):
+    """Kernel wrapper: the LayerNorm backward over the last axis of `x` ->
+    (dx in x's dtype, dgamma, dbeta in gamma's dtype).  A CPU tensor takes
+    `_ln_bwd_ref`; a CUDA tensor launches `csrc/layernorm_bwd.cu` (dx and
+    one fp32 partial dgamma, dbeta row per block of `_BWD_ROWS` rows),
+    then sums the partials, as the JAX package sums its kernel's per-block
+    partials outside the kernel (`dig_tpu/ops/layernorm.py:135-137`)."""
+    if x.device.type == "cpu":
+        return _ln_bwd_ref(x, gamma, dy, eps)
+    c = x.shape[-1]
+    if x.dtype not in _DTYPES or dy.dtype != x.dtype:
+        raise TypeError(f"layer_norm_bwd: unsupported dtypes {x.dtype}, {dy.dtype}")
+    if c % 128 or c > _MAX_C or dy.shape != x.shape:
+        raise ValueError(f"layer_norm_bwd: needs c % 128 == 0, c <= {_MAX_C} and dy shaped "
+                         f"like x, got {x.shape}, {dy.shape}")
+    for name, t in (("x", x), ("dy", dy)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"layer_norm_bwd: {name} must be contiguous and 16-byte aligned")
+    g = gamma.to(device=x.device, dtype=torch.float32).contiguous()
+    if g.shape != (c,):
+        raise ValueError(f"layer_norm_bwd: gamma must be [{c}]")
+    rows = x.numel() // c
+    blocks = -(-rows // _BWD_ROWS)
+    dx = torch.empty_like(x)
+    dg_part = torch.empty((blocks, c), dtype=torch.float32, device=x.device)
+    db_part = torch.empty((blocks, c), dtype=torch.float32, device=x.device)
+    lib = _bwd_lib()
+    code = lib.dig_ln_bwd(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), dy.data_ptr(),
+                          dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), rows, c,
+                          float(eps), _build.stream_ptr(x))
+    _build.check(lib, code, "layer_norm_bwd")
+    layer_norm_bwd.launches += 1
+    return dx, dg_part.sum(0).to(gamma.dtype), db_part.sum(0).to(gamma.dtype)
+
+
+layer_norm_bwd.launches = 0
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """LayerNorm with the kernel pair's backward (the `jax.custom_vjp` at
+    `dig_tpu/ops/layernorm.py:99-140`): saves x and gamma, recomputes the
+    statistics in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        ctx.save_for_backward(x, gamma)
+        ctx.eps = eps
+        return layer_norm_fwd(x, gamma, beta, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma = ctx.saved_tensors
+        return (*layer_norm_bwd(x, gamma, dy.contiguous(), ctx.eps), None)
+
+
 def _use_kernel_ln(x) -> bool:
     c = x.shape[-1]
     rows = x.numel() // c
@@ -83,8 +172,8 @@ def _use_kernel_ln(x) -> bool:
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-6):
-    """LayerNorm over the last axis: the kernel wrapper where the shape
-    passes the gate, the plain version otherwise."""
+    """LayerNorm over the last axis: the kernel pair where the shape
+    passes the gate, the plain version (plain autograd) otherwise."""
     if _use_kernel_ln(x):
-        return layer_norm_fwd(x, gamma, beta, eps)
+        return _LayerNormFn.apply(x, gamma, beta, eps)
     return _ln_ref(x, gamma, beta, eps)

@@ -5,6 +5,10 @@
   ``decoder``) -> this package's `RecModel.state_dict()`.  The key layout
   is the one `dig_tpu/utils/export_torch.py:211-243` writes, so this is
   that exporter's mapping, kept here as its own copy.
+* `moco_params_from_jax(student, ema)`: the JAX package's pre-training
+  parameter trees (the student's and the momentum branch's) -> this
+  package's `DiGPretrainModel.state_dict()`, in the reference `MoCo_ViT`
+  layout that `dig_tpu/utils/checkpoint.py::convert_torch_moco` reads.
 * `load_pth(path)`: a reference-layout `.pth` -> a state dict for
   `RecModel.load_state_dict`.
 
@@ -53,6 +57,8 @@ def _encoder(tree: dict, patch_size: int) -> dict:
     out["patch_embed.proj.weight"] = _t(
         kernel.reshape(p, p, kernel.shape[0] // (p * p), -1).transpose(3, 2, 0, 1))
     out["patch_embed.proj.bias"] = _t(pe["bias"])
+    if "mask_token" in tree:
+        out["mask_token"] = _t(tree["mask_token"])
     for name, blk in tree.items():
         if name.startswith("blocks_"):
             b = f"blocks.{name[len('blocks_'):]}."
@@ -97,6 +103,74 @@ def params_from_jax(tree: dict, patch_size: int = 4) -> dict:
     sd["linear_norm.1.weight"] = _t(ln["norm"]["scale"])
     sd["linear_norm.1.bias"] = _t(ln["norm"]["bias"])
     sd.update({"decoder." + k: v for k, v in decoder_from_jax(tree["decoder"]).items()})
+    return sd
+
+
+def _dense(tree: dict, key: str) -> dict:
+    out = {key + ".weight": _t(np.asarray(tree["kernel"]).T)}
+    if "bias" in tree:
+        out[key + ".bias"] = _t(tree["bias"])
+    return out
+
+
+def _norm(tree: dict, key: str) -> dict:
+    return {key + ".weight": _t(tree["scale"]), key + ".bias": _t(tree["bias"])}
+
+
+def _mlp_head(tree: dict) -> dict:
+    """`MLPHead` (dense_l, bn_l) -> the reference Sequential: Linear at
+    index 3l, its BatchNorm at 3l + 1 (affine BNs only)."""
+    out = {}
+    for name, sub in tree.items():
+        kind, layer = name.rsplit("_", 1)
+        idx = 3 * int(layer) + (kind == "bn")
+        out.update(_dense(sub, str(idx)) if kind == "dense" else _norm(sub, str(idx)))
+    return out
+
+
+def _cross_patchnet(tree: dict) -> dict:
+    """`PatchNet` with its bias-free `CrossBlock`s -> the reference layout."""
+    out = {}
+    for name, blk in tree.items():
+        if name == "norm":
+            out.update(_norm(blk, "norm"))
+            continue
+        b = f"blocks.{name[len('blocks_'):]}."
+        for w in ("q", "k", "v"):
+            out[b + f"attn.linear_{w}.weight"] = _t(np.asarray(blk[f"{w}_kernel"]).T)
+        out.update(_dense(blk["proj"], b + "attn.proj"))
+        out.update(_norm(blk["norm1"], b + "norm1"))
+        out.update(_norm(blk["norm2"], b + "norm2"))
+        out.update(_dense(blk["mlp"]["Dense_0"], b + "mlp.fc1"))
+        out.update(_dense(blk["mlp"]["Dense_1"], b + "mlp.fc2"))
+    return out
+
+
+def _pix_decoder(tree: dict) -> dict:
+    out = {**_dense(tree["fc0"], "0"), **_dense(tree["fc1"], "1"), **_dense(tree["head"], "4")}
+    out.update(_norm(tree["norm"], "2"))
+    return out
+
+
+def moco_params_from_jax(student: dict, ema: dict, patch_size: int = 4) -> dict:
+    """JAX `DiGPretrainModel` params and its EMA tree -> this package's
+    `DiGPretrainModel` state dict.  Top-level keys of the JAX trees:
+    encoder, patch_extractor, pix_decoder, pix_projector, predictor,
+    projection (the EMA tree: encoder, patch_extractor, pix_projector,
+    projection)."""
+    convert = {"encoder": lambda t: _encoder(t, patch_size), "projection": _mlp_head,
+               "predictor": _mlp_head, "pix_projector": _mlp_head,
+               "patch_extractor": _cross_patchnet, "pix_decoder": _pix_decoder}
+    names = {"encoder": "encoder", "projection": "encoder_projection_layer",
+             "predictor": "predictor", "pix_projector": "pix_projector",
+             "patch_extractor": "patch_extractor", "pix_decoder": "pix_decoder"}
+    ema_names = {"encoder": "momentum_encoder", "projection": "momentum_projection_layer",
+                 "pix_projector": "pix_projector_m",
+                 "patch_extractor": "momentum_patch_extractor"}
+    sd = {}
+    for tree, table in ((student, names), (ema, ema_names)):
+        for key, sub in tree.items():
+            sd.update({f"{table[key]}.{k}": v for k, v in convert[key](sub).items()})
     return sd
 
 

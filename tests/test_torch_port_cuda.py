@@ -7,11 +7,16 @@ nor `dig_tpu`, so it runs on the card's machine, which has no JAX:
 
 Tolerances as in chip_smoke.py: fp32 results agree to a few ulp (the same
 products summed in another order); a bf16 output may round to the
-neighbouring bf16 value (at most 2^-7 of the value)."""
+neighbouring bf16 value (at most 2^-7 of the value).  The backward
+kernels are held relative to each gradient's max |value| (`BWD_RTOL`):
+in bf16 an intermediate rounded to bf16 (ds0, the scaled q and do) may
+round the other way when its fp32 input differs by an ulp, and that moves
+a sum of many terms by a fraction of one term."""
 
 import pytest
 import torch
 
+from dig_tpu_torch.models.layers import Block
 from dig_tpu_torch.ops import attention as tattn
 from dig_tpu_torch.ops import layernorm as tln
 
@@ -23,6 +28,12 @@ def cuda():
 
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-4)}
+BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2**-6}
+
+
+def _close_to_max(got, ref, rtol):
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= rtol * float(ref.float().abs().max()), f"max abs err {err}"
 
 
 @pytest.mark.cuda
@@ -77,3 +88,91 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError):  # not contiguous
         x = torch.zeros(8, 256, device="cuda")[:, :128]
         tln.layer_norm_fwd(x, torch.ones(128), torch.zeros(128), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,d", [
+    (256, 256, 256, 6, 64),  # the pretrain step: 2 views x 128 images, ViT-S heads
+    (3, 200, 130, 2, 32),   # ragged query and key blocks
+    (2, 128, 320, 4, 128),  # widest head and longest Lk the dq pass fits
+])
+def test_attention_backward_kernel_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
+    """The backward on strided q, k, v column slices of packed projections,
+    writing into the column slices of one packed gradient."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    c = h * d
+    qkv = torch.randn(b, lq, 3 * c, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(b, lk, 3 * c, generator=gen, device="cuda").to(dtype)
+    q = qkv[..., :c].view(b, lq, h, d)
+    k, v = (kv[..., i * c:(i + 1) * c].view(b, lk, h, d) for i in (1, 2))
+    do = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(dtype)
+    _, m, s = tattn.attention_lse_fwd(q, k, v, d**-0.5)
+    dqkv = torch.zeros(b, max(lq, lk), 3 * c, device="cuda", dtype=dtype)
+    out = (dqkv[:, :lq, :c].view(b, lq, h, d),
+           dqkv[:, :lk, c:2 * c].view(b, lk, h, d), dqkv[:, :lk, 2 * c:].view(b, lk, h, d))
+    n = tattn.attention_lse_bwd.launches
+    got = tattn.attention_lse_bwd(q, k, v, do, m, s, d**-0.5, out=out)
+    torch.cuda.synchronize()
+    assert tattn.attention_lse_bwd.launches == n + 1
+    assert all(g.data_ptr() == o.data_ptr() for g, o in zip(got, out))
+    ref = tattn.attention_lse_bwd_ref(q, k, v, do, m, s, d**-0.5)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g.float()).all()
+        _close_to_max(g, r, BWD_RTOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(65536, 384), (13, 128), (300, 1024), (129, 512)])
+def test_layernorm_backward_kernel_matches_plain_version(cuda, dtype, rows, c):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (2 * torch.randn(rows, c, generator=gen, device="cuda") + 0.5).to(dtype)
+    dy = torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
+    g = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    n = tln.layer_norm_bwd.launches
+    dx, dg, db = tln.layer_norm_bwd(x, g, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert tln.layer_norm_bwd.launches == n + 1 and dx.dtype == dtype
+    rdx, rdg, rdb = tln._ln_bwd_ref(x, g, dy, 1e-6)
+    torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+    # fp32 column sums over the rows in another order
+    _close_to_max(dg, rdg, 1e-5)
+    _close_to_max(db, rdb, 1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_what_they_cannot_take(cuda):
+    q = torch.zeros(1, 128, 2, 48, device="cuda")  # head_dim 48
+    ms = torch.ones(1, 128, 2, device="cuda")
+    with pytest.raises(ValueError):
+        tattn.attention_lse_bwd(q, q, q, q, ms, ms, 0.1)
+    q = torch.zeros(1, 128, 2, 64, device="cuda")
+    with pytest.raises(ValueError):  # m, s must be fp32
+        tattn.attention_lse_bwd(q, q, q, q, ms.half(), ms.half(), 0.1)
+    with pytest.raises(TypeError):
+        tattn.attention_lse_bwd(*(q.double(),) * 4, ms, ms, 0.1)
+    x = torch.zeros(8, 256, device="cuda")
+    with pytest.raises(ValueError):  # dy not contiguous
+        tln.layer_norm_bwd(x[:, :128], torch.ones(128), x[:, 128:], 1e-6)
+    with pytest.raises(TypeError):
+        tln.layer_norm_bwd(x, torch.ones(256), x.bfloat16(), 1e-6)
+    with pytest.raises(ValueError):
+        tln.layer_norm_bwd(torch.zeros(8, 96, device="cuda"), torch.ones(96),
+                           torch.zeros(8, 96, device="cuda"), 1e-6)
+
+
+@pytest.mark.cuda
+def test_block_backward_reaches_every_parameter_through_the_kernels(cuda):
+    """A ViT block's backward on the card goes through both kernel pairs
+    and gives every parameter a finite gradient."""
+    torch.manual_seed(0)
+    blk = Block(384, 6, qkv_bias=True, dtype=torch.bfloat16).cuda()
+    x = torch.randn(2, 256, 384, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    counts = (tattn.attention_lse_bwd.launches, tln.layer_norm_bwd.launches)
+    blk(x).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert (tattn.attention_lse_bwd.launches, tln.layer_norm_bwd.launches) == (
+        counts[0] + 1, counts[1] + 2)
+    for name, p in list(blk.named_parameters()) + [("x", x)]:
+        assert p.grad is not None and torch.isfinite(p.grad.float()).all(), name

@@ -173,6 +173,8 @@ def test_ln_ref_matches_jax_ref_fp64():
     ((2, 256, 1280), torch.float32, False),  # c beyond what the kernel holds
     ((2, 256, 384), torch.float64, False),   # no fp64 kernel
     ((1, 256, 384), torch.float32, False),   # 256 rows < 512
+    ((256, 256, 384), torch.bfloat16, True),  # pretrain step: 2 views x 128 images
+    ((8, 4, 384), torch.float32, False),     # CrossBlock window queries: 32 rows
 ])
 def test_layer_norm_gate(shape, dtype, want):
     assert tln._use_kernel_ln(torch.zeros(shape, dtype=dtype)) == want
@@ -189,6 +191,8 @@ def test_layer_norm_gate(shape, dtype, want):
     (256, 256, 256, False, torch.float32, False),  # JAX gate passes, kernel takes <= 128
     (128, 2048, 64, False, torch.float32, False),  # score tile beyond shared memory
     (256, 256, 64, False, torch.float64, False),
+    (4, 256, 64, False, torch.bfloat16, False),    # pretrain CrossBlock: 4 window queries
+    (128, 400, 64, False, torch.float32, False),   # the backward's two score tiles exceed shared memory
 ])
 def test_attention_gate(lq, lk, d, masked, dtype, want):
     q = torch.zeros(1, lq, 2, d, dtype=dtype)
@@ -215,14 +219,14 @@ def test_wrappers_take_plain_version_on_cpu():
 
 
 def test_packed_attention_through_gate_matches_jax():
-    """The packed entry point on column slices of a fused qkv (the ViT's
-    call) through the gate and the wrapper, against the JAX package's
-    CPU path (`_ref_attention`)."""
+    """The packed entry point on a fused qkv (the ViT's call: column slices
+    reach the kernel pair) through the gate and the wrapper, against the
+    JAX package's packed entry on the same columns (its CPU path,
+    `_ref_attention`)."""
     rng = np.random.default_rng(7)
     qkv = rng.normal(size=(2, 128, 3 * 128)).astype(np.float32)
     cols = [slice(i * 128, (i + 1) * 128) for i in range(3)]
     want = jattn.multi_head_attention_packed(*(jnp.asarray(qkv[..., c]) for c in cols), 2)
-    t = torch.from_numpy(qkv)
-    got = tattn.multi_head_attention_packed(*(t[..., c] for c in cols), 2)
+    got = tattn.multi_head_attention_qkv(torch.from_numpy(qkv), 2)
     # exp2 with the folded scale vs softmax of the scaled logits: fp32 rounding
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-5, atol=2e-6)
