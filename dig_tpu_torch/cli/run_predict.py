@@ -165,8 +165,9 @@ def load_model(cfg: PredictConfig, device):
 
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     model = build_rec_model(cfg.model, cfg.decoder_name, cfg.nb_classes, cfg.max_len,
-                            cfg.use_1d_attdec, cfg.use_mean_pooling, dtype,
-                            cfg.model_kind, cfg.seed, device)
+                            use_1d_attdec=cfg.use_1d_attdec,
+                            use_mean_pooling=cfg.use_mean_pooling, dtype=dtype,
+                            model_kind=cfg.model_kind, seed=cfg.seed, device=device)
     if cfg.finetune:
         sd = load_pth(cfg.finetune, cfg.model_key, cfg.model_prefix)
         missing, unexpected = model.load_state_dict(sd, strict=False)

@@ -1,5 +1,6 @@
 """Configurations with the JAX package's flag names: batch inference
-(`PredictConfig`) and pre-training (`PretrainConfig`).
+(`PredictConfig`), pre-training (`PretrainConfig`) and fine-tuning
+(`FinetuneConfig`).
 
 `PredictConfig` has the fields and defaults of `dig_tpu.config.PredictConfig`
 so that a command line written for `dig_tpu.cli.run_predict` parses the
@@ -69,9 +70,9 @@ def _add_field_args(parser: argparse.ArgumentParser, cfg) -> None:
         elif "bool" in str(f.type):  # tri-state Optional[bool] (None = auto)
             parser.add_argument(name, default=default,
                                 type=lambda s: s.lower() in _TRUTHY)
-        elif isinstance(default, list):
+        elif isinstance(default, (list, tuple)) or "List" in str(f.type) or "Tuple" in str(f.type):
             parser.add_argument(name, nargs="*", default=default)
-        elif isinstance(default, float):
+        elif isinstance(default, float) or default is None:
             parser.add_argument(name, type=float, default=default)
         elif isinstance(default, int):
             parser.add_argument(name, type=int, default=default)
@@ -92,7 +93,11 @@ def parse_config(cls=PredictConfig, argv=None):
     if unknown:
         print(f"[config] ignoring unknown flags: {unknown}")
     for f in dataclasses.fields(cfg):
-        setattr(cfg, f.name, getattr(args, f.name))
+        val = getattr(args, f.name)
+        default = getattr(cfg, f.name)
+        if isinstance(default, tuple) and isinstance(val, list):
+            val = tuple(float(x) for x in val)
+        setattr(cfg, f.name, val)
     return cfg
 
 
@@ -185,6 +190,101 @@ class PretrainConfig:
         if self.num_view != 2:
             raise ValueError(f"--num_view must be 2 (got {self.num_view})")
         self.absolute_lr = self.lr * (self.batch_size * num_devices) / 256.0
+        if self.weight_decay_end is None:
+            self.weight_decay_end = self.weight_decay
+        return self
+
+
+@dataclasses.dataclass
+class FinetuneConfig:
+    """`dig_tpu.config.FinetuneConfig`: the same fields and defaults.  The
+    port runs its `rec` fine-tuning step (`train/finetune.py`); the
+    fine-tuning CLI, the other model kinds and `update_freq` > 1 are not
+    ported yet."""
+
+    # model
+    model: str = "vit_small_patch4_32x128"
+    decoder_name: str = "tf_decoder"
+    model_kind: str = "rec"  # rec | ctc | attn | seq_cls | mim_rec
+    mim_sample_ratio: float = 0.5
+    use_mim_proj: bool = False
+    mask_ratio: float = 0.7
+    loss_weight_pixel: float = 1.0
+    normlize_target: bool = True  # (sic -- reference flag spelling)
+    use_feat_distill: bool = False
+    loss_weight_feat_distill: float = 1.0
+    teacher_ckpt: str = ""
+    nb_classes: int = 97
+    max_len: int = 25
+    drop: float = 0.1
+    attn_drop_rate: float = 0.1
+    drop_path: float = 0.1
+    use_1d_attdec: bool = False
+    use_mean_pooling: bool = True
+    text_cond_vis: bool = False
+    beam_width: int = 0
+    # recipe
+    batch_size: int = 256
+    epochs: int = 10
+    update_freq: int = 1
+    opt: str = "adamw"
+    opt_betas: Tuple[float, float] = (0.9, 0.999)
+    opt_eps: float = 1e-8
+    clip_grad: Optional[float] = None
+    weight_decay: float = 0.05
+    weight_decay_end: Optional[float] = None
+    lr: float = 1e-4
+    layer_decay: float = 1.0
+    warmup_lr: float = 1e-6
+    min_lr: float = 1e-6
+    warmup_epochs: int = 1
+    warmup_steps: int = -1
+    smoothing: float = 0.1
+    fixed_encoder_layers: int = 0
+    # init / resume
+    finetune: str = ""
+    model_key: str = "model|module"
+    model_prefix: str = ""
+    exact_gelu: Optional[bool] = None  # None = auto (erf for .pth weights)
+    resume: str = ""
+    auto_resume: bool = True
+    start_epoch: int = 0
+    # data
+    data_path: List[str] = dataclasses.field(default_factory=list)
+    eval_data_path: str = ""
+    other_test_data_folders: List[str] = dataclasses.field(default_factory=list)
+    voc_type: str = "ALLCASES_SYMBOLS"
+    num_samples: float = float("inf")
+    num_view: int = 2
+    use_abi_aug: bool = True
+    device_abi_aug: bool = False
+    num_workers: int = 10
+    worker_type: str = "thread"
+    batch_wise_shuffle: bool = False
+    # run
+    output_dir: str = "./output"
+    log_dir: Optional[str] = None
+    seed: int = 0
+    save_ckpt: bool = True
+    save_best: bool = True
+    save_ckpt_freq: int = 1
+    keep_ckpt_max: int = 0
+    eval_freq: int = 1000
+    profile_steps: int = 0
+    profile_start_step: int = 10
+    eval: bool = False
+    dist_eval: bool = False
+    input_h: int = 32
+    input_w: int = 128
+    dtype: str = "bfloat16"
+    n_fsdp: int = 1
+    n_tensor: int = 1
+
+    def finalize(self, num_devices: int = 1):
+        """absolute_lr = lr * total batch / 256 (run_class_finetuning.py:464),
+        the total counting `update_freq`; wd_end defaults to wd."""
+        total_bs = self.batch_size * num_devices * self.update_freq
+        self.absolute_lr = self.lr * total_bs / 256.0
         if self.weight_decay_end is None:
             self.weight_decay_end = self.weight_decay
         return self

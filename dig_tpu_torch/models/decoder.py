@@ -11,7 +11,11 @@ decoupled and the text-conditional decoders wait for a later slice.
 
 None of this reaches a kernel: the self-attention is masked and the
 cross-attention has Lq <= 25 < 128, so both take `_ref_attention`, as on
-the TPU.
+the TPU, or under dropout the unfused `attention_with_dropout`.  Dropout
+(default 0.1, `dig_tpu/models/decoder.py:270`) acts in the teacher-forced
+pass of training: after embedding + position, on the attention weights
+and after each attention's output projection, and twice in the FFN.  Its
+masks come from the `torch.Generator` that pass is given.
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ from torch import nn
 from dig_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
+    attention_with_dropout,
+    dropout,
     make_causal_mask,
     make_pad_mask,
     sinusoid_position_table,
+    training_generator,
 )
 from dig_tpu_torch.ops.activations import gelu
 from dig_tpu_torch.ops.attention import multi_head_attention
@@ -34,9 +41,10 @@ class DecoderMHA(nn.Module):
     """Separate-q/k/v multi-head attention, no biases."""
 
     def __init__(self, n_head: int = 8, d_k: int = 64, d_v: int = 64,
-                 d_model: int = 512, dtype=torch.float32):
+                 d_model: int = 512, dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
+        self.dropout = dropout
         self.linear_q = Dense(d_model, n_head * d_k, bias=False, dtype=dtype)
         self.linear_k = Dense(d_model, n_head * d_k, bias=False, dtype=dtype)
         self.linear_v = Dense(d_model, n_head * d_v, bias=False, dtype=dtype)
@@ -52,47 +60,54 @@ class DecoderMHA(nn.Module):
         v = self.linear_v(v_inp).reshape(b, lk, self.n_head, self.d_v)
         return k, v
 
-    def attend(self, q, k, v, mask=None):
+    def attend(self, q, k, v, mask=None, generator=None):
         """q [B, Lq, H, Dk]; k/v [B, Lk, H, D*]; mask broadcastable to
         [B, H, Lq, Lk] (True = attend)."""
         b, lq = q.shape[:2]
-        out = multi_head_attention(q, k, v, mask=mask, scale=self.d_k**-0.5)
-        return self.fc(out.reshape(b, lq, self.n_head * self.d_v))
+        scale = self.d_k**-0.5
+        if self.dropout > 0.0 and generator is not None:
+            out = attention_with_dropout(q, k, v, mask, scale, self.dropout, generator)
+        else:
+            out = multi_head_attention(q, k, v, mask=mask, scale=scale)
+        out = self.fc(out.reshape(b, lq, self.n_head * self.d_v))
+        return dropout(out, self.dropout, generator)
 
-    def forward(self, q, k, v, mask=None):
+    def forward(self, q, k, v, mask=None, generator=None):
         kp, vp = self.project_kv(k, v)
-        return self.attend(self.project_q(q), kp, vp, mask)
+        return self.attend(self.project_q(q), kp, vp, mask, generator)
 
 
 class PositionwiseFeedForward(nn.Module):
-    def __init__(self, d_in: int, d_inner: int, dtype=torch.float32):
+    def __init__(self, d_in: int, d_inner: int, dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
         self.w_1 = Dense(d_in, d_inner, dtype=dtype)
         self.w_2 = Dense(d_inner, d_in, dtype=dtype)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.w_2(gelu(self.w_1(x)))
+    def forward(self, x, generator=None):
+        x = dropout(gelu(self.w_1(x)), self.dropout, generator)
+        return dropout(self.w_2(x), self.dropout, generator)
 
 
 class TransformerDecoderLayer(nn.Module):
     """Pre-LN: self-attn -> cross-attn -> FFN, each with a residual."""
 
     def __init__(self, d_model: int = 512, d_inner: int = 256, n_head: int = 8,
-                 d_k: int = 64, d_v: int = 64, dtype=torch.float32):
+                 d_k: int = 64, d_v: int = 64, dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
         # flax nn.LayerNorm defaults: eps 1e-6
         self.norm1 = LayerNorm(d_model, 1e-6, dtype)
         self.norm2 = LayerNorm(d_model, 1e-6, dtype)
         self.norm3 = LayerNorm(d_model, 1e-6, dtype)
-        self.self_attn = DecoderMHA(n_head, d_k, d_v, d_model, dtype)
-        self.enc_attn = DecoderMHA(n_head, d_k, d_v, d_model, dtype)
-        self.mlp = PositionwiseFeedForward(d_model, d_inner, dtype)
+        self.self_attn = DecoderMHA(n_head, d_k, d_v, d_model, dropout, dtype)
+        self.enc_attn = DecoderMHA(n_head, d_k, d_v, d_model, dropout, dtype)
+        self.mlp = PositionwiseFeedForward(d_model, d_inner, dropout, dtype)
 
-    def forward(self, x, enc_output, self_attn_mask=None):
+    def forward(self, x, enc_output, self_attn_mask=None, generator=None):
         sa_in = self.norm1(x)
-        x = x + self.self_attn(sa_in, sa_in, sa_in, self_attn_mask)
-        x = x + self.enc_attn(self.norm2(x), enc_output, enc_output)
-        return x + self.mlp(self.norm3(x))
+        x = x + self.self_attn(sa_in, sa_in, sa_in, self_attn_mask, generator)
+        x = x + self.enc_attn(self.norm2(x), enc_output, enc_output, None, generator)
+        return x + self.mlp(self.norm3(x), generator)
 
     def prepare_cross_kv(self, enc_output):
         return self.enc_attn.project_kv(enc_output, enc_output)
@@ -116,9 +131,10 @@ class TFDecoder(nn.Module):
     def __init__(self, num_classes: int = 97, n_layers: int = 6, d_embedding: int = 512,
                  n_head: int = 8, d_k: int = 64, d_v: int = 64, d_model: int = 512,
                  d_inner: int = 256, n_position: int = 200, max_seq_len: int = 25,
-                 dtype=torch.float32):
+                 dropout: float = 0.1, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout = dropout
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         self.d_embedding = d_embedding
         self.max_seq_len = max_seq_len
@@ -128,7 +144,7 @@ class TFDecoder(nn.Module):
                              torch.from_numpy(sinusoid_position_table(n_position, d_embedding)),
                              persistent=False)
         self.layer_stack = nn.ModuleList(
-            TransformerDecoderLayer(d_model, d_inner, n_head, d_k, d_v, dtype)
+            TransformerDecoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout, dtype)
             for _ in range(n_layers))
         self.layer_norm = LayerNorm(d_model, 1e-6, dtype)
         self.classifier = Dense(d_model, num_classes, dtype=dtype)
@@ -141,16 +157,19 @@ class TFDecoder(nn.Module):
         emb = self.trg_word_emb(trg_seq).to(self.compute_dtype)
         return emb + self.position_table[:, : trg_seq.shape[1]].to(emb.dtype)
 
-    def forward(self, enc_output, targets, tgt_lens):
+    def forward(self, enc_output, targets, tgt_lens, deterministic: bool = False,
+                generator=None):
         """Teacher-forced pass: queries are [BOS] + targets shifted right;
-        returns [B, T, num_classes] logits."""
+        returns [B, T, num_classes] logits.  A training pass
+        (`deterministic=False`) draws its dropout masks from `generator`."""
+        generator = training_generator(deterministic, generator)
         b, t = targets.shape
         bos = torch.full((b, 1), self.start_idx, dtype=targets.dtype, device=targets.device)
         query = torch.cat([bos, targets], dim=-1)[:, :-1]
         mask = (make_pad_mask(tgt_lens, t) & make_causal_mask(t, targets.device))[:, None]
-        x = self._embed(query)
+        x = dropout(self._embed(query), self.dropout, generator)
         for layer in self.layer_stack:
-            x = layer(x, enc_output, mask)
+            x = layer(x, enc_output, mask, generator)
         return self.classifier(self.layer_norm(x))
 
     def prepare_cross(self, enc_output):
@@ -190,7 +209,8 @@ class TFDecoder(nn.Module):
 
 def create_decoder(decoder_name: str, num_classes: int, max_len: int,
                    dtype=torch.float32) -> TFDecoder:
-    """Decoder factory by name (reference: models/decoder.py:13-73)."""
+    """Decoder factory by name (reference: models/decoder.py:13-73), at
+    the decoders' dropout of 0.1, as the JAX package builds them."""
     common = dict(num_classes=num_classes, max_seq_len=max_len, dtype=dtype)
     if decoder_name == "tf_decoder":
         return TFDecoder(**common)

@@ -4,11 +4,18 @@ Parameters live in fp32 in the reference torch `state_dict` layout
 (modeling_finetune.py:43-210); activations run in the module's `dtype`
 (bf16 on the card by default).  Every matmul casts its input and weight to
 that dtype, as flax's `nn.Dense(dtype=...)` does, so the two packages
-round at the same places.  Dropout and drop-path are absent: the predict
-path never runs them, and the pre-training step runs at the reference's
-default drop-path rate of 0 (`PretrainConfig.drop_path`).  Gradients flow
-through plain autograd, except through the kernel pairs of
-`ops.attention` and `ops.layernorm`, whose backward passes are kernels too.
+round at the same places.  Gradients flow through plain autograd, except
+through the kernel pairs of `ops.attention` and `ops.layernorm` and, under
+`DIG_TPU_FUSED_BIAS_GRAD=1`, `Mlp.fc1`'s `ops.fused_dense`, whose backward
+passes are kernels too.
+
+Dropout and drop-path follow flax's `nn.Dropout` and `drop_path`: a
+training pass draws its masks from an explicit `torch.Generator` handed
+down through `forward`; without one (`generator=None`) the pass is
+deterministic.  Nothing here draws from torch's global RNG.  Attention
+dropout takes the unfused path (`attention_with_dropout`), as in the JAX
+package, so a training pass with `attn_drop > 0` launches no attention
+kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +28,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from dig_tpu_torch.ops.activations import gelu
-from dig_tpu_torch.ops.attention import multi_head_attention, multi_head_attention_qkv
+from dig_tpu_torch.ops.attention import (
+    split_heads,
+    multi_head_attention,
+    multi_head_attention_qkv,
+)
+from dig_tpu_torch.ops.fused_dense import fused_bias_grad_enabled, fused_dense
 from dig_tpu_torch.ops.layernorm import layer_norm as fused_layer_norm
 
 
@@ -45,6 +57,51 @@ def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """[B, 1, L] boolean mask, True where position < length."""
     pos = torch.arange(max_len, device=lengths.device)[None, :]
     return (pos < lengths[:, None])[:, None, :]
+
+
+def training_generator(deterministic: bool, generator: Optional[torch.Generator]):
+    """The generator a pass draws its dropout masks from: None for a
+    deterministic pass; a training pass needs an explicit one."""
+    if deterministic:
+        return None
+    if generator is None:
+        raise ValueError("a training pass (deterministic=False) draws its dropout masks from an "
+                         "explicit torch.Generator: pass generator=")
+    return generator
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """flax `nn.Dropout`: with a generator each element is kept with
+    probability 1 - rate and scaled to x / (1 - rate); without one, x."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x, rate: float, generator: Optional[torch.Generator]):
+    """Stochastic depth (`dig_tpu/models/layers.py:51-58`): one keep draw
+    per sample drops its whole residual branch or scales it by 1 / keep."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_with_dropout(q, k, v, mask, scale: float, rate: float,
+                           generator: torch.Generator):
+    """The unfused attention that dropout on the weights forces
+    (`dig_tpu/models/layers.py:148-159`, `models/decoder.py:83-90`): fp32
+    softmax of the masked logits, cast to v's dtype, dropout, second
+    product.  q [B, Lq, H, D], k/v [B, Lk, H, D] -> [B, Lq, H, D]."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.tensor(-1e30, device=logits.device))
+    weights = dropout(torch.softmax(logits, dim=-1).to(v.dtype), rate, generator)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
 class Dense(nn.Linear):
@@ -97,13 +154,23 @@ class FusedLayerNorm(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, dtype=torch.float32):
+    """fc1 -> GELU -> fc2 -> dropout (`dig_tpu/models/layers.py:77-102`).
+    Under `DIG_TPU_FUSED_BIAS_GRAD=1`, decided at every call as the JAX
+    package decides it, fc1's parameters go through `FusedBiasGradDense`."""
+
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x, generator=None):
+        fc1 = self.fc1
+        if fused_bias_grad_enabled():
+            h = fused_dense(x, fc1.weight, fc1.bias, fc1.compute_dtype)
+        else:
+            h = fc1(x)
+        return dropout(self.fc2(gelu(h)), self.dropout, generator)
 
 
 class Attention(nn.Module):
@@ -111,9 +178,11 @@ class Attention(nn.Module):
     is [q_bias, 0, v_bias] (modeling_finetune.py:63-125)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
-                 qk_scale: Optional[float] = None, dtype=torch.float32):
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         head_dim = dim // num_heads
         self.scale = qk_scale or head_dim**-0.5
         self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
@@ -124,43 +193,52 @@ class Attention(nn.Module):
             self.q_bias = self.v_bias = None
         self.proj = Dense(dim, dim, dtype=dtype)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         qkv = self.qkv(x)
         if self.q_bias is not None:
             bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
             qkv = qkv + bias.to(qkv.dtype)
-        # the kernels read q, k, v as column slices of the packed projection
-        # and write their gradients into one [B, L, 3C] tensor the same way
-        return self.proj(multi_head_attention_qkv(qkv, self.num_heads, self.scale))
+        if self.attn_drop > 0.0 and generator is not None:
+            b, n, c3 = qkv.shape
+            out = attention_with_dropout(*split_heads(qkv, self.num_heads), None, self.scale,
+                                         self.attn_drop, generator).reshape(b, n, c3 // 3)
+        else:
+            # the kernels read q, k, v as column slices of the packed projection
+            # and write their gradients into one [B, L, 3C] tensor the same way
+            out = multi_head_attention_qkv(qkv, self.num_heads, self.scale)
+        return dropout(self.proj(out), self.proj_drop, generator)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block with optional layerscale
-    (modeling_finetune.py:128-170)."""
+    """Pre-LN transformer block with optional layerscale and drop-path
+    (modeling_finetune.py:128-170); `drop` is the rate of the projection's
+    and the Mlp's dropout."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
-                 init_values: float = 0.0, ln_eps: float = 1e-6, dtype=torch.float32):
+                 init_values: float = 0.0, ln_eps: float = 1e-6, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path_rate: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.norm1 = FusedLayerNorm(dim, ln_eps, dtype)
-        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype)
+        self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, attn_drop, drop, dtype)
         self.norm2 = FusedLayerNorm(dim, ln_eps, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop, dtype)
+        self.drop_path_rate = drop_path_rate
         if init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
             self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def forward(self, x):
-        a = self.attn(self.norm1(x))
+    def forward(self, x, generator=None):
+        a = self.attn(self.norm1(x), generator)
         if self.gamma_1 is not None:
             a = self.gamma_1.to(a.dtype) * a
-        x = x + a
-        m = self.mlp(self.norm2(x))
+        x = x + drop_path(a, self.drop_path_rate, generator)
+        m = self.mlp(self.norm2(x), generator)
         if self.gamma_2 is not None:
             m = self.gamma_2.to(m.dtype) * m
-        return x + m
+        return x + drop_path(m, self.drop_path_rate, generator)
 
 
 class CrossAttention(nn.Module):
@@ -200,7 +278,7 @@ class CrossBlock(nn.Module):
         self.norm1 = LayerNorm(dim, ln_eps, dtype)
         self.attn = CrossAttention(dim, num_heads, dtype)
         self.norm2 = LayerNorm(dim, ln_eps, dtype)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype)
 
     def forward(self, x, kv=None):
         xq = self.norm1(x)

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from dig_tpu_torch.models.decoder import TFDecoder, create_decoder
-from dig_tpu_torch.models.layers import Dense, LayerNorm, PatchEmbed
+from dig_tpu_torch.models.layers import Dense, LayerNorm, PatchEmbed, training_generator
 from dig_tpu_torch.models.registry import create_model
 
 
@@ -37,23 +37,30 @@ class RecModel(nn.Module):
         self.decoder = decoder
         self.use_1d_attdec = use_1d_attdec
 
-    def _raw_encode(self, images):
-        enc = self.encoder(images)
+    def _raw_encode(self, images, generator=None):
+        enc = self.encoder(images, generator)
         if self.use_1d_attdec:
             b, n, c = enc.shape
             gh, gw = self.encoder.patch_shape
             enc = enc.reshape(b, gh, gw, c).mean(dim=1)
         return enc
 
-    def forward(self, images, targets, tgt_lens):
-        """Teacher-forced pass -> [B, T, num_classes] logits."""
-        return self.decoder(self.linear_norm(self._raw_encode(images)), targets, tgt_lens)
+    def forward(self, images, targets, tgt_lens, deterministic: bool = False, generator=None):
+        """Teacher-forced pass -> [B, T, num_classes] logits
+        (`dig_tpu/models/rec_model.py:88-99`).  A training pass
+        (`deterministic=False`) draws the dropout and drop-path masks of
+        the encoder and the decoder from `generator`."""
+        generator = training_generator(deterministic, generator)
+        enc = self._raw_encode(images, generator)
+        return self.decoder(self.linear_norm(enc), targets, tgt_lens, deterministic, generator)
 
     @torch.no_grad()
     def recognize(self, images, beam_width: int = 0, eos: int = 94):
         """Images in [-1, 1], [B, H, W, 3] -> (per-step softmax [B, T, C]
-        fp32, greedy ids [B, T]).  Greedy only in this slice; the decode
-        always runs `max_seq_len` steps, so `eos` is not read."""
+        fp32, greedy ids [B, T]), deterministic.  Greedy only in this
+        slice; the decode always runs `max_seq_len` steps, which is what
+        the JAX package does for `eos < 0` (the eval step's full-length
+        decode), so `eos` is not read."""
         if beam_width > 0:
             raise NotImplementedError("beam search is not ported yet (greedy only)")
         return self.decoder.greedy_decode(self.linear_norm(self._raw_encode(images)))
@@ -89,16 +96,21 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_rec_model(model_name: str = "vit_small_patch4_32x128",
                     decoder_name: str = "tf_decoder", nb_classes: int = 97,
-                    max_len: int = 25, use_1d_attdec: bool = False,
+                    max_len: int = 25, drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                    drop_path_rate: float = 0.0, use_1d_attdec: bool = False,
                     use_mean_pooling: bool = True, dtype=torch.float32,
-                    model_kind: str = "rec", seed: int = 0,
-                    device="cuda") -> RecModel:
+                    model_kind: str = "rec", seed: int = 0, device="cuda") -> RecModel:
     """Build a recognizer with random weights from `seed` (made on the CPU,
     so one seed gives the same weights on every device), then move it to
-    `device`.  Only ``model_kind="rec"`` is ported so far."""
+    `device`.  The encoder's rates are the fine-tuning CLI's `--drop`,
+    `--attn_drop_rate` and `--drop_path` (`dig_tpu/cli/run_finetune.py:54-71`);
+    the decoder's dropout is 0.1, as the JAX package hard-codes it.  Only
+    ``model_kind="rec"`` is ported so far."""
     if model_kind != "rec":
         raise NotImplementedError(f"model_kind {model_kind!r} is not ported yet (rec only)")
-    encoder = create_model(model_name, use_mean_pooling=use_mean_pooling, dtype=dtype)
+    encoder = create_model(model_name, use_mean_pooling=use_mean_pooling, drop_rate=drop_rate,
+                           attn_drop_rate=attn_drop_rate, drop_path_rate=drop_path_rate,
+                           dtype=dtype)
     decoder = create_decoder(decoder_name, nb_classes, max_len, dtype=dtype)
     model = RecModel(encoder, decoder, use_1d_attdec, dtype)
     init_weights(model, torch.Generator().manual_seed(seed))

@@ -1,8 +1,11 @@
 """ViT encoders (PyTorch), counterparts of `dig_tpu/models/vit.py`:
 
 * `VisionTransformer` on its feature-map path: [B, 32, 128, 3] images ->
-  [B, 256, C] token map (modeling_finetune.py:213-366).  Sequence cls
-  tokens and memory slots wait for a later slice.
+  [B, 256, C] token map (modeling_finetune.py:213-366), with the
+  fine-tuning recipe's dropout after the position table, per-block
+  projection / Mlp dropout and attention dropout, and drop-path rates
+  rising linearly over the depth.  Sequence cls tokens and memory slots
+  wait for a later slice.
 * `PretrainViTEncoder`, the SimMIM encoder of the pre-training step: all
   tokens kept, masked positions replaced by a learned mask token *before*
   the position table is added (modeling_pretrain_vit.py:27-111), with the
@@ -16,10 +19,17 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from dig_tpu_torch.models.layers import Block, LayerNorm, PatchEmbed, sinusoid_position_table
+from dig_tpu_torch.models.layers import (
+    Block,
+    LayerNorm,
+    PatchEmbed,
+    dropout,
+    sinusoid_position_table,
+)
 from dig_tpu_torch.models.registry import register_model
 
 
@@ -27,18 +37,23 @@ class VisionTransformer(nn.Module):
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: int = 4,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, init_values: float = 0.0,
-                 use_mean_pooling: bool = True, dtype=torch.float32):
+                 qk_scale: Optional[float] = None, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 init_values: float = 0.0, use_mean_pooling: bool = True, dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
+        self.drop_rate = drop_rate
         self.patch_embed = PatchEmbed(img_size, patch_size, 3, embed_dim, dtype)
         self.register_buffer(
             "pos_table",
             torch.from_numpy(sinusoid_position_table(self.patch_embed.num_patches, embed_dim)),
             persistent=False)
+        # drop-path rising linearly over the depth (dig_tpu/models/vit.py:123)
+        dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale, init_values, dtype=dtype)
-            for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale, init_values,
+                  drop=drop_rate, attn_drop=attn_drop_rate, drop_path_rate=dpr[i], dtype=dtype)
+            for i in range(depth))
         # the feature-map path has no final norm under mean pooling
         # (modeling_finetune.py:280, :354-355)
         self.norm = None if use_mean_pooling else LayerNorm(embed_dim, 1e-6, dtype)
@@ -47,11 +62,17 @@ class VisionTransformer(nn.Module):
     def patch_shape(self):
         return self.patch_embed.patch_shape
 
-    def forward(self, x):
+    @property
+    def depth(self):
+        return len(self.blocks)
+
+    def forward(self, x, generator=None):
+        """`generator` draws the dropout and drop-path masks of a training
+        pass; None is the deterministic pass."""
         x = self.patch_embed(x)
-        x = x + self.pos_table.to(x.dtype)
+        x = dropout(x + self.pos_table.to(x.dtype), self.drop_rate, generator)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         if self.norm is not None:
             x = self.norm(x)
         return x

@@ -6,8 +6,9 @@ use, for Hopper only:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <build>/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  The build
+The library name carries a hash of the source, of the shared headers
+(`csrc/*.cuh`) and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  The build
 directory, `dig_tpu_torch/ops/_build/`, is listed in `.gitignore`.  Nothing
 here runs at import: the CPU tests import every module on machines without
 the CUDA toolkit.  Each C entry returns `cudaGetLastError()` after its
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

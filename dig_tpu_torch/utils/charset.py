@@ -1,7 +1,7 @@
 """Character vocabulary for decoding predictions.
 
-A copy of the parts of `dig_tpu.utils.charset` that inference uses
-(the port imports nothing of the JAX package).  Semantics follow the
+A copy of the parts of `dig_tpu.utils.charset` that inference and the
+eval metrics use (the port imports nothing of the JAX package).  Semantics follow the
 reference vocabulary (dataset/dataset_lmdb.py:75-97): three voc types,
 with EOS, PADDING and UNKNOWN appended in that order; the decoders' BOS
 id is ``num_classes``.
@@ -55,6 +55,13 @@ class Charset:
                 continue
             out.append(self.classes[i])
         return "".join(out)
+
+
+def normalize_text(text: str) -> str:
+    """Case-insensitive alphanumeric normalization used by all string metrics
+    (reference: evaluation_metric/metrics.py:14-16)."""
+    alnum = string.digits + string.ascii_letters
+    return "".join(ch for ch in text if ch in alnum).lower()
 
 
 def build_charset(voc_type: str = "ALLCASES_SYMBOLS", max_len: int = 25) -> Charset:

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card: the
+stored-statistics and the recompute attention pairs, the LayerNorm pair
+and the column sum.
 
 Marked `cuda`: they skip without a card.  This file imports neither JAX
 nor `dig_tpu`, so it runs on the card's machine, which has no JAX:
@@ -174,5 +176,136 @@ def test_block_backward_reaches_every_parameter_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert (tattn.attention_lse_bwd.launches, tln.layer_norm_bwd.launches) == (
         counts[0] + 1, counts[1] + 2)
+    for name, p in list(blk.named_parameters()) + [("x", x)]:
+        assert p.grad is not None and torch.isfinite(p.grad.float()).all(), name
+
+
+# the opt-in kernels: the recompute attention pair and the column sum
+
+BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)  # see test_recompute_attention_fwd_matches_plain_version
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bf16_exp", [(torch.float32, False), (torch.bfloat16, False),
+                                            (torch.bfloat16, True)])
+@pytest.mark.parametrize("b,lq,lk,h,d", [
+    (256, 256, 256, 6, 64),  # the pretrain step's sequences, ViT-S heads
+    (3, 200, 130, 2, 32),    # ragged query block and key chunk
+    (2, 128, 320, 4, 128),   # widest head the kernel takes
+])
+def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype, bf16_exp,
+                                                        b, lq, lk, h, d):
+    """`attention_fwd` on strided column slices.  Without BF16_EXP its
+    output is the stored-statistics kernel's bit for bit (one kernel, the
+    same sums).  With it, the plain version's logits sum in another order,
+    so the bf16 rounding of an exponent input may go the other way: one
+    bf16 ulp of o (rtol 2^-7) plus 2^-8 absolute for the shift one flipped
+    exponential gives a row."""
+    monkeypatch.setattr(tattn, "BF16_EXP", bf16_exp)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    c = h * d
+    q = torch.randn(b, lq, 3 * c, generator=gen, device="cuda").to(dtype)[..., :c].view(b, lq, h, d)
+    kv = torch.randn(b, lk, 3 * c, generator=gen, device="cuda").to(dtype)
+    k, v = (kv[..., i * c:(i + 1) * c].view(b, lk, h, d) for i in (1, 2))
+    n = tattn.attention_fwd.launches
+    o = tattn.attention_fwd(q, k, v, d**-0.5)
+    torch.cuda.synchronize()
+    assert tattn.attention_fwd.launches == n + 1 and o.dtype == dtype
+    ref = tattn.attention_fwd_ref(q, k, v, d**-0.5)
+    torch.testing.assert_close(o.float(), ref.float(), **(BF16_EXP_TOL if bf16_exp else TOL[dtype]))
+    if not bf16_exp:
+        assert torch.equal(o, tattn.attention_lse_fwd(q, k, v, d**-0.5)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,h,d", [
+    (256, 256, 256, 6, 64),
+    (3, 200, 130, 2, 32),
+    (2, 128, 320, 4, 128),
+])
+def test_recompute_attention_bwd_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
+    """`attention_bwd` writing into the column slices of one packed
+    gradient, against its plain version (`BWD_RTOL`), and bit for bit
+    against the stored-statistics backward on the same inputs: the dq pass
+    takes m and s in the forward kernel's order."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    c = h * d
+    qkv = torch.randn(b, lq, 3 * c, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(b, lk, 3 * c, generator=gen, device="cuda").to(dtype)
+    q = qkv[..., :c].view(b, lq, h, d)
+    k, v = (kv[..., i * c:(i + 1) * c].view(b, lk, h, d) for i in (1, 2))
+    do = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(dtype)
+    dqkv = torch.zeros(b, max(lq, lk), 3 * c, device="cuda", dtype=dtype)
+    out = (dqkv[:, :lq, :c].view(b, lq, h, d),
+           dqkv[:, :lk, c:2 * c].view(b, lk, h, d), dqkv[:, :lk, 2 * c:].view(b, lk, h, d))
+    n = tattn.attention_bwd.launches
+    got = tattn.attention_bwd(q, k, v, do, d**-0.5, out=out)
+    torch.cuda.synchronize()
+    assert tattn.attention_bwd.launches == n + 1
+    assert all(g.data_ptr() == o.data_ptr() for g, o in zip(got, out))
+    for g, r in zip(got, tattn.attention_bwd_ref(q, k, v, do, d**-0.5)):
+        assert torch.isfinite(g.float()).all()
+        _close_to_max(g, r, BWD_RTOL[dtype])
+    _, m, s = tattn.attention_lse_fwd(q, k, v, d**-0.5)
+    for g, r in zip(got, tattn.attention_lse_bwd(q, k, v, do, m, s, d**-0.5)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(65536, 1536), (65836, 1536), (1024, 256), (1100, 392),
+                                 (513, 8)])
+def test_column_sum_kernel_matches_plain_version(cuda, dtype, n, c):
+    """fp32 column sums over 512-row chunks (the last one ragged) against
+    the plain fp32 sum: the same values summed in another order, ~1e-6 of
+    the largest sum."""
+    from dig_tpu_torch.ops import fused_dense as tfd
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(n, c, generator=gen, device="cuda").to(dtype)
+    k = tfd.column_sum.launches
+    got = tfd.column_sum(x)
+    torch.cuda.synchronize()
+    assert tfd.column_sum.launches == k + 1 and got.dtype == torch.float32
+    _close_to_max(got, tfd.column_sum_ref(x), 1e-5)
+    assert torch.equal(got, tfd.column_sum(x))  # no atomics: the same every run
+
+
+@pytest.mark.cuda
+def test_opt_in_wrappers_refuse_what_they_cannot_take(cuda):
+    from dig_tpu_torch.ops import fused_dense as tfd
+
+    with pytest.raises(ValueError):
+        tfd.column_sum(torch.zeros(2048, 12, device="cuda", dtype=torch.bfloat16))  # 12 % 8
+    with pytest.raises(ValueError):
+        tfd.column_sum(torch.zeros(2048, 512, device="cuda")[:, :256])  # not contiguous
+    with pytest.raises(TypeError):
+        tfd.column_sum(torch.zeros(2048, 256, device="cuda", dtype=torch.float16))
+    q = torch.zeros(1, 128, 2, 48, device="cuda")  # head_dim 48
+    with pytest.raises(ValueError):
+        tattn.attention_fwd(q, q, q, 0.1)
+    with pytest.raises(ValueError):
+        tattn.attention_bwd(q, q, q, q, 0.1)
+
+
+@pytest.mark.cuda
+def test_block_backward_under_the_switches_goes_through_the_opt_in_kernels(cuda, monkeypatch):
+    """A ViT block at 4 x 256 = 1,024 rows under DIG_TPU_ATTN_STORE_LSE=0
+    and DIG_TPU_FUSED_BIAS_GRAD=1: the recompute pair and the column sum,
+    not the stored-statistics pair, and a finite gradient everywhere."""
+    from dig_tpu_torch.ops import fused_dense as tfd
+
+    monkeypatch.setenv("DIG_TPU_ATTN_STORE_LSE", "0")
+    monkeypatch.setenv("DIG_TPU_FUSED_BIAS_GRAD", "1")
+    torch.manual_seed(0)
+    blk = Block(384, 6, qkv_bias=True, dtype=torch.bfloat16).cuda()
+    x = torch.randn(4, 256, 384, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+    fns = (tattn.attention_fwd, tattn.attention_bwd, tfd.column_sum, tattn.attention_lse_fwd,
+           tattn.attention_lse_bwd)
+    before = [f.launches for f in fns]
+    blk(x).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1, 0, 0]
     for name, p in list(blk.named_parameters()) + [("x", x)]:
         assert p.grad is not None and torch.isfinite(p.grad.float()).all(), name

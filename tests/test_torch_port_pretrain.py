@@ -8,7 +8,9 @@ width-128 model (2 heads x 64, depth 2, mlp_dim 96, dim 16, 4 windows) at
 batch 2: its encoder has 2 * 2 * 256 = 1024 LayerNorm rows and L = 256,
 so the port's CPU path goes through both kernel-pair autograd Functions
 (with their plain backward versions), while the JAX CPU path takes plain
-autodiff of `_ref_attention` and `_ln_ref`.  Everything is fp32; each
+autodiff of `_ref_attention` and `_ln_ref`.  The step runs twice: as is,
+and under the opt-in switches `DIG_TPU_ATTN_STORE_LSE=0` and
+`DIG_TPU_FUSED_BIAS_GRAD=1`, held against the same JAX step.  Everything is fp32; each
 tolerance is stated where it is used."""
 
 import jax
@@ -29,6 +31,7 @@ from dig_tpu_torch.models import moco as tmoco
 from dig_tpu_torch.models.layers import CrossBlock as TCrossBlock
 from dig_tpu_torch.models.registry import create_model as t_create_model
 from dig_tpu_torch.ops import attention as tattn
+from dig_tpu_torch.ops import fused_dense as tfd
 from dig_tpu_torch.ops import layernorm as tln
 from dig_tpu_torch.optim import AdamW
 from dig_tpu_torch.train.pretrain import init_pretrain_state, make_pretrain_step
@@ -280,21 +283,77 @@ def test_model_forward_matches_jax(jax_run):
         _close_to_max(_np(got), np.asarray(want), 1e-4)
 
 
-@pytest.fixture(scope="module")
-def port_run(jax_run):
+def _run_port_step(jax_run):
     model = _port_model(jax_run)
     opt = AdamW(model.named_parameters(), jax_run["lr"], jax_run["wd"], eps=OPT_EPS)
     state = TrainState(model=model, optimizer=opt)
     step = make_pretrain_step(model, np.full(4, MOM, np.float32), np.full(4, CW, np.float32))
-    counts = (tattn.attention_lse_fwd.launches, tattn.attention_lse_bwd.launches,
-              tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches)
     state, metrics = step(state, jax_run["batch"])
-    assert counts == (tattn.attention_lse_fwd.launches, tattn.attention_lse_bwd.launches,
-                      tln.layer_norm_fwd.launches, tln.layer_norm_bwd.launches)
     return dict(model=model, state=state, metrics={k: float(v) for k, v in metrics.items()})
 
 
+_WRAPPERS = ((tattn, "attention_lse_fwd"), (tattn, "attention_lse_bwd"), (tattn, "attention_fwd"),
+             (tattn, "attention_bwd"), (tln, "layer_norm_fwd"), (tln, "layer_norm_bwd"),
+             (tfd, "column_sum"))
+
+
+def _run_counting_calls(jax_run, env):
+    """The port's step under `env`, counting the calls of every kernel
+    wrapper (on the CPU each takes its plain version and counts no launch)."""
+    calls = dict.fromkeys((name for _, name in _WRAPPERS), 0)
+
+    def counting(name, real):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return real(*args, **kwargs)
+        return wrapper
+
+    launches = [getattr(mod, name).launches for mod, name in _WRAPPERS]
+    with pytest.MonkeyPatch.context() as mp:
+        for key, value in env.items():
+            mp.setenv(key, value)
+        for mod, name in _WRAPPERS:
+            mp.setattr(mod, name, counting(name, getattr(mod, name)))
+        run = _run_port_step(jax_run)
+    assert launches == [getattr(mod, name).launches for mod, name in _WRAPPERS]
+    return run, calls
+
+
+@pytest.fixture(scope="module")
+def port_run(jax_run):
+    run, calls = _run_counting_calls(jax_run, {})
+    # depth 2: 2 student + 2 momentum forwards, 2 backwards; 2 x 2 norms
+    assert calls == dict(attention_lse_fwd=4, attention_lse_bwd=2, attention_fwd=0,
+                         attention_bwd=0, layer_norm_fwd=8, layer_norm_bwd=4, column_sum=0)
+    return run
+
+
+@pytest.fixture(scope="module")
+def port_run_opt_in(jax_run):
+    """The same step under `DIG_TPU_ATTN_STORE_LSE=0` and
+    `DIG_TPU_FUSED_BIAS_GRAD=1`.  The JAX step's result serves both runs:
+    off the TPU the JAX package takes `_ref_attention` and the plain column
+    sum whatever its switches say."""
+    run, calls = _run_counting_calls(jax_run, {"DIG_TPU_ATTN_STORE_LSE": "0",
+                                               "DIG_TPU_FUSED_BIAS_GRAD": "1"})
+    # the recompute pair instead of the stored-statistics one; each encoder
+    # block's fc1 has 2B x 256 = 1,024 rows and takes the column sum, the
+    # window extractor's (2B x 4 windows = 16 rows) the plain sum under the
+    # gate, and the momentum branch runs no backward
+    assert calls == dict(attention_lse_fwd=0, attention_lse_bwd=0, attention_fwd=4,
+                         attention_bwd=2, layer_norm_fwd=8, layer_norm_bwd=4, column_sum=2)
+    return run
+
+
 def test_pretrain_step_loss_matches_jax(jax_run, port_run):
+    _check_loss(jax_run, port_run)
+
+
+def test_pretrain_step_loss_matches_jax_under_switches(jax_run, port_run_opt_in):
+    _check_loss(jax_run, port_run_opt_in)
+
+
+def _check_loss(jax_run, port_run):
     got, want = port_run["metrics"], jax_run["metrics"]
     assert sorted(got) == sorted(want) == sorted(
         ["loss", "loss_contrast", "loss_pixel", "q1_acc1", "q1_acc5", "q2_acc1", "q2_acc5",
@@ -308,6 +367,14 @@ def test_pretrain_step_loss_matches_jax(jax_run, port_run):
 
 
 def test_pretrain_step_gradients_match_jax(jax_run, port_run):
+    _check_gradients(jax_run, port_run)
+
+
+def test_pretrain_step_gradients_match_jax_under_switches(jax_run, port_run_opt_in):
+    _check_gradients(jax_run, port_run_opt_in)
+
+
+def _check_gradients(jax_run, port_run):
     """Every student gradient leaf, relative to that leaf's max |g|.  fp32
     rounding, amplified by the batch normalisations over 8-16 rows and by
     the InfoNCE softmax at T = 0.2, stays below 1e-4 of each leaf's size.
@@ -326,6 +393,14 @@ def test_pretrain_step_gradients_match_jax(jax_run, port_run):
 
 
 def test_pretrain_step_ema_and_update_match_jax(jax_run, port_run):
+    _check_ema_and_update(jax_run, port_run)
+
+
+def test_pretrain_step_ema_and_update_match_jax_under_switches(jax_run, port_run_opt_in):
+    _check_ema_and_update(jax_run, port_run_opt_in)
+
+
+def _check_ema_and_update(jax_run, port_run):
     """The momentum branch after the EMA (m = 0.5, before its forward) and
     the parameters after one AdamW step."""
     state = port_run["model"].state_dict()
