@@ -6,15 +6,18 @@
 1. Prints the card's name and power limit, builds every CUDA kernel of
    the port from `dig_tpu_torch/ops/csrc/` (one nvcc per source, all
    started together) and prints each build's ptxas summary.
-2. Holds each kernel against its plain PyTorch version, in bf16 and fp32:
-   the stored-statistics attention forward and the LayerNorm forward at
-   the predict path's shapes (B=512, 256 tokens, width 384, 6 heads x 64);
+2. Holds each kernel against its plain PyTorch version, in bf16 and fp32
+   (the attention forward's bf16 body runs on the tensor cores, its fp32
+   body on the FMA pipes): the stored-statistics attention forward and the
+   LayerNorm forward at the predict path's shapes (B=512, 256 tokens,
+   width 384, 6 heads x 64);
    the backward kernels, the recompute attention pair (both branches of
    its forward) and the column sum at the pre-training step's shapes
    (B=256 sequences: 2 views x 128 images; LayerNorm rows 65,536 x 384; the
    fc1 bias gradient 65,536 x 1536, and a ragged row count); and times the
    kernel, the plain version and one PyTorch library call for the same
-   function (a yardstick the port never calls).
+   function (a yardstick the port never calls), with the share of the
+   bound each kernel reaches.
 3. Runs the predict path at full width (vit_small_patch4_32x128 +
    tf_decoder, bf16, batch 512, random weights from a seed) on synthetic
    uint8 batches through the entry points a user calls, and asserts from
@@ -56,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -110,11 +114,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 F
 # at most 2^-7 of the value)
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-4)}
 STAT_TOL = dict(rtol=1e-4, atol=1e-4)  # m and s, fp32 in both dtypes
-# the recompute forward's BF16_EXP branch: the plain version's logits sum in
-# another order, so the bf16 rounding of an exponent input may go the other
-# way: one bf16 ulp of o (rtol 2^-7) plus 2^-8 absolute for the shift one
-# flipped exponential gives its row
+# the attention forward's o in bf16 (every mode): its logits are tensor-core
+# sums, in another order than the plain version's fp32 sums, so the bf16
+# rounding of an exponential (e for the second product, or with BF16_EXP an
+# exponent input) may go the other way: one bf16 ulp of o (rtol 2^-7) plus
+# 2^-8 absolute for the shift one flipped exponential gives its row
 BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)
+FWD_TOL = {"float32": TOL["float32"], "bfloat16": BF16_EXP_TOL}
+# the bf16 forward kernels' times before the tensor-core body (the FMA body,
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside the new ones
+FMA_BODY_MS = {"attention_lse_fwd": 2.8060, "attention_fwd": 1.5702,
+               "attention_fwd_bf16_exp": 1.5991}
+DESIGN = {"attention_lse_fwd": "mma.sync bf16 / FMA fp32", "attention_fwd": "mma.sync bf16 / FMA fp32",
+          "attention_lse_bwd": "FMA fp32 from shared memory",
+          "attention_bwd": "FMA fp32 from shared memory",
+          "layer_norm_fwd": "warp per row, two-pass variance",
+          "layer_norm_bwd": "warp per row, partial dgamma / dbeta rows",
+          "column_sum": "512-row chunk partials, then their sum"}
 # column sums of 65,536 values: fp32 sums in another order (512-row chunks,
 # then their partials; the plain version and the library their own trees),
 # within 1e-5 of the largest sum
@@ -166,8 +182,28 @@ def bound(nbytes, flops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fma_body_text(name, key):
+    """The bf16 FMA body's time beside the new one, as text."""
+    old = FMA_BODY_MS.get(name + key[len("bfloat16"):]) if key.startswith("bfloat16") else None
+    return f"; the FMA body took {old:.4f} ms (PERF.md)" if old else ""
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def count_beyond(got, ref, tol):
+    """How many elements of got lie outside tol of ref (assert_close's rule)."""
+    diff = (got.float() - ref.float()).abs()
+    return int((diff > tol["atol"] + tol["rtol"] * ref.float().abs()).sum())
+
+
+def beyond_tol_text(dn, got, ref):
+    """For a bf16 forward: how many of o's elements the flipped bf16
+    roundings of e put outside TOL, inside FWD_TOL."""
+    if dn != "bfloat16":
+        return ""
+    return f" ({count_beyond(got, ref, TOL[dn])} of {got.numel()} outside TOL)"
 
 
 def check_close(name, got, ref, tol):
@@ -189,7 +225,7 @@ def phase_attention(torch, attn, gen):
         o, m, s = attn.attention_lse_fwd(q, k, v, scale)
         torch.cuda.synchronize()
         ro, rm, rs = attn.attention_lse_fwd_ref(q, k, v, scale)
-        err = check_close(f"attention {dn} o", o, ro, TOL[dn])
+        err = check_close(f"attention {dn} o", o, ro, FWD_TOL[dn])
         check_close(f"attention {dn} m", m, rm, STAT_TOL)
         check_close(f"attention {dn} s", s, rs, STAT_TOL)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -201,8 +237,10 @@ def phase_attention(torch, attn, gen):
         bms, by = bound(nbytes, 4 * B * H * L * L * D, dn)
         rows[dn] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=lib_ms)
-        print(f"[attention_lse_fwd {dn}] max_abs_err o={err:.3e} m,s ok; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        print(f"[attention_lse_fwd {dn}] max_abs_err o={err:.3e}{beyond_tol_text(dn, o, ro)} "
+              f"m,s ok; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{bms / ms:.3f} of the bound{fma_body_text('attention_lse_fwd', dn)}")
         del qkv, q, k, v, o, m, s, ro, rm, rs
     return rows
 
@@ -653,7 +691,7 @@ def phase_pretrain_cpu_parity(torch, np, tag, want):
 
 def phase_attention_recompute(torch, attn, gen):
     """#1 at the pretrain shapes, both branches, against its plain
-    version; without BF16_EXP its output should equal the stored-statistics
+    version; without BF16_EXP its output must equal the stored-statistics
     forward's bit for bit (one kernel body)."""
     rows = {}
     scale = D**-0.5
@@ -667,19 +705,22 @@ def phase_attention_recompute(torch, attn, gen):
             o = attn.attention_fwd(q, k, v, scale)
             torch.cuda.synchronize()
             ro = attn.attention_fwd_ref(q, k, v, scale)
-            err = check_close(f"attention_fwd {key} o", o, ro, BF16_EXP_TOL if bf16_exp else TOL[dn])
+            err = check_close(f"attention_fwd {key} o", o, ro, FWD_TOL[dn])
             ms = time_ms(lambda: attn.attention_fwd(q, k, v, scale))
             plain_ms = time_ms(lambda: attn.attention_fwd_ref(q, k, v, scale), iters=3)
         same = bool(torch.equal(o, attn.attention_lse_fwd(q, k, v, scale)[0]))
+        check(same or bf16_exp, f"attention_fwd {key}: o differs from attention_lse_fwd's o")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
         nbytes = 4 * b * L * C * qkv.element_size()  # q, k, v in; o out
         bms, by = bound(nbytes, 4 * b * H * L * L * D, dn)
         rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib_ms)
-        print(f"[attention_fwd {key}] B={b} L={L} H={H} D={D}: max_abs_err o={err:.3e}; "
+        print(f"[attention_fwd {key}] B={b} L={L} H={H} D={D}: max_abs_err o={err:.3e}"
+              f"{beyond_tol_text(dn, o, ro)}; "
               f"bitwise equal to attention_lse_fwd's o: {same}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{bms / ms:.3f} of the bound{fma_body_text('attention_fwd', key)}")
         del qkv, q, k, v, o, ro, qt, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -687,8 +728,9 @@ def phase_attention_recompute(torch, attn, gen):
 
 def phase_attention_bwd_recompute(torch, attn, gen):
     """#2 at the pretrain shapes against its plain version, timed beside
-    SDPA's backward; prints whether it equals #4 bit for bit on the same
-    inputs (a check of the design, not a gate)."""
+    SDPA's backward; prints how far it is from #4 on the same inputs (a
+    check of the design, not a gate): bit for bit in fp32; in bf16 #4 reads
+    the tensor-core forward's m and s, so within BWD_RTOL."""
     rows = {}
     scale = D**-0.5
     b = PRE_B
@@ -713,6 +755,7 @@ def phase_attention_bwd_recompute(torch, attn, gen):
         _, m, s = attn.attention_lse_fwd(q, k, v, scale)
         lse = attn.attention_lse_bwd(q, k, v, do, m, s, scale)
         same = all(bool(torch.equal(a, c)) for a, c in zip(out, lse))
+        to_lse = max(rel_err(a, c) for a, c in zip(out, lse))
         del lse, m, s
         ms = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale, out=out), iters=5)
         plain_ms = time_ms(lambda: attn.attention_bwd_ref(q, k, v, do, scale), iters=2, warmup=1)
@@ -727,7 +770,7 @@ def phase_attention_bwd_recompute(torch, attn, gen):
                         bound_by=by, library_ms=lib_ms)
         print(f"[attention_bwd {dn}] B={b} L={L} H={H} D={D}: max_abs_err "
               f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}; bitwise equal to "
-              f"attention_lse_bwd: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"attention_lse_bwd: {same} ({to_lse:.2e} of max |grad| apart); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         del qkv, q, k, v, do, dqkv, out, qt, kt, vt, o, dot
         torch.cuda.empty_cache()
@@ -911,7 +954,32 @@ def phase_finetune_cpu_parity(torch, np):
           f"{ {k: v for k, v in FT_PER_STEP_RATES0.items() if v} }")
 
 
+FWD_MODES = ("kStats", "kPlain", "kBf16Exp")
+
+
+def ptxas_kernels(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of one
+    build's ptxas report, a forward body's name as attn_fwd_mma_kernel<D=64,
+    kStats>."""
+    kernels, name, spills = [], "", (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            m = re.search(r"(attn_fwd_(?:mma|fma)_kernel)ILi(\d+)ELNS_7FwdModeE(\d)E", name)
+            name = (f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}>" if m
+                    else name[name.find("attn") if "attn" in name else 0:][:60])
+        elif "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            spills = (int(m[1]), int(m[2]))
+        elif "Used" in line and "registers" in line:
+            kernels.append((name, int(line.split("Used")[1].split()[0]), *spills))
+    return kernels
+
+
 def print_ptxas():
+    """Each build's registers, shared memory and spills; every forward
+    instantiation by name.  Fails if a bf16 (tensor-core) forward at D=64,
+    the model's head_dim, spills."""
     from dig_tpu_torch.ops import _build
 
     for name in SOURCES:
@@ -919,20 +987,21 @@ def print_ptxas():
             print(f"[ptxas {name}] library already built; no report")
             continue
         log = _build.BUILD_LOGS[name]
-        regs = [int(w) for line in log.splitlines() if "Used" in line and "registers" in line
-                for w in [line.split("Used")[1].split()[0]]]
+        kernels = ptxas_kernels(log)
+        check(kernels, f"no ptxas report for {name}")
+        regs = [k[1] for k in kernels]
         smem = sorted({int(line.split("bytes smem")[0].split()[-1])
                        for line in log.splitlines() if "bytes smem" in line})
-        spills, kernel = [], ""
-        for line in log.splitlines():
-            if "Function properties for" in line:
-                kernel = line.split("Function properties for")[1].strip()
-            elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
-                # the mangled name from its kernel's name on: template arguments included
-                spills.append(kernel[kernel.find("kernel"):] + ": " + line.strip())
-        check(regs, f"no ptxas report for {name}")
+        spills = [f"{k}: {st} bytes spill stores, {ld} bytes spill loads"
+                  for k, _, st, ld in kernels if st or ld]
         print(f"[ptxas {name}] {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"static smem bytes {smem or [0]}, {len(spills)} with spills {spills}")
+        for k, r, st, ld in kernels:
+            if k.startswith("attn_fwd_"):
+                print(f"[ptxas {name}]   {k}: {r} registers, {st} / {ld} bytes spilled "
+                      f"(stores / loads)")
+                check(not (k.startswith("attn_fwd_mma_kernel<D=64") and (st or ld)),
+                      f"{k} spills")
 
 
 def main():
@@ -999,16 +1068,18 @@ def main():
     def row(name, source, replaces, measured, path):
         return dict(name=name, route="cuda", source=f"dig_tpu_torch/ops/csrc/{source}.cu",
                     replaces=replaces, launches=paths[path][name],
-                    launches_by_path={p: c[name] for p, c in paths.items()}, **measured)
+                    launches_by_path={p: c[name] for p, c in paths.items()}, design=DESIGN[name],
+                    bound_share=measured["bound_ms"] / measured["ms"], **measured)
 
     kernels = [
         row("attention_fwd", "attention_fwd", "dig_tpu/ops/attention.py:65",
-            dict(rec_rows["bfloat16"], bf16_exp=rec_rows["bfloat16_bf16_exp"]),
+            dict(rec_rows["bfloat16"], bf16_exp=rec_rows["bfloat16_bf16_exp"],
+                 float32=rec_rows["float32"]),
             "pretrain_switches"),
         row("attention_bwd", "attention_bwd", "dig_tpu/ops/attention.py:111",
             rec_bwd_rows["bfloat16"], "pretrain_switches"),
         row("attention_lse_fwd", "attention_lse_fwd", "dig_tpu/ops/attention.py:275",
-            attn_rows["bfloat16"], "pretrain"),
+            dict(attn_rows["bfloat16"], float32=attn_rows["float32"]), "pretrain"),
         row("attention_lse_bwd", "attention_lse_bwd", "dig_tpu/ops/attention.py:299",
             attn_bwd_rows["bfloat16"], "pretrain"),
         row("layer_norm_fwd", "layernorm_fwd", "dig_tpu/ops/layernorm.py:44", ln_rows["bfloat16"],

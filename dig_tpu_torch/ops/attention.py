@@ -26,8 +26,10 @@ picks it at trace time (`DIG_TPU_ATTN_STORE_LSE`, default "1"):
 
 The TPU's VMEM bound is replaced by what the CUDA kernels accept: head_dim
 in (32, 64, 128), a float32 or bfloat16 input, and the shared memory of
-one CTA (the forward's 64 x Lk fp32 score tile, the backward's two)
-within 227 KB.  The TPU block-size knobs (`DIG_TPU_ATTN_ROWS`,
+one CTA of the FMA bodies (the fp32 forward's 64 x Lk score tile, the
+backward's two) within 227 KB; the bf16 forward runs on the tensor cores
+with no score tile, under the same Lk limit, and needs 16-byte aligned
+rows.  The TPU block-size knobs (`DIG_TPU_ATTN_ROWS`,
 `DIG_TPU_ATTN_BWD_ROWS`, `DIG_TPU_ATTN_PARALLEL`) size Pallas grids and
 have no counterpart here.  On the predict path and the pre-training step
 the pair serves every ViT encoder self-attention (student and momentum
@@ -141,8 +143,9 @@ def attention_bwd_ref(q, k, v, do, scale):
 
 
 def _smem_bytes(head_dim: int, lk: int) -> int:
-    """Shared memory one forward CTA needs: mirror of `fwd_smem_bytes` in
-    csrc/attention_fwd.cuh, which refuses more than the limit too."""
+    """Shared memory one CTA of the fp32 forward body needs: mirror of
+    `fwd_smem_bytes` in csrc/attention_fwd.cuh, whose C entries refuse
+    more than the limit too.  It sets the Lk limit of both dtypes."""
     return 4 * (_BQ * (head_dim + 1) + head_dim * (_KC + 1) + _BQ * (lk + 1) + _BQ)
 
 
@@ -203,6 +206,11 @@ def _fwd_checks(q, k, v, what):
         raise ValueError(f"{what}: head_dim {d} / Lk {lk} not supported")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_head_layout(name, t, d, what)
+        # the bf16 body moves whole rows by 16-byte copies
+        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+                t.stride(i) % 8 for i in (0, 1) if t.shape[i] > 1)):
+            raise ValueError(f"{what}: bf16 {name} needs a 16-byte aligned base and batch "
+                             f"and row strides that are multiples of 8 elements")
     return b, lq, lk, h, d
 
 

@@ -9,7 +9,10 @@ nor `dig_tpu`, so it runs on the card's machine, which has no JAX:
 
 Tolerances as in chip_smoke.py: fp32 results agree to a few ulp (the same
 products summed in another order); a bf16 output may round to the
-neighbouring bf16 value (at most 2^-7 of the value).  The backward
+neighbouring bf16 value (at most 2^-7 of the value).  The bf16 attention
+forward sums its logits on the tensor cores, in another order than the
+plain version, so the bf16 rounding of one of a row's exponentials may go
+the other way (`BF16_EXP_TOL`, as for the bf16-exponential branch).  The backward
 kernels are held relative to each gradient's max |value| (`BWD_RTOL`):
 in bf16 an intermediate rounded to bf16 (ds0, the scaled q and do) may
 round the other way when its fp32 input differs by an ulp, and that moves
@@ -31,6 +34,13 @@ def cuda():
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-4)}
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2**-6}
+# the attention forward's o against the plain version: in bf16 the logits
+# are tensor-core sums in another order, so the bf16 rounding of an
+# exponential (e for the second product, or with BF16_EXP an exponent
+# input) may go the other way: one bf16 ulp of o (rtol 2^-7) plus 2^-8
+# absolute for the shift one flipped exponential gives its row
+BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)
+FWD_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: BF16_EXP_TOL}
 
 
 def _close_to_max(got, ref, rtol):
@@ -57,7 +67,7 @@ def test_attention_kernel_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
     torch.cuda.synchronize()
     assert tattn.attention_lse_fwd.launches == n + 1
     ro, rm, rs = tattn.attention_lse_fwd_ref(q, k, v, d**-0.5)
-    torch.testing.assert_close(o.float(), ro.float(), **TOL[dtype])
+    torch.testing.assert_close(o.float(), ro.float(), **FWD_TOL[dtype])
     torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-4)
 
@@ -182,8 +192,6 @@ def test_block_backward_reaches_every_parameter_through_the_kernels(cuda):
 
 # the opt-in kernels: the recompute attention pair and the column sum
 
-BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)  # see test_recompute_attention_fwd_matches_plain_version
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bf16_exp", [(torch.float32, False), (torch.bfloat16, False),
@@ -195,12 +203,9 @@ BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)  # see test_recompute_attention_fwd_
 ])
 def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype, bf16_exp,
                                                         b, lq, lk, h, d):
-    """`attention_fwd` on strided column slices.  Without BF16_EXP its
-    output is the stored-statistics kernel's bit for bit (one kernel, the
-    same sums).  With it, the plain version's logits sum in another order,
-    so the bf16 rounding of an exponent input may go the other way: one
-    bf16 ulp of o (rtol 2^-7) plus 2^-8 absolute for the shift one flipped
-    exponential gives a row."""
+    """`attention_fwd` on strided column slices, within `FWD_TOL`.  Without
+    BF16_EXP its output is the stored-statistics kernel's bit for bit (one
+    body, the same sums)."""
     monkeypatch.setattr(tattn, "BF16_EXP", bf16_exp)
     gen = torch.Generator(device="cuda").manual_seed(4)
     c = h * d
@@ -212,7 +217,7 @@ def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype,
     torch.cuda.synchronize()
     assert tattn.attention_fwd.launches == n + 1 and o.dtype == dtype
     ref = tattn.attention_fwd_ref(q, k, v, d**-0.5)
-    torch.testing.assert_close(o.float(), ref.float(), **(BF16_EXP_TOL if bf16_exp else TOL[dtype]))
+    torch.testing.assert_close(o.float(), ref.float(), **FWD_TOL[dtype])
     if not bf16_exp:
         assert torch.equal(o, tattn.attention_lse_fwd(q, k, v, d**-0.5)[0])
 
@@ -226,9 +231,12 @@ def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype,
 ])
 def test_recompute_attention_bwd_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
     """`attention_bwd` writing into the column slices of one packed
-    gradient, against its plain version (`BWD_RTOL`), and bit for bit
-    against the stored-statistics backward on the same inputs: the dq pass
-    takes m and s in the forward kernel's order."""
+    gradient, against its plain version (`BWD_RTOL`), and against the
+    stored-statistics backward on the same inputs.  In fp32 the two are
+    equal bit for bit: the dq pass takes m and s in the fp32 forward's
+    order.  In bf16 the stored-statistics backward reads the m and s of the
+    tensor-core forward, whose logits are summed in another order than the
+    backward's FMAs, so the two agree within `BWD_RTOL`, not bitwise."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     c = h * d
     qkv = torch.randn(b, lq, 3 * c, generator=gen, device="cuda").to(dtype)
@@ -249,7 +257,10 @@ def test_recompute_attention_bwd_matches_plain_version(cuda, dtype, b, lq, lk, h
         _close_to_max(g, r, BWD_RTOL[dtype])
     _, m, s = tattn.attention_lse_fwd(q, k, v, d**-0.5)
     for g, r in zip(got, tattn.attention_lse_bwd(q, k, v, do, m, s, d**-0.5)):
-        assert torch.equal(g, r)
+        if dtype == torch.float32:
+            assert torch.equal(g, r)
+        else:
+            _close_to_max(g, r, BWD_RTOL[dtype])
 
 
 @pytest.mark.cuda
@@ -309,3 +320,78 @@ def test_block_backward_under_the_switches_goes_through_the_opt_in_kernels(cuda,
     assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1, 0, 0]
     for name, p in list(blk.named_parameters()) + [("x", x)]:
         assert p.grad is not None and torch.isfinite(p.grad.float()).all(), name
+
+
+# the forward bodies at the edges of what the wrapper takes
+
+def _longest_lk(d):
+    """The longest Lk the forward wrapper accepts at head_dim d."""
+    lk = 1
+    while tattn._smem_bytes(d, lk + 1) <= tattn._SMEM_LIMIT:
+        lk += 1
+    return lk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lse-float32", "lse-bfloat16", "fwd-float32", "fwd-bfloat16",
+                                     "fwd-bfloat16-exp"])
+@pytest.mark.parametrize("case", ["longest-d32", "longest-d64", "longest-d128", "lk130", "skewed"])
+def test_attention_fwd_bodies_at_their_edges(cuda, monkeypatch, variant, case):
+    """#3 and #1 (both modes) against their plain versions, within
+    `FWD_TOL` (m and s within 1e-4): at the longest Lk the wrapper takes at each head_dim
+    (b=1, lq=128, h=2), at an Lk that is no multiple of 16 with a ragged
+    query block, and with q scaled x16, so that most exponentials of a row
+    underflow and one or two keys carry it."""
+    kind, dn, *exp = variant.split("-")
+    dtype, bf16_exp = getattr(torch, dn), bool(exp)
+    if case.startswith("longest"):
+        d = int(case.split("-d")[1])
+        b, lq, lk, h = 1, 128, _longest_lk(d), 2
+    elif case == "lk130":
+        b, lq, lk, h, d = 2, 77, 130, 3, 64
+    else:
+        b, lq, lk, h, d = 2, 256, 256, 2, 64
+    monkeypatch.setattr(tattn, "BF16_EXP", bf16_exp)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    c = h * d
+    q = torch.randn(b, lq, 3 * c, generator=gen, device="cuda") * (16 if case == "skewed" else 1)
+    q = q.to(dtype)[..., :c].view(b, lq, h, d)
+    kv = torch.randn(b, lk, 3 * c, generator=gen, device="cuda").to(dtype)
+    k, v = (kv[..., i * c:(i + 1) * c].view(b, lk, h, d) for i in (1, 2))
+    scale = d**-0.5
+    if kind == "lse":
+        o, m, s = tattn.attention_lse_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        ro, rm, rs = tattn.attention_lse_fwd_ref(q, k, v, scale)
+        torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-4)
+    else:
+        o = tattn.attention_fwd(q, k, v, scale)
+        torch.cuda.synchronize()
+        ro = tattn.attention_fwd_ref(q, k, v, scale)
+        if not bf16_exp:
+            assert torch.equal(o, tattn.attention_lse_fwd(q, k, v, scale)[0])
+    assert o.shape == (b, lq, h, d) and o.dtype == dtype and torch.isfinite(o.float()).all()
+    torch.testing.assert_close(o.float(), ro.float(), **FWD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lse", "fwd", "fwd-exp"])
+@pytest.mark.parametrize("fault", ["row stride", "base address"])
+def test_bf16_forward_refuses_misaligned_rows(cuda, monkeypatch, variant, fault):
+    """The bf16 body copies whole rows in 16-byte pieces: a row stride that
+    is no multiple of 8 elements, or a base that is not 16-byte aligned, is
+    refused with a ValueError before any launch."""
+    c = 2 * 64
+    if fault == "row stride":
+        x = torch.zeros(2, 128, 3 * c + 4, device="cuda", dtype=torch.bfloat16)
+    else:
+        x = torch.zeros(2 * 128 * 3 * c + 4, device="cuda", dtype=torch.bfloat16)[4:]
+        x = x.view(2, 128, 3 * c)
+    q, k, v = (x[..., i * c:(i + 1) * c].view(2, 128, 2, 64) for i in range(3))
+    monkeypatch.setattr(tattn, "BF16_EXP", variant == "fwd-exp")
+    fn = tattn.attention_lse_fwd if variant == "lse" else tattn.attention_fwd
+    n = fn.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fn(q, k, v, 0.125)
+    assert fn.launches == n

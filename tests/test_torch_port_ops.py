@@ -201,6 +201,50 @@ def test_attention_gate(lq, lk, d, masked, dtype, want):
     assert tattn._use_kernel(q, k, mask) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,lk,want", [(32, 419, True), (32, 420, False), (64, 387, True),
+                                       (64, 388, False), (128, 322, True), (128, 323, False)])
+def test_attention_gate_at_the_backward_limit(dtype, d, lk, want):
+    """The model takes the kernel pair up to the longest Lk the backward's
+    dq pass fits (its two 64 x Lk fp32 tiles), in both dtypes."""
+    q = torch.zeros(1, 128, 2, d, dtype=dtype)
+    k = torch.zeros(1, lk, 2, d, dtype=dtype)
+    assert tattn._use_kernel(q, k, None) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,lk,want", [(32, 840, True), (32, 841, False), (64, 776, True),
+                                       (64, 777, False), (128, 647, True), (128, 648, False)])
+def test_forward_checks_at_the_shared_memory_limit(dtype, d, lk, want):
+    """The forward wrappers take Lk up to the fp32 body's score tile in
+    227 KB, in both dtypes (`_fwd_checks`, called before any launch)."""
+    q = torch.zeros(1, 128, 2, d, dtype=dtype)
+    k = torch.zeros(1, lk, 2, d, dtype=dtype)
+    if want:
+        assert tattn._fwd_checks(q, k, k, "fwd") == (1, 128, lk, 2, d)
+    else:
+        with pytest.raises(ValueError, match="not supported"):
+            tattn._fwd_checks(q, k, k, "fwd")
+
+
+@pytest.mark.parametrize("fault", [None, "row stride", "batch stride", "base address"])
+def test_forward_checks_want_16_byte_rows_in_bf16(fault):
+    """The bf16 body copies rows in 16-byte pieces: a misaligned row or
+    batch stride or base is refused; fp32 takes the same layouts."""
+    c = 2 * 64
+    rows = 3 * c + (4 if fault == "row stride" else 0)
+    n = 128 * rows + (4 if fault == "batch stride" else 0)
+    off = 4 if fault == "base address" else 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(2 * n + off, dtype=dtype).as_strided((2, 128, 3 * c), (n, rows, 1), off)
+        q, k, v = (x[..., i * c:(i + 1) * c].view(2, 128, 2, 64) for i in range(3))
+        if fault is None or dtype == torch.float32:
+            assert tattn._fwd_checks(q, k, v, "fwd") == (2, 128, 128, 2, 64)
+        else:
+            with pytest.raises(ValueError, match="16-byte"):
+                tattn._fwd_checks(q, k, v, "fwd")
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """On a CPU tensor each wrapper returns its plain version's result and
     launches nothing (the count stays)."""
