@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -114,13 +115,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 F
 # at most 2^-7 of the value)
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2**-7, atol=1e-4)}
 STAT_TOL = dict(rtol=1e-4, atol=1e-4)  # m and s, fp32 in both dtypes
-# the attention forward's o in bf16 (every mode): its logits are tensor-core
-# sums, in another order than the plain version's fp32 sums, so the bf16
-# rounding of an exponential (e for the second product, or with BF16_EXP an
-# exponent input) may go the other way: one bf16 ulp of o (rtol 2^-7) plus
-# 2^-8 absolute for the shift one flipped exponential gives its row
+# the bf16-exponential branch's o: the plain version's logits sum in
+# another order, so the bf16 rounding of an exponent input may go the other
+# way: one bf16 ulp of o (rtol 2^-7) plus 2^-8 absolute for the shift one
+# flipped exponential gives its row
 BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)
-FWD_TOL = {"float32": TOL["float32"], "bfloat16": BF16_EXP_TOL}
+# the bf16 tensor-core forward's o (kStats, kPlain) is held at TOL, except
+# that at most this share of its elements may lie outside TOL, each within
+# BF16_EXP_TOL: its logits are tensor-core sums in another order than the
+# plain version's, which flips the bf16 rounding of the odd exponential
+# (the card showed 7.3e-6 and 8.1e-6 of o at B=512 and 256; PERF.md)
+FLIP_SHARE = 1e-4
 # the bf16 forward kernels' times before the tensor-core body (the FMA body,
 # NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside the new ones
 FMA_BODY_MS = {"attention_lse_fwd": 2.8060, "attention_fwd": 1.5702,
@@ -198,20 +203,26 @@ def count_beyond(got, ref, tol):
     return int((diff > tol["atol"] + tol["rtol"] * ref.float().abs()).sum())
 
 
-def beyond_tol_text(dn, got, ref):
-    """For a bf16 forward: how many of o's elements the flipped bf16
-    roundings of e put outside TOL, inside FWD_TOL."""
-    if dn != "bfloat16":
-        return ""
-    return f" ({count_beyond(got, ref, TOL[dn])} of {got.numel()} outside TOL)"
-
-
 def check_close(name, got, ref, tol):
     import torch
 
     err = max_err(got, ref)
     check(torch.allclose(got.float(), ref.float(), **tol), f"{name}: max abs err {err} beyond {tol}")
     return err
+
+
+def check_fwd_o(name, got, ref, dn, bf16_exp=False):
+    """An attention forward's o against its plain version: (max abs err,
+    text).  fp32 within TOL, the bf16-exponential branch within
+    BF16_EXP_TOL; the bf16 tensor-core body within TOL but for at most
+    FLIP_SHARE of its elements, each within BF16_EXP_TOL."""
+    if dn == "float32" or bf16_exp:
+        return check_close(name, got, ref, BF16_EXP_TOL if bf16_exp else TOL[dn]), ""
+    err = check_close(name, got, ref, BF16_EXP_TOL)
+    n, allowed = count_beyond(got, ref, TOL[dn]), math.ceil(FLIP_SHARE * got.numel())
+    check(n <= allowed, f"{name}: {n} of {got.numel()} elements outside {TOL[dn]}, "
+          f"more than {allowed}")
+    return err, f" ({n} of {got.numel()} outside TOL, at most {allowed} allowed)"
 
 
 def phase_attention(torch, attn, gen):
@@ -225,7 +236,7 @@ def phase_attention(torch, attn, gen):
         o, m, s = attn.attention_lse_fwd(q, k, v, scale)
         torch.cuda.synchronize()
         ro, rm, rs = attn.attention_lse_fwd_ref(q, k, v, scale)
-        err = check_close(f"attention {dn} o", o, ro, FWD_TOL[dn])
+        err, flips = check_fwd_o(f"attention {dn} o", o, ro, dn)
         check_close(f"attention {dn} m", m, rm, STAT_TOL)
         check_close(f"attention {dn} s", s, rs, STAT_TOL)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -237,7 +248,7 @@ def phase_attention(torch, attn, gen):
         bms, by = bound(nbytes, 4 * B * H * L * L * D, dn)
         rows[dn] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=lib_ms)
-        print(f"[attention_lse_fwd {dn}] max_abs_err o={err:.3e}{beyond_tol_text(dn, o, ro)} "
+        print(f"[attention_lse_fwd {dn}] max_abs_err o={err:.3e}{flips} "
               f"m,s ok; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
               f"{bms / ms:.3f} of the bound{fma_body_text('attention_lse_fwd', dn)}")
@@ -705,7 +716,7 @@ def phase_attention_recompute(torch, attn, gen):
             o = attn.attention_fwd(q, k, v, scale)
             torch.cuda.synchronize()
             ro = attn.attention_fwd_ref(q, k, v, scale)
-            err = check_close(f"attention_fwd {key} o", o, ro, FWD_TOL[dn])
+            err, flips = check_fwd_o(f"attention_fwd {key} o", o, ro, dn, bf16_exp)
             ms = time_ms(lambda: attn.attention_fwd(q, k, v, scale))
             plain_ms = time_ms(lambda: attn.attention_fwd_ref(q, k, v, scale), iters=3)
         same = bool(torch.equal(o, attn.attention_lse_fwd(q, k, v, scale)[0]))
@@ -717,7 +728,7 @@ def phase_attention_recompute(torch, attn, gen):
         rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib_ms)
         print(f"[attention_fwd {key}] B={b} L={L} H={H} D={D}: max_abs_err o={err:.3e}"
-              f"{beyond_tol_text(dn, o, ro)}; "
+              f"{flips}; "
               f"bitwise equal to attention_lse_fwd's o: {same}; kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
               f"{bms / ms:.3f} of the bound{fma_body_text('attention_fwd', key)}")
@@ -976,19 +987,24 @@ def ptxas_kernels(log):
     return kernels
 
 
+# the tensor-core forward instantiations at the model's head_dim, by source
+MMA_D64 = {"attention_lse_fwd": ["attn_fwd_mma_kernel<D=64, kStats>"],
+           "attention_fwd": ["attn_fwd_mma_kernel<D=64, kPlain>",
+                             "attn_fwd_mma_kernel<D=64, kBf16Exp>"]}
+
+
 def print_ptxas():
     """Each build's registers, shared memory and spills; every forward
-    instantiation by name.  Fails if a bf16 (tensor-core) forward at D=64,
-    the model's head_dim, spills."""
+    instantiation by name.  Fails if a source has no report, if a bf16
+    (tensor-core) forward at D=64, the model's head_dim, is missing from
+    its source's report, or if it spills."""
     from dig_tpu_torch.ops import _build
 
     for name in SOURCES:
-        if name not in _build.BUILD_LOGS:
-            print(f"[ptxas {name}] library already built; no report")
-            continue
-        log = _build.BUILD_LOGS[name]
+        log = _build.build_log(name)
+        check(log is not None, f"no ptxas report for {name}")
         kernels = ptxas_kernels(log)
-        check(kernels, f"no ptxas report for {name}")
+        check(kernels, f"no kernels in the ptxas report of {name}")
         regs = [k[1] for k in kernels]
         smem = sorted({int(line.split("bytes smem")[0].split()[-1])
                        for line in log.splitlines() if "bytes smem" in line})
@@ -1000,8 +1016,10 @@ def print_ptxas():
             if k.startswith("attn_fwd_"):
                 print(f"[ptxas {name}]   {k}: {r} registers, {st} / {ld} bytes spilled "
                       f"(stores / loads)")
-                check(not (k.startswith("attn_fwd_mma_kernel<D=64") and (st or ld)),
-                      f"{k} spills")
+        found = {k: st + ld for k, _, st, ld in kernels}
+        for k in MMA_D64.get(name, []):
+            check(k in found, f"{k} is not in the ptxas report of {name}")
+            check(found[k] == 0, f"{k} spills")
 
 
 def main():

@@ -8,7 +8,9 @@ use, for Hopper only:
 
 The library name carries a hash of the source, of the shared headers
 (`csrc/*.cuh`) and of the flags, so an edited source or header is rebuilt
-and a stale library is never loaded.  The build
+and a stale library is never loaded.  Each build's ptxas report
+(registers, shared memory, spills) is kept beside its library as
+`lib<name>-<hash>.log`.  The build
 directory, `dig_tpu_torch/ops/_build/`, is listed in `.gitignore`.  Nothing
 here runs at import: the CPU tests import every module on machines without
 the CUDA toolkit.  Each C entry returns `cudaGetLastError()` after its
@@ -30,8 +32,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: dict = {}
-# ptxas report (registers, shared memory, spills) of each build, by name
-BUILD_LOGS: dict = {}
 
 
 def _nvcc() -> str:
@@ -65,14 +65,21 @@ def build_all(names) -> dict:
     failed = []
     for name, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
-        BUILD_LOGS[name] = out
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
+        paths[name].with_suffix(".log").write_text(out)
         os.replace(tmp, paths[name])  # atomic: a reader never sees half a file
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return paths
+
+
+def build_log(name: str) -> str | None:
+    """The ptxas report of the current library of `csrc/<name>.cu`, or None
+    if it has not been built."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,12 +11,15 @@ Tolerances as in chip_smoke.py: fp32 results agree to a few ulp (the same
 products summed in another order); a bf16 output may round to the
 neighbouring bf16 value (at most 2^-7 of the value).  The bf16 attention
 forward sums its logits on the tensor cores, in another order than the
-plain version, so the bf16 rounding of one of a row's exponentials may go
-the other way (`BF16_EXP_TOL`, as for the bf16-exponential branch).  The backward
+plain version, so the bf16 rounding of the odd exponential goes the other
+way: its o is held at `TOL` but for at most `FLIP_SHARE` of its elements,
+which stay within `BF16_EXP_TOL`, as for the bf16-exponential branch.  The backward
 kernels are held relative to each gradient's max |value| (`BWD_RTOL`):
 in bf16 an intermediate rounded to bf16 (ds0, the scaled q and do) may
 round the other way when its fp32 input differs by an ulp, and that moves
 a sum of many terms by a fraction of one term."""
+
+import math
 
 import pytest
 import torch
@@ -34,18 +37,35 @@ def cuda():
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2**-7, atol=1e-4)}
 BWD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2**-6}
-# the attention forward's o against the plain version: in bf16 the logits
-# are tensor-core sums in another order, so the bf16 rounding of an
-# exponential (e for the second product, or with BF16_EXP an exponent
-# input) may go the other way: one bf16 ulp of o (rtol 2^-7) plus 2^-8
-# absolute for the shift one flipped exponential gives its row
+# the bf16-exponential branch's o: the plain version's logits sum in
+# another order, so the bf16 rounding of an exponent input may go the other
+# way: one bf16 ulp of o (rtol 2^-7) plus 2^-8 absolute for the shift one
+# flipped exponential gives its row
 BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)
-FWD_TOL = {torch.float32: TOL[torch.float32], torch.bfloat16: BF16_EXP_TOL}
+# the share of a bf16 tensor-core forward's o that may lie outside TOL (each
+# element within BF16_EXP_TOL): the flipped roundings of e, as above
+FLIP_SHARE = 1e-4
 
 
 def _close_to_max(got, ref, rtol):
     err = float((got.float() - ref.float()).abs().max())
     assert err <= rtol * float(ref.float().abs().max()), f"max abs err {err}"
+
+
+def _assert_fwd_close(got, ref, dtype, bf16_exp=False):
+    """An attention forward's o against its plain version: fp32 within TOL,
+    the bf16-exponential branch within BF16_EXP_TOL, the bf16 tensor-core
+    body within TOL but for at most FLIP_SHARE of its elements (at least
+    one), each within BF16_EXP_TOL."""
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32 or bf16_exp:
+        torch.testing.assert_close(got, ref, **(BF16_EXP_TOL if bf16_exp else TOL[dtype]))
+        return
+    torch.testing.assert_close(got, ref, **BF16_EXP_TOL)
+    tol = TOL[dtype]
+    n = int(((got - ref).abs() > tol["atol"] + tol["rtol"] * ref.abs()).sum())
+    allowed = math.ceil(FLIP_SHARE * got.numel())
+    assert n <= allowed, f"{n} of {got.numel()} elements outside {tol}, more than {allowed}"
 
 
 @pytest.mark.cuda
@@ -67,7 +87,7 @@ def test_attention_kernel_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
     torch.cuda.synchronize()
     assert tattn.attention_lse_fwd.launches == n + 1
     ro, rm, rs = tattn.attention_lse_fwd_ref(q, k, v, d**-0.5)
-    torch.testing.assert_close(o.float(), ro.float(), **FWD_TOL[dtype])
+    _assert_fwd_close(o, ro, dtype)
     torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-4)
 
@@ -203,7 +223,7 @@ def test_block_backward_reaches_every_parameter_through_the_kernels(cuda):
 ])
 def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype, bf16_exp,
                                                         b, lq, lk, h, d):
-    """`attention_fwd` on strided column slices, within `FWD_TOL`.  Without
+    """`attention_fwd` on strided column slices (`_assert_fwd_close`).  Without
     BF16_EXP its output is the stored-statistics kernel's bit for bit (one
     body, the same sums)."""
     monkeypatch.setattr(tattn, "BF16_EXP", bf16_exp)
@@ -217,7 +237,7 @@ def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype,
     torch.cuda.synchronize()
     assert tattn.attention_fwd.launches == n + 1 and o.dtype == dtype
     ref = tattn.attention_fwd_ref(q, k, v, d**-0.5)
-    torch.testing.assert_close(o.float(), ref.float(), **FWD_TOL[dtype])
+    _assert_fwd_close(o, ref, dtype, bf16_exp)
     if not bf16_exp:
         assert torch.equal(o, tattn.attention_lse_fwd(q, k, v, d**-0.5)[0])
 
@@ -337,8 +357,8 @@ def _longest_lk(d):
                                      "fwd-bfloat16-exp"])
 @pytest.mark.parametrize("case", ["longest-d32", "longest-d64", "longest-d128", "lk130", "skewed"])
 def test_attention_fwd_bodies_at_their_edges(cuda, monkeypatch, variant, case):
-    """#3 and #1 (both modes) against their plain versions, within
-    `FWD_TOL` (m and s within 1e-4): at the longest Lk the wrapper takes at each head_dim
+    """#3 and #1 (both modes) against their plain versions
+    (`_assert_fwd_close`; m and s within 1e-4): at the longest Lk the wrapper takes at each head_dim
     (b=1, lq=128, h=2), at an Lk that is no multiple of 16 with a ragged
     query block, and with q scaled x16, so that most exponentials of a row
     underflow and one or two keys carry it."""
@@ -372,7 +392,7 @@ def test_attention_fwd_bodies_at_their_edges(cuda, monkeypatch, variant, case):
         if not bf16_exp:
             assert torch.equal(o, tattn.attention_lse_fwd(q, k, v, scale)[0])
     assert o.shape == (b, lq, h, d) and o.dtype == dtype and torch.isfinite(o.float()).all()
-    torch.testing.assert_close(o.float(), ro.float(), **FWD_TOL[dtype])
+    _assert_fwd_close(o, ro, dtype, bf16_exp)
 
 
 @pytest.mark.cuda

@@ -193,23 +193,19 @@ def test_layer_norm_gate(shape, dtype, want):
     (256, 256, 64, False, torch.float64, False),
     (4, 256, 64, False, torch.bfloat16, False),    # pretrain CrossBlock: 4 window queries
     (128, 400, 64, False, torch.float32, False),   # the backward's two score tiles exceed shared memory
+] + [
+    # the longest Lk the backward's dq pass fits (its two 64 x Lk fp32
+    # tiles) at each head_dim, and one past it, in both dtypes
+    (128, lk, d, False, dtype, want)
+    for dtype in (torch.float32, torch.bfloat16)
+    for d, lk, want in [(32, 419, True), (32, 420, False), (64, 387, True),
+                        (64, 388, False), (128, 322, True), (128, 323, False)]
 ])
 def test_attention_gate(lq, lk, d, masked, dtype, want):
     q = torch.zeros(1, lq, 2, d, dtype=dtype)
     k = torch.zeros(1, lk, 2, d, dtype=dtype)
     mask = torch.ones(1, 1, lq, lk, dtype=torch.bool) if masked else None
     assert tattn._use_kernel(q, k, mask) == want
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,lk,want", [(32, 419, True), (32, 420, False), (64, 387, True),
-                                       (64, 388, False), (128, 322, True), (128, 323, False)])
-def test_attention_gate_at_the_backward_limit(dtype, d, lk, want):
-    """The model takes the kernel pair up to the longest Lk the backward's
-    dq pass fits (its two 64 x Lk fp32 tiles), in both dtypes."""
-    q = torch.zeros(1, 128, 2, d, dtype=dtype)
-    k = torch.zeros(1, lk, 2, d, dtype=dtype)
-    assert tattn._use_kernel(q, k, None) == want
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
