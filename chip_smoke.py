@@ -7,8 +7,10 @@
    the port from `dig_tpu_torch/ops/csrc/` (one nvcc per source, all
    started together) and prints each build's ptxas summary.
 2. Holds each kernel against its plain PyTorch version, in bf16 and fp32
-   (the attention forward's bf16 body runs on the tensor cores, its fp32
-   body on the FMA pipes): the stored-statistics attention forward and the
+   (the attention kernels' bf16 bodies, forward and backward, run on the
+   tensor cores, their fp32 bodies on the FMA pipes; the recompute backward
+   must equal the stored-statistics backward bit for bit in both dtypes):
+   the stored-statistics attention forward and the
    LayerNorm forward at the predict path's shapes (B=512, 256 tokens,
    width 384, 6 heads x 64);
    the backward kernels, the recompute attention pair (both branches of
@@ -126,13 +128,14 @@ BF16_EXP_TOL = dict(rtol=2**-7, atol=2**-8)
 # plain version's, which flips the bf16 rounding of the odd exponential
 # (the card showed 7.3e-6 and 8.1e-6 of o at B=512 and 256; PERF.md)
 FLIP_SHARE = 1e-4
-# the bf16 forward kernels' times before the tensor-core body (the FMA body,
-# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside the new ones
+# the bf16 attention kernels' times before their tensor-core bodies (the FMA
+# bodies, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), printed beside the new ones
 FMA_BODY_MS = {"attention_lse_fwd": 2.8060, "attention_fwd": 1.5702,
-               "attention_fwd_bf16_exp": 1.5991}
+               "attention_fwd_bf16_exp": 1.5991, "attention_lse_bwd": 5.4234,
+               "attention_bwd": 5.5640}
 DESIGN = {"attention_lse_fwd": "mma.sync bf16 / FMA fp32", "attention_fwd": "mma.sync bf16 / FMA fp32",
-          "attention_lse_bwd": "FMA fp32 from shared memory",
-          "attention_bwd": "FMA fp32 from shared memory",
+          "attention_lse_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
+          "attention_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
           "layer_norm_fwd": "warp per row, two-pass variance",
           "layer_norm_bwd": "warp per row, partial dgamma / dbeta rows",
           "column_sum": "512-row chunk partials, then their sum"}
@@ -142,9 +145,9 @@ DESIGN = {"attention_lse_fwd": "mma.sync bf16 / FMA fp32", "attention_fwd": "mma
 COLSUM_RTOL = 1e-5
 # backward kernels vs plain versions, relative to each gradient's max |value|:
 # in fp32 the same products in another order; in bf16 an intermediate the
-# TPU kernel rounds to bf16 (ds0, the scaled q and do) may round the other
-# way after an fp32 ulp of difference, moving a sum of many terms by a
-# fraction of one term
+# TPU kernel rounds to bf16 (e, ds0, the scaled q and do) may round the other
+# way after an fp32 ulp of difference (the bf16 body's logits and dw are
+# tensor-core sums), moving a sum of many terms by a fraction of one term
 BWD_RTOL = {"float32": 1e-5, "bfloat16": 2**-6}
 FEAT_RTOL = 1e-4  # encoder features, card vs CPU, relative to their max |value|
 # one fp32 pre-training step, card vs CPU, relative to each gradient leaf's
@@ -346,9 +349,12 @@ def profile_fn(torch, fn, n_top=10):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a host op's device time repeats its kernels'
+    # device-side events only: a host op's device time repeats its kernels',
+    # and so does the optimizer's annotation, which the trace mirrors onto
+    # the device's timeline
     rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Optimizer.")]
     rows.sort(key=lambda r: -r[1])
     check(rows, "the profiler saw no device time")
     return rows[:n_top], sum(ms for _, ms in rows), wall_ms
@@ -434,7 +440,8 @@ def phase_attention_bwd(torch, attn, gen):
                         bound_by=by, library_ms=lib_ms)
         print(f"[attention_lse_bwd {dn}] B={b} L={L} H={H} D={D}: max_abs_err "
               f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+              f"{bms / ms:.3f} of the bound{fma_body_text('attention_lse_bwd', dn)}")
         del qkv, q, k, v, do, m, s, dqkv, out, qt, kt, vt, o, dot
         torch.cuda.empty_cache()
     return rows
@@ -457,7 +464,11 @@ def phase_layernorm_bwd(torch, ln, gen):
             rel = rel_err(got, ref)
             check(rel <= BWD_RTOL["float32"], f"layer_norm_bwd {dn} {name}: {rel:.2e} of max |ref|")
         gerr = max(max_err(dg, rdg), max_err(db, rdb))
-        ms = time_ms(lambda: ln.layer_norm_bwd(x, g, dy, eps), iters=50)
+        # five timings of 200 launches each: one reading of 50 launches was
+        # once 2.6x the others on an unchanged kernel; the median is kept
+        reps = sorted(time_ms(lambda: ln.layer_norm_bwd(x, g, dy, eps), iters=200)
+                      for _ in range(5))
+        ms = reps[2]
         plain_ms = time_ms(lambda: ln._ln_bwd_ref(x, g, dy, eps), iters=5)
         xl = x.detach().requires_grad_()
         gl = g.to(dt).requires_grad_()
@@ -470,7 +481,8 @@ def phase_layernorm_bwd(torch, ln, gen):
         rows[dn] = dict(max_abs_err=max(err, gerr), ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=lib_ms)
         print(f"[layer_norm_bwd {dn}] rows={r} c={C}: max_abs_err dx={err:.3e} "
-              f"dgamma,dbeta={gerr:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"dgamma,dbeta={gerr:.3e}; kernel {ms:.4f} ms (median of 5 x 200 launches: "
+              f"{[round(t, 4) for t in reps]}), plain {plain_ms:.4f} ms, "
               f"F.layer_norm backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
         del x, dy, dx, rdx, xl, y
         torch.cuda.empty_cache()
@@ -739,9 +751,9 @@ def phase_attention_recompute(torch, attn, gen):
 
 def phase_attention_bwd_recompute(torch, attn, gen):
     """#2 at the pretrain shapes against its plain version, timed beside
-    SDPA's backward; prints how far it is from #4 on the same inputs (a
-    check of the design, not a gate): bit for bit in fp32; in bf16 #4 reads
-    the tensor-core forward's m and s, so within BWD_RTOL."""
+    SDPA's backward; it must equal #4 on the same inputs bit for bit, in
+    both dtypes: its dq pass takes m and s from the forward's logits, in the
+    forward's order."""
     rows = {}
     scale = D**-0.5
     b = PRE_B
@@ -767,6 +779,8 @@ def phase_attention_bwd_recompute(torch, attn, gen):
         lse = attn.attention_lse_bwd(q, k, v, do, m, s, scale)
         same = all(bool(torch.equal(a, c)) for a, c in zip(out, lse))
         to_lse = max(rel_err(a, c) for a, c in zip(out, lse))
+        check(same, f"attention_bwd {dn}: not bitwise equal to attention_lse_bwd "
+                    f"({to_lse:.2e} of max |grad| apart)")
         del lse, m, s
         ms = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale, out=out), iters=5)
         plain_ms = time_ms(lambda: attn.attention_bwd_ref(q, k, v, do, scale), iters=2, warmup=1)
@@ -781,8 +795,9 @@ def phase_attention_bwd_recompute(torch, attn, gen):
                         bound_by=by, library_ms=lib_ms)
         print(f"[attention_bwd {dn}] B={b} L={L} H={H} D={D}: max_abs_err "
               f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}; bitwise equal to "
-              f"attention_lse_bwd: {same} ({to_lse:.2e} of max |grad| apart); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-              f"backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+              f"attention_lse_bwd: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.3f} of the bound"
+              f"{fma_body_text('attention_bwd', dn)}")
         del qkv, q, k, v, do, dqkv, out, qt, kt, vt, o, dot
         torch.cuda.empty_cache()
     return rows
@@ -966,19 +981,35 @@ def phase_finetune_cpu_parity(torch, np):
 
 
 FWD_MODES = ("kStats", "kPlain", "kBf16Exp")
+BWD_MODES = ("stored statistics", "kRecompute")
 
 
+# an attention body's mangled name -> its template arguments as text
+PTXAS_NAMES = [
+    (r"(attn_fwd_(?:mma|fma)_kernel)ILi(\d+)ELNS_7FwdModeE(\d)E",
+     lambda m: f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}>"),
+    (r"(attn_bwd_dq_mma_kernel)ILi(\d+)ELb([01])E",
+     lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}>"),
+    (r"(attn_bwd_dkdv_mma_kernel)ILi(\d+)E", lambda m: f"{m[1]}<D={m[2]}>"),
+    (r"(attn_bwd_dq_kernel)ILi(\d+)ELb([01])E",
+     lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}>"),
+    (r"(attn_bwd_dkdv_kernel)ILi(\d+)E", lambda m: f"{m[1]}<D={m[2]}>"),
+]
 def ptxas_kernels(log):
     """[(kernel, registers, spill store bytes, spill load bytes)] of one
-    build's ptxas report, a forward body's name as attn_fwd_mma_kernel<D=64,
-    kStats>."""
+    build's ptxas report, an attention body's name as
+    attn_fwd_mma_kernel<D=64, kStats>."""
     kernels, name, spills = [], "", (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            m = re.search(r"(attn_fwd_(?:mma|fma)_kernel)ILi(\d+)ELNS_7FwdModeE(\d)E", name)
-            name = (f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}>" if m
-                    else name[name.find("attn") if "attn" in name else 0:][:60])
+            for pattern, text in PTXAS_NAMES:
+                m = re.search(pattern, name)
+                if m:
+                    name = text(m)
+                    break
+            else:
+                name = name[name.find("attn") if "attn" in name else 0:][:60]
         elif "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             spills = (int(m[1]), int(m[2]))
@@ -987,17 +1018,21 @@ def ptxas_kernels(log):
     return kernels
 
 
-# the tensor-core forward instantiations at the model's head_dim, by source
+# the tensor-core instantiations at the model's head_dim, by source
 MMA_D64 = {"attention_lse_fwd": ["attn_fwd_mma_kernel<D=64, kStats>"],
            "attention_fwd": ["attn_fwd_mma_kernel<D=64, kPlain>",
-                             "attn_fwd_mma_kernel<D=64, kBf16Exp>"]}
+                             "attn_fwd_mma_kernel<D=64, kBf16Exp>"],
+           "attention_lse_bwd": ["attn_bwd_dq_mma_kernel<D=64, stored statistics>",
+                                 "attn_bwd_dkdv_mma_kernel<D=64>"],
+           "attention_bwd": ["attn_bwd_dq_mma_kernel<D=64, kRecompute>",
+                             "attn_bwd_dkdv_mma_kernel<D=64>"]}
 
 
 def print_ptxas():
-    """Each build's registers, shared memory and spills; every forward
+    """Each build's registers, shared memory and spills; every attention
     instantiation by name.  Fails if a source has no report, if a bf16
-    (tensor-core) forward at D=64, the model's head_dim, is missing from
-    its source's report, or if it spills."""
+    (tensor-core) attention body at D=64, the model's head_dim, forward or
+    backward, is missing from its source's report, or if it spills."""
     from dig_tpu_torch.ops import _build
 
     for name in SOURCES:
@@ -1013,7 +1048,7 @@ def print_ptxas():
         print(f"[ptxas {name}] {len(regs)} kernels, registers {min(regs)}-{max(regs)}, "
               f"static smem bytes {smem or [0]}, {len(spills)} with spills {spills}")
         for k, r, st, ld in kernels:
-            if k.startswith("attn_fwd_"):
+            if k.startswith(("attn_fwd_", "attn_bwd_")):
                 print(f"[ptxas {name}]   {k}: {r} registers, {st} / {ld} bytes spilled "
                       f"(stores / loads)")
         found = {k: st + ld for k, _, st, ld in kernels}

@@ -27,9 +27,9 @@ picks it at trace time (`DIG_TPU_ATTN_STORE_LSE`, default "1"):
 The TPU's VMEM bound is replaced by what the CUDA kernels accept: head_dim
 in (32, 64, 128), a float32 or bfloat16 input, and the shared memory of
 one CTA of the FMA bodies (the fp32 forward's 64 x Lk score tile, the
-backward's two) within 227 KB; the bf16 forward runs on the tensor cores
-with no score tile, under the same Lk limit, and needs 16-byte aligned
-rows.  The TPU block-size knobs (`DIG_TPU_ATTN_ROWS`,
+backward's two) within 227 KB; the bf16 forward and backward run on the
+tensor cores with no score tile, under the same Lk limit, and need 16-byte
+aligned rows (operands and gradients alike).  The TPU block-size knobs (`DIG_TPU_ATTN_ROWS`,
 `DIG_TPU_ATTN_BWD_ROWS`, `DIG_TPU_ATTN_PARALLEL`) size Pallas grids and
 have no counterpart here.  On the predict path and the pre-training step
 the pair serves every ViT encoder self-attention (student and momentum
@@ -188,6 +188,15 @@ def _check_head_layout(name, t, d, what):
         raise ValueError(f"{what}: {name} is misaligned")
 
 
+def _check_rows_16_bytes(name, t, what):
+    """The bf16 bodies move whole rows by 16-byte copies and stores; fp32
+    (the FMA bodies, element by element) is exempt."""
+    if t.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
+            t.stride(i) % 8 for i in (0, 1) if t.shape[i] > 1)):
+        raise ValueError(f"{what}: bf16 {name} needs a 16-byte aligned base and batch "
+                         f"and row strides that are multiples of 8 elements")
+
+
 def _qscale(q, scale) -> float:
     """scale * log2(e) rounded to q's dtype: the kernels fold it into q
     in q's dtype, as the TPU kernels do."""
@@ -206,11 +215,7 @@ def _fwd_checks(q, k, v, what):
         raise ValueError(f"{what}: head_dim {d} / Lk {lk} not supported")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_head_layout(name, t, d, what)
-        # the bf16 body moves whole rows by 16-byte copies
-        if q.dtype == torch.bfloat16 and (t.data_ptr() % 16 or any(
-                t.stride(i) % 8 for i in (0, 1) if t.shape[i] > 1)):
-            raise ValueError(f"{what}: bf16 {name} needs a 16-byte aligned base and batch "
-                             f"and row strides that are multiples of 8 elements")
+        _check_rows_16_bytes(name, t, what)
     return b, lq, lk, h, d
 
 
@@ -285,6 +290,7 @@ def _bwd_checks(q, k, v, do, out, what):
         if t.shape != ref.shape or t.dtype != ref.dtype:
             raise ValueError(f"{what}: {name} has shape {t.shape} / dtype {t.dtype}")
         _check_head_layout(name, t, d, what)
+        _check_rows_16_bytes(name, t, what)
     return (b, lq, lk, h, d), out
 
 
@@ -302,7 +308,8 @@ def attention_lse_bwd(q, k, v, do, m, s, scale, out=None):
     -> (dq, dk, dv).  `out` may name three head-split views to write into
     (the column slices of one packed qkv gradient).  A CPU tensor takes
     `attention_lse_bwd_ref`; a CUDA tensor launches
-    `csrc/attention_lse_bwd.cu` (two passes: dq, then dk and dv) or raises."""
+    `csrc/attention_lse_bwd.cu` (two passes: dq, then dk and dv; bf16 on the
+    tensor cores, fp32 on FMAs) or raises."""
     if q.device.type == "cpu":
         return _copy_into(out, attention_lse_bwd_ref(q, k, v, do, m, s, scale))
     what = "attention_lse_bwd"

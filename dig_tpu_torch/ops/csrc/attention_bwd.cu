@@ -4,21 +4,22 @@
 // Replaces dig_tpu/ops/attention.py::_attn_bwd_kernel (the Pallas kernel
 // called from _pallas_attention_bwd), the backward of the pair that
 // DIG_TPU_ATTN_STORE_LSE=0 selects, whose forward stores nothing: the two
-// passes of attention_bwd.cuh in their kRecompute mode.  The dq pass holds
-// each query row's whole 64 x Lk logit tile, so it takes the row max m and
-// exp2-sum s itself, in the forward kernel's order, and writes them with c
+// passes of attention_bwd.cuh in their kRecompute mode.  The dq pass takes
+// the row max m and exp2-sum s itself before its other sweeps, from the
+// forward kernel's logits (the same device function in bf16, the same FMA
+// order in fp32) and in the forward kernel's order, and writes them with c
 // to an fp32 scratch the wrapper allocates; the dk/dv pass reads them back.
 // No float atomics: the result does not change from run to run, and it is
 // bitwise the stored-statistics backward's (attention_lse_bwd.cu) on the
-// same inputs.  Like the TPU kernel it has no bf16-exponential branch: it
-// recomputes in fp32 whatever the forward did.
+// same inputs, in both dtypes.  Like the TPU kernel it has no
+// bf16-exponential branch: it recomputes in fp32 whatever the forward did.
 //
 // Bound: at the pre-training shapes (B = 256 sequences, L = 256, H = 6,
 // D = 64, bf16) the function reads q, k, v, do (4 x 50.3 MB) and writes
 // dq, dk, dv (3 x 50.3 MB): ~352 MB, ~0.105 ms at 3.35 TB/s, against 5
 // products of 2*B*H*L*L*D = 6.4e10 flop, ~0.065 ms on the bf16 tensor
-// cores: bytes bound it.  Its products are fp32 FMAs from shared memory,
-// as in the stored-statistics kernels, so the FMA pipes bound it.
+// cores: bytes bound it.  In bf16 every product is an mma.sync on the
+// tensor cores; fp32 keeps FMAs from shared memory (attention_bwd.cuh).
 
 #include "attention_bwd.cuh"
 

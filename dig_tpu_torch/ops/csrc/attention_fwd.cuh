@@ -243,24 +243,26 @@ template <int D> __host__ __device__ constexpr size_t mma_smem_bytes() {
   return sizeof(bf16) * (1 + kMmaStages) * kFwdBQ * mma_ld<D>();  // Q tile + ring
 }
 
-// The log2-domain logits of one 64-key chunk for a warp's 16 query rows:
-// s[n] is the 16 x 8 tile of keys 8n..8n+7, summed over D in ascending k16
-// steps from zero.  qa holds the scaled q as A fragments; k_tile is the
-// shared-memory address of the chunk's first key row.  The backward kernels
-// are to call this same function, so their logits equal the forward's.
-template <int D>
+// The log2-domain logits of one chunk of 16 * NP keys (64 by default) for a
+// warp's 16 query rows: s[n] is the 16 x 8 tile of keys 8n..8n+7, summed over
+// D in ascending k16 steps from zero.  qa holds the scaled q as A fragments;
+// k_tile is the shared-memory address of the chunk's first key row.  The
+// backward kernels (attention_bwd.cuh) call this same function, so their
+// logits equal the forward's bit for bit: an element's sum does not depend
+// on NP.
+template <int D, int NP = 4>
 __device__ __forceinline__ void chunk_logits(const uint32_t (&qa)[D / 16][4], uint32_t k_tile,
-                                             int lane, float (&s)[8][4]) {
+                                             int lane, float (&s)[2 * NP][4]) {
   constexpr int kRow = mma_ld<D>() * 2;  // bytes
   // lanes 0-7: keys 0-7, d 0-7; 8-15: keys 0-7, d 8-15; 16-23: keys 8-15,
   // d 0-7; 24-31: keys 8-15, d 8-15 -> b0, b1 of two adjacent key tiles
   const uint32_t base = k_tile + ((lane & 7) + ((lane >> 4) << 3)) * kRow + ((lane >> 3) & 1) * 16;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < 2 * NP; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
+  for (int np = 0; np < NP; ++np) {
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t b[4];
@@ -271,17 +273,18 @@ __device__ __forceinline__ void chunk_logits(const uint32_t (&qa)[D / 16][4], ui
   }
 }
 
-// o[n] += p . v over one 64-key chunk: pa the four k16 A fragments of p,
-// v_tile the shared-memory address of the chunk's first V row
-template <int D>
-__device__ __forceinline__ void chunk_pv(const uint32_t (&pa)[4][4], uint32_t v_tile, int lane,
+// o[n] += p . v over one chunk of 16 * NKB keys (64 by default): pa the k16
+// A fragments of p, v_tile the shared-memory address of the chunk's first V
+// row
+template <int D, int NKB = 4>
+__device__ __forceinline__ void chunk_pv(const uint32_t (&pa)[NKB][4], uint32_t v_tile, int lane,
                                          float (&o)[D / 8][4]) {
   constexpr int kRow = mma_ld<D>() * 2;
   // transposed: lanes 0-7: keys 0-7, d 0-7; 8-15: keys 8-15, d 0-7;
   // 16-23: keys 0-7, d 8-15; 24-31: keys 8-15, d 8-15
   const uint32_t base = v_tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * kRow + (lane >> 4) * 16;
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {
+  for (int kb = 0; kb < NKB; ++kb) {
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t b[4];
@@ -292,12 +295,13 @@ __device__ __forceinline__ void chunk_pv(const uint32_t (&pa)[4][4], uint32_t v_
   }
 }
 
-// -inf at the keys at or past Lk of a chunk starting at key k0; col0 is the
-// thread's first key in each 8-key tile
-__device__ __forceinline__ void mask_keys(float (&s)[8][4], int k0, int col0, int Lk) {
-  if (k0 + kFwdKC <= Lk) return;
+// -inf at the keys at or past Lk of a chunk of 8 * NT keys starting at key
+// k0; col0 is the thread's first key in each 8-key tile
+template <int NT>
+__device__ __forceinline__ void mask_keys(float (&s)[NT][4], int k0, int col0, int Lk) {
+  if (k0 + NT * 8 <= Lk) return;
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int c = 0; c < 2; ++c)
       if (k0 + n * 8 + col0 + c >= Lk) s[n][c] = s[n][c + 2] = -INFINITY;
@@ -317,6 +321,40 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The A fragments of a warp's 16 rows (rows 16 * warp ... + 15) of a padded
+// [64, D] tile at shared-memory address `tile`, one k16 step each
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], uint32_t tile, int warp,
+                                            int lane) {
+  const uint32_t base = tile + ((warp * 16 + (lane & 15)) * mma_ld<D>() + (lane >> 4) * 8) * 2;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(a[kk], base + kk * 32);
+}
+
+// a * f rounded to bf16, element by element: q scaled in bf16 as the TPU
+// kernels scale it.  Forward and backward scale through this one function,
+// so their logits start from the same bits.
+template <int D>
+__device__ __forceinline__ void scale_a_rows(uint32_t (&a)[D / 16][4], float f) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = unpack_bf16(a[kk][i]);
+      a[kk][i] = pack_bf16(x.x * f, x.y * f);
+    }
+}
+
+// the running max of this thread's rows g (mx[0]) and g + 8 (mx[1]) over one
+// chunk's logits
+__device__ __forceinline__ void chunk_row_max(const float (&s)[8][4], float (&mx)[2]) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+  }
 }
 
 // Copies rows [r0, r0 + 64) of a [L, D] bf16 operand (row stride rs
@@ -394,19 +432,8 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the warp's 16 rows of q, scaled in bf16 as the TPU kernel scales them,
   // kept as A fragments for both sweeps
   uint32_t qa[D / 16][4];
-  {
-    const uint32_t base =
-        smem_addr(q_s) + ((warp * 16 + (lane & 15)) * kLd + (lane >> 4) * 8) * 2;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      ldmatrix_x4(qa[kk], base + kk * 32);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = unpack_bf16(qa[kk][i]);
-        qa[kk][i] = pack_bf16(f.x * qscale, f.y * qscale);
-      }
-    }
-  }
+  load_a_rows<D>(qa, smem_addr(q_s), warp, lane);
+  scale_a_rows<D>(qa, qscale);
 
   const int col0 = 2 * (lane & 3);
   // this thread's rows of the warp's 16: g and g + 8
@@ -416,11 +443,7 @@ attn_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[8][4];
     chunk_logits<D>(qa, k_tile, lane, s);
     mask_keys(s, j * kFwdKC, col0, Lk);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-    }
+    chunk_row_max(s, mx);
   }
   mx[0] = quad_max(mx[0]);
   mx[1] = quad_max(mx[1]);

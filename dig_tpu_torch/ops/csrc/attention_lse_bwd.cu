@@ -9,11 +9,11 @@
 // D = 64, bf16) the function reads q, k, v, do (4 x 50.3 MB) and m, s
 // (3.1 MB) and writes dq, dk, dv (3 x 50.3 MB): ~355 MB, ~0.106 ms at
 // 3.35 TB/s, against 5 products of 2*B*H*L*L*D = 6.4e10 flop, ~0.065 ms
-// on the bf16 tensor cores: bytes bound it.  This first kernel is simple
-// and correct, not fast: its products are fp32 FMAs from shared memory
-// (the FMA pipes bound it, as they bound the forward kernel), and it
-// recomputes two of the five products in its second pass.  Moving the
-// products onto wgmma is later work.
+// on the bf16 tensor cores: bytes bound it.  In bf16 every product is an
+// mma.sync on the tensor cores, fed by 16-byte cp.async copies, with no
+// score tile (the dq pass sweeps the keys twice) and the logits taken by
+// the forward's own device function; fp32 keeps FMAs from shared memory
+// (attention_bwd.cuh says what each design does and why).
 
 #include "attention_bwd.cuh"
 

@@ -15,9 +15,10 @@ plain version, so the bf16 rounding of the odd exponential goes the other
 way: its o is held at `TOL` but for at most `FLIP_SHARE` of its elements,
 which stay within `BF16_EXP_TOL`, as for the bf16-exponential branch.  The backward
 kernels are held relative to each gradient's max |value| (`BWD_RTOL`):
-in bf16 an intermediate rounded to bf16 (ds0, the scaled q and do) may
-round the other way when its fp32 input differs by an ulp, and that moves
-a sum of many terms by a fraction of one term."""
+in bf16 an intermediate rounded to bf16 (e, ds0, the scaled q and do) may
+round the other way when its fp32 input differs by an ulp (the bf16 body's
+logits and dw are tensor-core sums), and that moves a sum of many terms by
+a fraction of one term."""
 
 import math
 
@@ -252,11 +253,10 @@ def test_recompute_attention_fwd_matches_plain_version(cuda, monkeypatch, dtype,
 def test_recompute_attention_bwd_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
     """`attention_bwd` writing into the column slices of one packed
     gradient, against its plain version (`BWD_RTOL`), and against the
-    stored-statistics backward on the same inputs.  In fp32 the two are
-    equal bit for bit: the dq pass takes m and s in the fp32 forward's
-    order.  In bf16 the stored-statistics backward reads the m and s of the
-    tensor-core forward, whose logits are summed in another order than the
-    backward's FMAs, so the two agree within `BWD_RTOL`, not bitwise."""
+    stored-statistics backward on the same inputs.  The two are equal bit
+    for bit in both dtypes: the dq pass takes m and s from the forward's
+    logits (one device function in bf16, the same FMA order in fp32), in
+    the forward's order."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     c = h * d
     qkv = torch.randn(b, lq, 3 * c, generator=gen, device="cuda").to(dtype)
@@ -277,10 +277,7 @@ def test_recompute_attention_bwd_matches_plain_version(cuda, dtype, b, lq, lk, h
         _close_to_max(g, r, BWD_RTOL[dtype])
     _, m, s = tattn.attention_lse_fwd(q, k, v, d**-0.5)
     for g, r in zip(got, tattn.attention_lse_bwd(q, k, v, do, m, s, d**-0.5)):
-        if dtype == torch.float32:
-            assert torch.equal(g, r)
-        else:
-            _close_to_max(g, r, BWD_RTOL[dtype])
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda
@@ -414,4 +411,101 @@ def test_bf16_forward_refuses_misaligned_rows(cuda, monkeypatch, variant, fault)
     n = fn.launches
     with pytest.raises(ValueError, match="16-byte"):
         fn(q, k, v, 0.125)
+    assert fn.launches == n
+
+
+# the backward bodies at the edges of what the wrapper takes
+
+def _longest_bwd_lk(d):
+    """The longest Lk the backward wrappers accept at head_dim d."""
+    lk = 1
+    while tattn._fits(d, lk + 1):
+        lk += 1
+    return lk
+
+
+def _bwd_inputs(b, lq, lk, h, d, dtype, seed, q_gain=1.0):
+    """q, k, v as strided column slices of packed projections, a contiguous
+    do, and the column slices of one packed gradient to write into."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = h * d
+    q = (torch.randn(b, lq, 3 * c, generator=gen, device="cuda") * q_gain).to(dtype)[..., :c]
+    q = q.view(b, lq, h, d)
+    kv = torch.randn(b, lk, 3 * c, generator=gen, device="cuda").to(dtype)
+    k, v = (kv[..., i * c:(i + 1) * c].view(b, lk, h, d) for i in (1, 2))
+    do = torch.randn(b, lq, h, d, generator=gen, device="cuda").to(dtype)
+    dqkv = torch.zeros(b, max(lq, lk), 3 * c, device="cuda", dtype=dtype)
+    out = (dqkv[:, :lq, :c].view(b, lq, h, d),
+           dqkv[:, :lk, c:2 * c].view(b, lk, h, d), dqkv[:, :lk, 2 * c:].view(b, lk, h, d))
+    return q, k, v, do, out
+
+
+BWD_EDGES = {
+    "longest-d32": lambda: (1, 128, _longest_bwd_lk(32), 2, 32),
+    "longest-d64": lambda: (1, 128, _longest_bwd_lk(64), 2, 64),
+    "longest-d128": lambda: (1, 128, _longest_bwd_lk(128), 2, 128),
+    "lk130": lambda: (2, 77, 130, 3, 64),        # ragged query block, Lk no multiple of 16
+    "lq-longer": lambda: (2, 320, 192, 2, 64),   # Lq != Lk, whole blocks
+    "lk-longer-d32": lambda: (2, 130, 300, 3, 32),
+    "lq-longer-d128": lambda: (1, 200, 129, 2, 128),
+    "one-block": lambda: (3, 50, 40, 2, 64),     # one query block and one key block
+    "skewed": lambda: (2, 256, 256, 2, 64),      # q x 16: one or two keys carry a row
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BWD_EDGES))
+def test_attention_bwd_bodies_at_their_edges(cuda, dtype, case):
+    """#4 and #2 against their plain versions (`BWD_RTOL`), every gradient
+    finite; #2 equal to #4 bit for bit; a second launch of each on the same
+    inputs gives the same bits (no atomics)."""
+    b, lq, lk, h, d = BWD_EDGES[case]()
+    scale = d**-0.5
+    q, k, v, do, out = _bwd_inputs(b, lq, lk, h, d, dtype, 8, 16.0 if case == "skewed" else 1.0)
+    _, m, s = tattn.attention_lse_fwd(q, k, v, scale)
+    lse = [g.clone() for g in tattn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out)]
+    torch.cuda.synchronize()
+    for g, r in zip(lse, tattn.attention_lse_bwd_ref(q, k, v, do, m, s, scale)):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        _close_to_max(g, r, BWD_RTOL[dtype])
+    rec = tattn.attention_bwd(q, k, v, do, scale)
+    for g, r in zip(rec, tattn.attention_bwd_ref(q, k, v, do, scale)):
+        assert torch.isfinite(g.float()).all()
+        _close_to_max(g, r, BWD_RTOL[dtype])
+    again = tattn.attention_lse_bwd(q, k, v, do, m, s, scale)
+    for a, g, r in zip(lse, rec, again):
+        assert torch.equal(a, g), "attention_bwd differs from attention_lse_bwd"
+        assert torch.equal(a, r), "attention_lse_bwd changed between launches"
+    for g, r in zip(rec, tattn.attention_bwd(q, k, v, do, scale)):
+        assert torch.equal(g, r), "attention_bwd changed between launches"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["lse", "bwd"])
+@pytest.mark.parametrize("tensor", ["q", "k", "v", "do", "dq", "dk", "dv"])
+@pytest.mark.parametrize("fault", ["row stride", "base address"])
+def test_bf16_backward_refuses_misaligned_rows(cuda, variant, tensor, fault):
+    """The bf16 body copies and stores whole rows in 16-byte pieces: an
+    operand or a gradient whose row stride is no multiple of 8 elements, or
+    whose base is not 16-byte aligned, is refused with a ValueError before
+    any launch."""
+    b, l, h, d = 2, 128, 2, 64
+    c = h * d
+    ts = {n: torch.zeros(b, l, c, device="cuda", dtype=torch.bfloat16).view(b, l, h, d)
+          for n in ("q", "k", "v", "do", "dq", "dk", "dv")}
+    if fault == "row stride":
+        bad = torch.zeros(b, l, c + 4, device="cuda", dtype=torch.bfloat16)[..., :c]
+    else:
+        bad = torch.zeros(b * l * c + 4, device="cuda", dtype=torch.bfloat16)[4:].view(b, l, c)
+    ts[tensor] = bad.view(b, l, h, d)
+    out = (ts["dq"], ts["dk"], ts["dv"])
+    ms = torch.ones(b, l, h, device="cuda")
+    fn = tattn.attention_lse_bwd if variant == "lse" else tattn.attention_bwd
+    n = fn.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        if variant == "lse":
+            fn(ts["q"], ts["k"], ts["v"], ts["do"], ms, ms, 0.125, out=out)
+        else:
+            fn(ts["q"], ts["k"], ts["v"], ts["do"], 0.125, out=out)
     assert fn.launches == n

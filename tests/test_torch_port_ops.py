@@ -241,6 +241,62 @@ def test_forward_checks_want_16_byte_rows_in_bf16(fault):
                 tattn._fwd_checks(q, k, v, "fwd")
 
 
+def _bwd_operands(dtype, tensor=None, fault=None):
+    """q, k, v, do and (dq, dk, dv) as [2, 128, 2, 64] head-split views, all
+    with 16-byte aligned rows but `tensor`, which has `fault`."""
+    c = 2 * 64
+    rows = c + (4 if fault == "row stride" else 0)
+    n = 128 * rows + (4 if fault == "batch stride" else 0)
+    off = 4 if fault == "base address" else 0
+    ts = {name: torch.zeros(2, 128, 2, 64, dtype=dtype)
+          for name in ("q", "k", "v", "do", "dq", "dk", "dv")}
+    if tensor is not None:
+        x = torch.zeros(2 * n + off, dtype=dtype).as_strided((2, 128, c), (n, rows, 1), off)
+        ts[tensor] = x.view(2, 128, 2, 64)
+    return (ts["q"], ts["k"], ts["v"], ts["do"]), (ts["dq"], ts["dk"], ts["dv"])
+
+
+@pytest.mark.parametrize("tensor", ["q", "k", "v", "do", "dq", "dk", "dv"])
+@pytest.mark.parametrize("fault", ["row stride", "batch stride", "base address"])
+def test_backward_checks_want_16_byte_rows_in_bf16(tensor, fault):
+    """The bf16 backward body copies and stores rows in 16-byte pieces: a
+    misaligned row or batch stride or base of any operand or gradient is
+    refused (`_bwd_checks`, called before any launch); fp32, whose body
+    moves single elements, takes the same layouts."""
+    ins, out = _bwd_operands(torch.bfloat16, tensor, fault)
+    with pytest.raises(ValueError, match="16-byte"):
+        tattn._bwd_checks(*ins, out, "bwd")
+    ins, out = _bwd_operands(torch.float32, tensor, fault)
+    assert tattn._bwd_checks(*ins, out, "bwd") == ((2, 128, 128, 2, 64), out)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_checks_take_aligned_rows_and_allocate_them(dtype):
+    ins, out = _bwd_operands(dtype)
+    assert tattn._bwd_checks(*ins, out, "bwd") == ((2, 128, 128, 2, 64), out)
+    shape, made = tattn._bwd_checks(*ins, None, "bwd")
+    assert shape == (2, 128, 128, 2, 64)
+    assert [t.shape for t in made] == [t.shape for t in out] and all(
+        t.dtype == dtype and t.is_contiguous() for t in made)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,lk,want", [(32, 419, True), (32, 420, False), (64, 387, True),
+                                       (64, 388, False), (128, 322, True), (128, 323, False)])
+def test_backward_checks_at_the_shared_memory_limit(dtype, d, lk, want):
+    """The backward wrappers take Lk up to the fp32 body's two score tiles
+    in 227 KB, in both dtypes, the limit `_fits` gives the gate: the bf16
+    body holds no such tile and keeps the limit all the same."""
+    assert tattn._fits(d, lk) == want
+    q = torch.zeros(1, 128, 2, d, dtype=dtype)
+    k = torch.zeros(1, lk, 2, d, dtype=dtype)
+    if want:
+        assert tattn._bwd_checks(q, k, k, q, None, "bwd")[0] == (1, 128, lk, 2, d)
+    else:
+        with pytest.raises(ValueError, match="not supported"):
+            tattn._bwd_checks(q, k, k, q, None, "bwd")
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """On a CPU tensor each wrapper returns its plain version's result and
     launches nothing (the count stays)."""
