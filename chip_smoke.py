@@ -15,8 +15,10 @@
    width 384, 6 heads x 64);
    the backward kernels, the recompute attention pair (both branches of
    its forward) and the column sum at the pre-training step's shapes
-   (B=256 sequences: 2 views x 128 images; LayerNorm rows 65,536 x 384; the
-   fc1 bias gradient 65,536 x 1536, and a ragged row count); and times the
+   (B=256 sequences: 2 views x 128 images; LayerNorm rows 65,536 x 384, and
+   1,000 x 384 and 512 x 1024 for the backward, whose two calls on the same
+   inputs must give the same bits; the fc1 bias gradient 65,536 x 1536, and
+   a ragged row count); and times the
    kernel, the plain version and one PyTorch library call for the same
    function (a yardstick the port never calls), with the share of the
    bound each kernel reaches.
@@ -24,7 +26,11 @@
    tf_decoder, bf16, batch 512, random weights from a seed) on synthetic
    uint8 batches through the entry points a user calls, and asserts from
    the wrappers' launch counts that every batch went through both forward
-   kernels (12 attention and 24 LayerNorm launches per batch).
+   kernels (12 attention and 24 LayerNorm launches per batch).  Then the
+   predict CLI itself (`run_predict.main`, a reference flag spelling in its
+   argv) on 3 PNG files and an LMDB of 1,024 PNG records and a corrupt one,
+   with the same counts asserted per batch and every TSV line checked, and
+   the host's numpy bicubic against the installed OpenCV's.
 4. Checks the card's predict path against the port's CPU path on 8 images
    in fp32.
 5. Runs the pre-training step (`make_pretrain_step`) at full width
@@ -72,6 +78,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, L, H, D = 512, 256, 6, 64
 C = H * D
 N_BATCHES = 4
+CLI_RECORDS, CLI_FILES = 1024, 3  # what the predict CLI phase reads: an LMDB and image files
 PRE_BATCH = 128            # images per pre-training step; 2 views -> 256 sequences
 PRE_B = 2 * PRE_BATCH
 PRE_WARMUP, PRE_STEPS = 3, 10
@@ -133,11 +140,19 @@ FLIP_SHARE = 1e-4
 FMA_BODY_MS = {"attention_lse_fwd": 2.8060, "attention_fwd": 1.5702,
                "attention_fwd_bf16_exp": 1.5991, "attention_lse_bwd": 5.4234,
                "attention_bwd": 5.5640}
+# the LayerNorm backward's bf16 time before its redesign: one launch of 512
+# blocks and two torch sums over its partial rows (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md), printed beside the new one
+LN_BWD_FIRST_BODY_MS = 0.0944
+# shapes beside the pre-training one: rows that are no multiple of a block's
+# 8, fewer rows than the persistent grid has warps, the widest row
+LN_BWD_EDGE_SHAPES = ((1000, 384), (512, 1024))
 DESIGN = {"attention_lse_fwd": "mma.sync bf16 / FMA fp32", "attention_fwd": "mma.sync bf16 / FMA fp32",
           "attention_lse_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
           "attention_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
           "layer_norm_fwd": "warp per row, two-pass variance",
-          "layer_norm_bwd": "warp per row, partial dgamma / dbeta rows",
+          "layer_norm_bwd": "persistent grid, next row's loads ahead of the reductions, "
+                            "partial dgamma / dbeta rows summed by a finishing kernel",
           "column_sum": "512-row chunk partials, then their sum"}
 # column sums of 65,536 values: fp32 sums in another order (512-row chunks,
 # then their partials; the plain version and the library their own trees),
@@ -337,6 +352,112 @@ def phase_predict(torch, np):
     return counts
 
 
+def encode_png(np, img):
+    """uint8 RGB [H, W, 3] -> PNG bytes, by whichever of cv2 and PIL imports."""
+    try:
+        import cv2
+    except ImportError:
+        import io
+
+        from PIL import Image
+
+        out = io.BytesIO()
+        Image.fromarray(img).save(out, format="PNG")
+        return out.getvalue()
+    ok, buf = cv2.imencode(".png", cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    check(ok, "cv2.imencode failed")
+    return buf.tobytes()
+
+
+def word_image(np, rng, i):
+    """A synthetic crop of a size a word image may have (24-72 x 40-360)."""
+    return rng.integers(0, 256, (24 + 8 * (i % 7), 40 + 32 * (i % 11), 3), dtype=np.uint8)
+
+
+def phase_host_images(np):
+    """The host's resize: the port's numpy bicubic against the OpenCV that
+    is installed here (if one is), within 1 grey level everywhere."""
+    from dig_tpu_torch.data.images import cubic_resize_uint8
+
+    rng = np.random.default_rng(4)
+    imgs = [word_image(np, rng, i) for i in range(77)]
+    t0 = time.perf_counter()
+    got = [cubic_resize_uint8(img, 32, 128) for img in imgs]
+    numpy_ms = (time.perf_counter() - t0) / len(imgs) * 1e3
+    try:
+        import cv2
+    except ImportError:
+        print(f"[host images] no cv2 here: the numpy bicubic runs, {numpy_ms:.3f} ms an image "
+              f"(host, one thread); not compared")
+        return
+    t0 = time.perf_counter()
+    want = [cv2.resize(img, (128, 32), interpolation=cv2.INTER_CUBIC) for img in imgs]
+    cv_ms = (time.perf_counter() - t0) / len(imgs) * 1e3
+    diff = np.abs(np.stack(got).astype(np.int16) - np.stack(want).astype(np.int16))
+    check(int(diff.max()) <= 1, f"the numpy bicubic is {int(diff.max())} grey levels from cv2's")
+    print(f"[host images] numpy bicubic vs cv2 {cv2.__version__} INTER_CUBIC, {len(imgs)} images "
+          f"to 32 x 128: max diff {int(diff.max())}, equal share {float((diff == 0).mean()):.6f}; "
+          f"numpy {numpy_ms:.3f} ms, cv2 {cv_ms:.3f} ms an image (host, one thread)")
+
+
+def phase_predict_cli(torch, np):
+    """The predict CLI as a user calls it, on image files and an LMDB with
+    a corrupt record, reference flag spelling included: full-width model,
+    random weights from the seed, bf16, batch 512."""
+    import tempfile
+
+    from dig_tpu_torch.cli.run_predict import iter_lmdb_batches
+    from dig_tpu_torch.cli.run_predict import main as predict_main
+    from dig_tpu_torch.config import parse_config
+    from dig_tpu_torch.data.lmdb_store import LmdbWriter, native_lib
+
+    native_lib()  # built here (g++), so that the decode timing below does not hold the build
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as d:
+        db, files, tsv = (os.path.join(d, n) for n in ("words", "crops", "out.tsv"))
+        with LmdbWriter(db) as w:
+            for i in range(1, CLI_RECORDS + 1):
+                w.put(b"image-%09d" % i, encode_png(np, word_image(np, rng, i)))
+            w.put(b"image-%09d" % (CLI_RECORDS + 1), b"not an image")
+            w.put(b"num-samples", str(CLI_RECORDS + 1).encode())
+        os.mkdir(files)
+        for i in range(CLI_FILES):
+            with open(os.path.join(files, f"crop{i}.png"), "wb") as f:
+                f.write(encode_png(np, word_image(np, rng, i)))
+        cfg = parse_config(argv=["--images", files, "--data_path", db, "--output", tsv,
+                                 "--batch_size", str(B), "--decoder_type", "tf_decoder"])
+        check(cfg.model_kind == "rec" and cfg.data_path == [db], f"config {cfg}")
+        t0 = time.perf_counter()
+        decoded = sum(len(names) for names, _ in iter_lmdb_batches([db], B, cfg, cfg.num_workers))
+        host_s = time.perf_counter() - t0
+        check(decoded == CLI_RECORDS, f"decoded {decoded} of {CLI_RECORDS} records")
+        reset_counts()
+        t0 = time.perf_counter()
+        n = predict_main(cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        with open(tsv) as f:
+            lines = f.read().splitlines()
+    # the files' short batch, then the LMDB's batches: each padded to B
+    batches = 1 + -(-CLI_RECORDS // B)
+    want = per_step(attention_lse_fwd=12 * batches, layer_norm_fwd=24 * batches)
+    check(counts == want, f"predict CLI launches {counts} != {want}")
+    check(n == len(lines) == CLI_FILES + CLI_RECORDS, f"{n} recognized, {len(lines)} lines")
+    names = [os.path.join(files, f"crop{i}.png") for i in range(CLI_FILES)] + \
+            [f"{db}#{i}" for i in range(1, CLI_RECORDS + 1)]
+    for line, name in zip(lines, names):
+        fields = line.split("\t")
+        check(len(fields) == 3 and fields[0] == name, f"TSV line {line!r} for {name}")
+        check(0.0 < float(fields[2]) <= 1.0, f"confidence {fields[2]}")
+    print(f"[predict cli] {CLI_FILES} files + an LMDB of {CLI_RECORDS} records and a corrupt one, "
+          f"--decoder_type tf_decoder, bf16 batch {B}: {n} lines in {dt:.3f} s (model build "
+          f"included); host decode + resize alone {CLI_RECORDS / host_s:.1f} images/s on "
+          f"{cfg.num_workers} threads; launches attention {counts['attention_lse_fwd']}, "
+          f"layernorm {counts['layer_norm_fwd']}")
+    return counts
+
+
 def profile_fn(torch, fn, n_top=10):
     """Device time by kernel over one call of `fn` (torch.profiler, CUPTI):
     the top kernels, the device's busy time and the host wall time."""
@@ -447,23 +568,42 @@ def phase_attention_bwd(torch, attn, gen):
     return rows
 
 
+def check_layernorm_bwd(torch, ln, tag, x, g, dy, eps):
+    """The kernel against its plain version (dx at TOL, dgamma and dbeta
+    within BWD_RTOL["float32"] of the largest), and two calls bit for bit
+    equal: (dx max abs err, dgamma / dbeta max abs err)."""
+    dn = str(x.dtype).split(".")[1]
+    got = ln.layer_norm_bwd(x, g, dy, eps)
+    again = ln.layer_norm_bwd(x, g, dy, eps)
+    torch.cuda.synchronize()
+    ref = ln._ln_bwd_ref(x, g, dy, eps)
+    err = check_close(f"{tag} dx", got[0], ref[0], TOL[dn])
+    for name, a, r in (("dgamma", got[1], ref[1]), ("dbeta", got[2], ref[2])):
+        rel = rel_err(a, r)
+        check(rel <= BWD_RTOL["float32"], f"{tag} {name}: {rel:.2e} of max |ref|")
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), got, again):
+        check(torch.equal(a, b), f"{tag} {name}: two calls on the same inputs differ")
+    return err, max(max_err(got[1], ref[1]), max_err(got[2], ref[2]))
+
+
 def phase_layernorm_bwd(torch, ln, gen):
     rows = {}
     eps = 1e-6
     r = PRE_B * L
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
+        for er, ec in LN_BWD_EDGE_SHAPES:
+            ex = (2 * torch.randn(er, ec, generator=gen, device="cuda") + 0.5).to(dt)
+            edy = torch.randn(er, ec, generator=gen, device="cuda").to(dt)
+            eg = 1.0 + 0.1 * torch.randn(ec, generator=gen, device="cuda")
+            e_err, e_gerr = check_layernorm_bwd(torch, ln, f"layer_norm_bwd {dn} {er}x{ec}",
+                                                ex, eg, edy, eps)
+            print(f"[layer_norm_bwd {dn}] rows={er} c={ec}: max_abs_err dx={e_err:.3e} "
+                  f"dgamma,dbeta={e_gerr:.3e}; two calls equal bit for bit")
         x = (2 * torch.randn(r, C, generator=gen, device="cuda") + 0.5).to(dt)
         dy = torch.randn(r, C, generator=gen, device="cuda").to(dt)
         g = 1.0 + 0.1 * torch.randn(C, generator=gen, device="cuda")
-        dx, dg, db = ln.layer_norm_bwd(x, g, dy, eps)
-        torch.cuda.synchronize()
-        rdx, rdg, rdb = ln._ln_bwd_ref(x, g, dy, eps)
-        err = check_close(f"layer_norm_bwd {dn} dx", dx, rdx, TOL[dn])
-        for name, got, ref in (("dgamma", dg, rdg), ("dbeta", db, rdb)):
-            rel = rel_err(got, ref)
-            check(rel <= BWD_RTOL["float32"], f"layer_norm_bwd {dn} {name}: {rel:.2e} of max |ref|")
-        gerr = max(max_err(dg, rdg), max_err(db, rdb))
+        err, gerr = check_layernorm_bwd(torch, ln, f"layer_norm_bwd {dn}", x, g, dy, eps)
         # five timings of 200 launches each: one reading of 50 launches was
         # once 2.6x the others on an unchanged kernel; the median is kept
         reps = sorted(time_ms(lambda: ln.layer_norm_bwd(x, g, dy, eps), iters=200)
@@ -480,11 +620,14 @@ def phase_layernorm_bwd(torch, ln, gen):
         bms, by = bound(nbytes, 16 * r * C, "float32")
         rows[dn] = dict(max_abs_err=max(err, gerr), ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=lib_ms)
+        old = (f"; the first body took {LN_BWD_FIRST_BODY_MS:.4f} ms (PERF.md)"
+               if dt == torch.bfloat16 else "")
         print(f"[layer_norm_bwd {dn}] rows={r} c={C}: max_abs_err dx={err:.3e} "
-              f"dgamma,dbeta={gerr:.3e}; kernel {ms:.4f} ms (median of 5 x 200 launches: "
-              f"{[round(t, 4) for t in reps]}), plain {plain_ms:.4f} ms, "
-              f"F.layer_norm backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
-        del x, dy, dx, rdx, xl, y
+              f"dgamma,dbeta={gerr:.3e}; two calls equal bit for bit; kernel {ms:.4f} ms "
+              f"(median of 5 x 200 launches: {[round(t, 4) for t in reps]}), "
+              f"plain {plain_ms:.4f} ms, F.layer_norm backward {lib_ms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}), {bms / ms:.3f} of the bound{old}")
+        del x, dy, xl, y
         torch.cuda.empty_cache()
     return rows
 
@@ -1098,6 +1241,8 @@ def main():
     colsum_row = phase_colsum(torch, fd, gen)
 
     paths = {"predict": phase_predict(torch, np)}
+    phase_host_images(np)
+    paths["predict_cli"] = phase_predict_cli(torch, np)
     phase_cpu_parity(torch, np)
     paths["pretrain"] = phase_pretrain(torch, np, "pretrain", PER_STEP)
     phase_pretrain_cpu_parity(torch, np, "pretrain cpu parity", PER_STEP)

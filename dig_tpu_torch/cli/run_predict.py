@@ -2,18 +2,21 @@
 
     python -m dig_tpu_torch.cli.run_predict \
         --finetune DiG_finetuned.pth --images crops/ more/*.png \
-        --output predictions.tsv
+        --data_path benchmark_lmdb --output predictions.tsv
 
 Counterpart of `dig_tpu.cli.run_predict` with the same flags and TSV
-output, ``name<TAB>text<TAB>confidence``.  Confidence is the geometric mean
-of the chosen-token probabilities up to the first EOS.  Runs on CUDA;
-`main(cfg, device="cpu")` runs the plain versions of the kernels.
+output, ``name<TAB>text<TAB>confidence``.  Inputs are image files,
+directories (recursed), globs, and-or LMDBs in the reference schema
+(``image-%09d`` / ``num-samples``; labels ignored), files first.
+Confidence is the geometric mean of the chosen-token probabilities up to
+the first EOS.  Runs on CUDA; `main(cfg, device="cpu")` runs the plain
+versions of the kernels.
 
-Not yet ported (each refused with a message): `--data_path` LMDB input
-(the data slice), `--resume` of a native `dig_tpu` checkpoint (its
-`treedef.pkl` needs JAX to unpickle: convert it with
-`tools/export_pth.py` and pass the `.pth` to `--finetune`), beam search,
-and model kinds other than ``rec``.
+Not yet ported (each refused with a message): `--resume` of a native
+`dig_tpu` checkpoint (its `treedef.pkl` needs JAX to unpickle: convert it
+with `tools/export_pth.py` and pass the `.pth` to `--finetune`), beam
+search, `--text_cond_vis`, and model kinds other than ``rec``
+(`--decoder_type attention`, `--use_seq_cls_token`).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from dig_tpu_torch.config import PredictConfig, config_to_json, parse_config
+from dig_tpu_torch.data.images import decode_image, resize_uint8
 from dig_tpu_torch.ops import activations
 from dig_tpu_torch.ops.images import to_model_images
 from dig_tpu_torch.utils.charset import build_charset
@@ -62,50 +66,30 @@ def collect_image_paths(specs) -> list:
     return list(dict.fromkeys(out))
 
 
-def _decode_resize(path: str, h: int, w: int):
-    """Image file -> uint8 RGB [h, w, 3] (bicubic resize, as the JAX
-    package's `resize_uint8`), or None if unreadable.  cv2 first, PIL
-    second, both imported here: the card's machine has neither."""
-    try:
-        with open(path, "rb") as f:
-            buf = f.read()
-    except OSError:
-        return None
-    img = None
-    try:
-        import cv2
-
-        img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
-        if img is not None:
-            img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-            if img.shape[:2] != (h, w):
-                img = cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)
-        return img
-    except ImportError:
-        pass
-    import io
-
-    from PIL import Image, UnidentifiedImageError
-
-    try:
-        pil = Image.open(io.BytesIO(buf)).convert("RGB")
-    except (UnidentifiedImageError, OSError):
-        return None
-    return np.asarray(pil.resize((w, h), Image.BICUBIC))
+def _decode_resize(buf, h: int, w: int):
+    """Image bytes -> uint8 RGB [h, w, 3], or None if they are no image (or
+    `buf` is None, a missing record): `decode_image`, then `resize_uint8`,
+    which is OpenCV's bicubic, by cv2 or written out in numpy
+    (`dig_tpu_torch/data/images.py`).  With neither cv2 nor PIL installed
+    `decode_image` raises: nothing could be decoded at all."""
+    img = decode_image(buf) if buf is not None else None
+    return None if img is None else resize_uint8(img, h, w)
 
 
-def iter_file_batches(paths, batch_size, h, w, num_workers: int = 4):
-    """Yield (names, images [B,H,W,3] uint8) from image files; decode and
-    resize run on a thread pool, a bounded chunk at a time.  Unreadable
-    files are skipped with a note."""
+def _prep_batches(pairs, prep, batch_size, num_workers, what):
+    """The decode-and-collect loop of the file and LMDB iterators: `pairs`
+    yields (name, payload); `prep(payload)`, run on a thread pool, returns
+    an image or None.  The map goes a bounded chunk at a time, so decoded
+    images in memory stay O(chunk) when the model is slower than the decode
+    threads.  A None result is skipped under its own name with a note."""
     chunk = max(batch_size * 8, 64)
-    it = iter(paths)
+    it = iter(pairs)
     with ThreadPoolExecutor(max_workers=max(num_workers, 1)) as pool:
         names, imgs = [], []
         while part := list(itertools.islice(it, chunk)):
-            for name, img in zip(part, pool.map(lambda p: _decode_resize(p, h, w), part)):
+            for (name, _), img in zip(part, pool.map(prep, [p for _, p in part])):
                 if img is None:
-                    print(f"[predict] skipping unreadable image {name!r}", file=sys.stderr)
+                    print(f"[predict] skipping unreadable {what} {name!r}", file=sys.stderr)
                     continue
                 names.append(name)
                 imgs.append(img)
@@ -114,6 +98,54 @@ def iter_file_batches(paths, batch_size, h, w, num_workers: int = 4):
                     names, imgs = [], []
         if imgs:
             yield names, np.stack(imgs)
+
+
+def iter_file_batches(paths, batch_size, h, w, num_workers: int = 4):
+    """Yield (names, images [B,H,W,3] uint8) from image files; reading,
+    decode and resize all run on the pool.  Unreadable files are skipped
+    with a note."""
+
+    def load(path):
+        try:
+            with open(path, "rb") as f:
+                buf = f.read()
+        except OSError:
+            return None
+        return _decode_resize(buf, h, w)
+
+    yield from _prep_batches(((p, p) for p in paths), load, batch_size, num_workers, "image")
+
+
+def iter_lmdb_batches(data_paths, batch_size, cfg, num_workers: int = 4):
+    """Yield (names, images) batches from LMDBs in the reference schema
+    (``image-%09d`` / ``num-samples``).  Records are read by index: labels
+    are never touched (unlabeled LMDBs work), and a corrupt or missing
+    record is skipped under its own name ``{path}#{i}``, never replaced by a
+    neighbour, which would put a prediction under the wrong name.
+
+    Records are fetched on the main thread (the `lmdb`-package backend
+    shares one transaction, which threads must not share; `_prep_batches`
+    pulls the lazy `pairs` a chunk at a time); decode and resize run on the
+    pool."""
+    from dig_tpu_torch.data.lmdb_store import LmdbReader
+
+    def prep(buf):
+        return _decode_resize(buf, cfg.input_h, cfg.input_w)
+
+    for path in data_paths:
+        reader = LmdbReader(path)
+        try:
+            print(f"[predict] reading {path!r} with the {reader.backend} LMDB backend",
+                  file=sys.stderr)
+            n_raw = reader.get(b"num-samples")
+            if n_raw is None:
+                raise ValueError(f"{path!r} has no 'num-samples' key: not an LMDB in the "
+                                 f"reference schema (tools/create_lmdb.py writes it)")
+            pairs = ((f"{path}#{i}", reader.get(b"image-%09d" % i))
+                     for i in range(1, int(n_raw) + 1))
+            yield from _prep_batches(pairs, prep, batch_size, num_workers, "record")
+        finally:
+            reader.close()
 
 
 def make_predict_fn(model, eos: int):
@@ -191,9 +223,11 @@ def main(cfg: PredictConfig, device="cuda"):
             "--resume of a native dig_tpu checkpoint directory is not supported "
             "here: its treedef.pkl unpickles only with JAX. Convert it with "
             "`python tools/export_pth.py <ckpt_dir> out.pth` and pass --finetune out.pth")
-    if cfg.data_path:
-        raise NotImplementedError("--data_path (LMDB input) is not ported yet; "
-                                  "use --images")
+    if cfg.model_kind != "rec":
+        raise NotImplementedError(
+            f"--model_kind {cfg.model_kind!r} (--decoder_type attention, --use_seq_cls_token "
+            f"in the reference's spelling) is not ported yet: only 'rec' "
+            f"(--decoder_type tf_decoder) runs here")
     if cfg.beam_width > 0:
         raise NotImplementedError("--beam_width > 0 is not ported yet (greedy only)")
     if cfg.text_cond_vis:
@@ -211,12 +245,18 @@ def main(cfg: PredictConfig, device="cuda"):
                          f"classes, --nb_classes is {cfg.nb_classes}")
     model = load_model(cfg, device)
     predict_fn = make_predict_fn(model, charset.eos_id)
-    batches = iter_file_batches(collect_image_paths(cfg.images), cfg.batch_size,
-                                cfg.input_h, cfg.input_w, cfg.num_workers)
+
+    def batches():  # files first, then the LMDBs, as the JAX CLI orders them
+        if cfg.images:
+            yield from iter_file_batches(collect_image_paths(cfg.images), cfg.batch_size,
+                                         cfg.input_h, cfg.input_w, cfg.num_workers)
+        if cfg.data_path:
+            yield from iter_lmdb_batches(cfg.data_path, cfg.batch_size, cfg, cfg.num_workers)
+
     sink = open(cfg.output, "w") if cfg.output else sys.stdout
     n = 0
     try:
-        for names, ids, conf in predict_batches(predict_fn, batches, cfg.batch_size, device):
+        for names, ids, conf in predict_batches(predict_fn, batches(), cfg.batch_size, device):
             for name, row, c in zip(names, ids, conf):
                 sink.write(f"{name}\t{charset.decode(row)}\t{c:.4f}\n")
             n += len(names)

@@ -4,9 +4,12 @@
 
 `PredictConfig` has the fields and defaults of `dig_tpu.config.PredictConfig`
 so that a command line written for `dig_tpu.cli.run_predict` parses the
-same here.  Options this slice does not run yet (`--data_path` LMDB input,
-`--resume` of a native checkpoint, beam search, other model kinds) parse
-and are refused by the CLI with a message.
+same here, the reference CLIs' own spellings included (`--use_cls`,
+`--decoder_type`, `--use_seq_cls_token`, `--moco_m_cos`: see
+`_REF_FLAG_ALIASES`).  Options the port does not run yet (`--resume` of a
+native checkpoint, beam search, `--text_cond_vis`, model kinds other than
+``rec``) parse as in the JAX package and are refused by the CLI or by
+`build_rec_model` with a message.
 """
 
 from __future__ import annotations
@@ -80,12 +83,83 @@ def _add_field_args(parser: argparse.ArgumentParser, cfg) -> None:
             parser.add_argument(name, type=str, default=default)
 
 
+def _map_decoder_type(val):
+    # the reference builds RecModel for tf_decoder, AttnRecModel for
+    # attention, and raises for anything else
+    kind = {"tf_decoder": "rec", "attention": "attn"}.get(val or "")
+    if not kind:
+        raise ValueError(
+            f"--decoder_type {val!r}: the reference supports tf_decoder "
+            "or attention (run_class_finetuning.py:350-355)")
+    return ["--model_kind", kind]
+
+
+# Reference flag spellings that map onto a differently-named field here.
+# Each entry: ref flag -> (target field, fn(value_or_None) -> replacement
+# argv tokens, whether the flag takes a value).  Only applied when the
+# target field exists on the config class, so one table serves the
+# pretrain, finetune and predict configs.
+_REF_FLAG_ALIASES = {
+    # finetune / predict.  The reference declares --use_seq_cls_token with
+    # `type=bool`, so any non-empty value parses True there (even "False");
+    # here truthy strings and the bare flag select seq_cls, explicit falsy
+    # strings keep the default
+    "--use_seq_cls_token": ("model_kind", lambda v: (
+        ["--model_kind", "seq_cls"]
+        if v is None or v.lower() in _TRUTHY else []), True),
+    "--decoder_type": ("model_kind", _map_decoder_type, True),
+    "--use_cls": ("use_mean_pooling",  # store_false dest=use_mean_pooling
+                  lambda v: ["--no_use_mean_pooling"], False),
+    # pretrain (store_true)
+    "--moco_m_cos": ("use_moco_m_cos",
+                     lambda v: ["--use_moco_m_cos"], False),
+}
+
+
+def _translate_reference_flags(argv, cls):
+    """Rewrite reference-CLI flag spellings into this config's flags (in
+    place in the argv stream, so later explicit flags still win)."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    out, translated, i = [], [], 0
+    while i < len(argv):
+        tok = argv[i]
+        name, eq, inline = tok.partition("=")
+        rule = _REF_FLAG_ALIASES.get(name)
+        if rule is None:
+            out.append(tok)
+            i += 1
+            continue
+        target, fn, takes_value = rule
+        val = inline if eq else None
+        if takes_value and val is None and i + 1 < len(argv) \
+                and not argv[i + 1].startswith("--"):
+            val = argv[i + 1]
+            i += 1
+        i += 1
+        if target not in fields:
+            # not this config's flag: re-emit the flag and the value it
+            # consumed, so the unknown-flags warning reports what was passed
+            out.append(tok)
+            if val is not None and not eq:
+                out.append(val)
+            continue
+        repl = fn(val)
+        out.extend(repl)
+        translated.append(f"{name} -> {' '.join(repl) or '(default)'}")
+    if translated:
+        print(f"[config] reference flags translated: {translated}")
+    return out
+
+
 def parse_config(cls=PredictConfig, argv=None):
-    """Parse CLI args into a config dataclass; unknown flags are accepted
-    with a warning, as `dig_tpu.config.parse_config` does."""
+    """Parse CLI args into a config dataclass, as `dig_tpu.config.parse_config`
+    does: unknown flags are accepted with a warning, and the reference
+    CLIs' spellings are translated onto their fields here
+    (`_REF_FLAG_ALIASES`)."""
     import sys
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    argv = _translate_reference_flags(argv, cls)
     cfg = cls()
     parser = argparse.ArgumentParser(cls.__name__, allow_abbrev=False)
     _add_field_args(parser, cfg)
@@ -97,12 +171,20 @@ def parse_config(cls=PredictConfig, argv=None):
         default = getattr(cfg, f.name)
         if isinstance(default, tuple) and isinstance(val, list):
             val = tuple(float(x) for x in val)
+        if isinstance(default, int) and not isinstance(default, bool):
+            val = int(val)
         setattr(cfg, f.name, val)
     return cfg
 
 
 def config_to_json(cfg) -> str:
-    return json.dumps(dataclasses.asdict(cfg), indent=2, default=str)
+    """The config as JSON; an infinite value (`num_samples`) as the string
+    "inf", which strict JSON can carry."""
+    d = dataclasses.asdict(cfg)
+    for k, v in d.items():
+        if v == float("inf"):
+            d[k] = "inf"
+    return json.dumps(d, indent=2, default=str)
 
 
 @dataclasses.dataclass

@@ -17,13 +17,13 @@ variance, eps inside the rsqrt.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from dig_tpu_torch.ops import _build
 
 _ROW_BLOCK = 512
-_BWD_ROWS = 128  # rows per CTA of the backward kernel, one partial row each (see the .cu)
 _MAX_C = 1024
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -104,18 +104,34 @@ def _bwd_lib():
     fn = lib.dig_ln_bwd
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.dig_ln_bwd_blocks.argtypes = [ctypes.c_int] * 3
+        lib.dig_ln_bwd_blocks.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(device_index: int, dtype_code: int, rows: int, c: int) -> int:
+    """Blocks of the backward kernel's persistent grid on this device (SM
+    count x the occupancy the runtime reports, at most one warp per row):
+    the number of partial rows its scratch holds.  Asked of the library,
+    once per device, dtype and shape; it takes the place of `_BWD_ROWS`, the
+    fixed 128 rows per block this module once mirrored from the kernel."""
+    lib = _bwd_lib()
+    blocks = lib.dig_ln_bwd_blocks(dtype_code, rows, c)
+    _build.check(lib, max(-blocks, 0), "layer_norm_bwd (grid size)")
+    return blocks
 
 
 def layer_norm_bwd(x, gamma, dy, eps: float):
     """Kernel wrapper: the LayerNorm backward over the last axis of `x` ->
     (dx in x's dtype, dgamma, dbeta in gamma's dtype).  A CPU tensor takes
-    `_ln_bwd_ref`; a CUDA tensor launches `csrc/layernorm_bwd.cu` (dx and
-    one fp32 partial dgamma, dbeta row per block of `_BWD_ROWS` rows),
-    then sums the partials, as the JAX package sums its kernel's per-block
-    partials outside the kernel (`dig_tpu/ops/layernorm.py:135-137`)."""
+    `_ln_bwd_ref`; a CUDA tensor launches `csrc/layernorm_bwd.cu`, whose C
+    entry writes dx and one fp32 partial dgamma, dbeta row per block of its
+    persistent grid into a scratch tensor and then sums the partial rows
+    itself (the JAX package sums its kernel's per-block partials outside
+    the kernel, `dig_tpu/ops/layernorm.py:135-137`)."""
     if x.device.type == "cpu":
         return _ln_bwd_ref(x, gamma, dy, eps)
     c = x.shape[-1]
@@ -131,17 +147,21 @@ def layer_norm_bwd(x, gamma, dy, eps: float):
     if g.shape != (c,):
         raise ValueError(f"layer_norm_bwd: gamma must be [{c}]")
     rows = x.numel() // c
-    blocks = -(-rows // _BWD_ROWS)
+    if rows == 0:
+        zeros = torch.zeros(c, dtype=gamma.dtype, device=x.device)
+        return torch.empty_like(x), zeros, zeros.clone()
+    blocks = _bwd_blocks(x.device.index, _DTYPES[x.dtype], rows, c)
     dx = torch.empty_like(x)
-    dg_part = torch.empty((blocks, c), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((blocks, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((2, c), dtype=torch.float32, device=x.device)
     lib = _bwd_lib()
     code = lib.dig_ln_bwd(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), dy.data_ptr(),
-                          dx.data_ptr(), dg_part.data_ptr(), db_part.data_ptr(), rows, c,
+                          dx.data_ptr(), out.data_ptr(), part.data_ptr(), blocks, rows, c,
                           float(eps), _build.stream_ptr(x))
     _build.check(lib, code, "layer_norm_bwd")
     layer_norm_bwd.launches += 1
-    return dx, dg_part.sum(0).to(gamma.dtype), db_part.sum(0).to(gamma.dtype)
+    dgamma, dbeta = out.unbind(0)
+    return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
 layer_norm_bwd.launches = 0

@@ -133,8 +133,10 @@ def test_cli_auto_erf_for_pth(tmp_path, micro_pair):
 
 @pytest.mark.parametrize("field,value,exc,words", [
     ("resume", "out/checkpoint-best", ValueError, "tools/export_pth.py"),
-    ("data_path", ["db"], NotImplementedError, "LMDB"),
+    ("text_cond_vis", True, NotImplementedError, "text_cond_vis"),
     ("beam_width", 3, NotImplementedError, "beam"),
+    ("model_kind", "attn", NotImplementedError, "decoder_type attention"),
+    ("model_kind", "seq_cls", NotImplementedError, "use_seq_cls_token"),
 ])
 def test_cli_refuses_unported_options(field, value, exc, words):
     from dig_tpu_torch.cli.run_predict import main
@@ -211,6 +213,8 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_dig_tpu():
     files = sorted((ROOT / "dig_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"dig_tpu_torch/data/images.py", "dig_tpu_torch/data/lmdb_store.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dig_tpu")]
     assert bad == []
