@@ -55,7 +55,19 @@
    256 with each attention pair; asserts their launch counts.
 8. Checks one fp32 fine-tuning step of the full-width recognizer (rates 0,
    the column sum on) on the card against the CPU.
-9. Prints one JSON line describing every kernel, then as the last line
+9. Drives the pre-training data path and CLI at full width on an LMDB of
+   1,024 seeded PNG word images (8 steps an epoch at batch 128): the
+   on-device view generator on one batch (exact mask counts, range, and in
+   fp32 the card against the CPU under one set of draws); the loader alone
+   over one epoch, with host SeqCLR augmentation and without (thread workers,
+   and process workers in a child process); `run_pretrain.main` itself for
+   two epochs with host augmentation and with `--device_aug` (16 steps, the
+   launch counts of item 5 at every step, finite losses in log.txt, both
+   checkpoints, parameters moved); and resume equivalence in fp32: two
+   epochs straight against one epoch, a fresh `main` that auto-resumes, and
+   the second epoch, every parameter, momentum parameter and AdamW moment
+   compared bit for bit.
+10. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -83,6 +95,15 @@ PRE_BATCH = 128            # images per pre-training step; 2 views -> 256 sequen
 PRE_B = 2 * PRE_BATCH
 PRE_WARMUP, PRE_STEPS = 3, 10
 PRE_MASKED = 179           # exact-count SimMIM masks: 179 of 256 patches per view
+PRE_CLI_RECORDS, PRE_CLI_EPOCHS = 1024, 2  # the pre-training CLI's LMDB: 8 steps an epoch
+PRE_CLI_STEPS = PRE_CLI_RECORDS // PRE_BATCH * PRE_CLI_EPOCHS
+# the view generator, card vs CPU under the same draws, fp32 images in [-1, 1].
+# With the matrices given, the warp's source coordinates are equal to the bit
+# on both (they are summed in one fixed order), and the views agree within
+# WARP_ATOL.  From the draws, the two devices' cos, sin and tan differ by an
+# ulp or two: up to 2e-5 pixels at the image's ends, and up to 4e-5 in a
+# bilinear sample of these records, which are noise (neighbours up to 2 apart)
+WARP_ATOL, VIEW_ATOL = 1e-5, 1e-4
 KERNEL_NAMES = ("attention_lse_fwd", "attention_lse_bwd", "attention_fwd", "attention_bwd",
                 "layer_norm_fwd", "layer_norm_bwd", "column_sum")
 
@@ -456,6 +477,301 @@ def phase_predict_cli(torch, np):
           f"{cfg.num_workers} threads; launches attention {counts['attention_lse_fwd']}, "
           f"layernorm {counts['layer_norm_fwd']}")
     return counts
+
+
+def write_word_lmdb(np, path, n, seed):
+    """An LMDB of `n` seeded PNG word images in the reference schema."""
+    from dig_tpu_torch.data.lmdb_store import LmdbWriter
+
+    rng = np.random.default_rng(seed)
+    with LmdbWriter(path) as w:
+        for i in range(1, n + 1):
+            w.put(b"image-%09d" % i, encode_png(np, word_image(np, rng, i)))
+        w.put(b"num-samples", str(n).encode())
+
+
+def phase_device_view(torch, np, db):
+    """`make_device_view_fn` on one loader batch of 128: what it returns,
+    its time, and the card against the CPU under one set of draws."""
+    from dig_tpu_torch.data.dataset import build_pretraining_dataset
+    from dig_tpu_torch.data.device_aug import affine_mats, batched_affine_warp, draw_augment_params
+    from dig_tpu_torch.data.pipeline import make_train_loader
+    from dig_tpu_torch.train.pretrain import make_device_view_fn
+    from dig_tpu_torch.utils.rng import step_generator
+
+    ds = build_pretraining_dataset([db], num_view=1, rng=np.random.default_rng(0))
+    loader = make_train_loader(ds, local_batch=PRE_BATCH, rank=0, world=1, seed=0, num_workers=4)
+    u8 = torch.from_numpy(next(iter(loader))[0])
+    check(u8.shape == (PRE_BATCH, 32, 128, 3) and u8.dtype == torch.uint8, f"batch {u8.shape}")
+    view_fn = make_device_view_fn(L, 0.7, 2)
+    x = u8.cuda()
+    out = view_fn(step_generator(1, 1, 0, "cuda"), x)
+    check(sorted(out) == ["aug_images", "images", "mask"], f"view keys {sorted(out)}")
+    check(all(t.is_cuda for t in out.values()), "the view generator left the card")
+    check(out["mask"].shape == (PRE_BATCH, 2, L) and out["mask"].dtype == torch.bool
+          and bool((out["mask"].sum(-1) == PRE_MASKED).all()),
+          f"masks are not {PRE_MASKED} of {L} in each view")
+    aug = out["aug_images"]
+    check(aug.shape == out["images"].shape == (PRE_BATCH, 32, 128, 3)
+          and bool(torch.isfinite(aug).all()) and float(aug.abs().max()) <= 1.0,
+          "the augmented view is not a finite image in [-1, 1]")
+    changed = int((aug != out["images"]).flatten(1).any(1).sum())
+    check(changed >= PRE_BATCH * 0.9, f"only {changed} of {PRE_BATCH} views were augmented")
+    again = view_fn(step_generator(1, 1, 0, "cuda"), x)
+    check(all(torch.equal(out[k], again[k]) for k in out), "one (seed, stream, step), two batches")
+
+    params = draw_augment_params(torch.Generator().manual_seed(0), PRE_BATCH, 32, 128)
+    on_cpu = view_fn(torch.Generator().manual_seed(1), u8, params)
+    on_card = view_fn(torch.Generator(device="cuda").manual_seed(1), x, params)
+    check(on_card["aug_images"].dtype == torch.float32, "the parity check is not fp32")
+    # the card divides by the scalar 255 as a product with its reciprocal: one fp32 ulp
+    ierr = max_err(on_card["images"].cpu(), on_cpu["images"])
+    check(ierr <= 2**-23, f"the original views differ by {ierr}, more than an ulp")
+    err = max_err(on_card["aug_images"].cpu(), on_cpu["aug_images"])
+    check(err <= VIEW_ATOL, f"augmented view, card vs CPU: max abs err {err} > {VIEW_ATOL}")
+    mats = affine_mats(*(params[k] for k in ("angle", "scale", "shear", "tx", "ty")), 32, 128)
+    werr = max_err(batched_affine_warp(on_cpu["images"].cuda(), mats.cuda()).cpu(),
+                   batched_affine_warp(on_cpu["images"], mats))
+    check(werr <= WARP_ATOL, f"the warp, card vs CPU from one set of matrices: {werr} > {WARP_ATOL}")
+    gates = {k: int(v.sum()) for k, v in params.items() if k.endswith("_gate")}
+
+    steps = iter(range(1, 1000))
+    ms = time_ms(lambda: view_fn(step_generator(1, 1, next(steps), "cuda"), x), iters=20)
+    _, busy_ms, wall_ms = profile_fn(torch, lambda: view_fn(step_generator(1, 1, 0, "cuda"), x))
+    print(f"[device view] batch {PRE_BATCH}, uint8 -> images, aug_images, mask [{PRE_BATCH}, 2, {L}] "
+          f"with {PRE_MASKED} masked a view; {changed} views changed; fp32 card vs CPU under one "
+          f"set of draws (gates on: {gates}): max abs err {err:.3e} (atol {VIEW_ATOL}; the "
+          f"original view {ierr:.3e}; the warp alone from one set of matrices {werr:.3e}, atol "
+          f"{WARP_ATOL}); "
+          f"{ms:.3f} ms a batch (CUDA events, 20 batches); one profiled batch: device busy "
+          f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall")
+
+
+LOADER_PROBE = """
+import sys, time
+import numpy as np
+from dig_tpu_torch.data.dataset import build_pretraining_dataset
+from dig_tpu_torch.data.pipeline import make_train_loader
+db, batch, workers = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+ds = build_pretraining_dataset([db], num_view=2, rng=np.random.default_rng(0))
+loader = make_train_loader(ds, local_batch=batch, rank=0, world=1, seed=0, num_workers=workers,
+                           worker_type="process")
+t0 = time.perf_counter()
+n = sum(len(b[0]) for b in loader)
+print(n, time.perf_counter() - t0)
+"""
+
+
+def phase_loader(torch, np, db):
+    """The loader alone over one epoch of the LMDB: images/s with host
+    SeqCLR augmentation and with `num_view=1` (what `--device_aug` reads),
+    on 10 worker threads; and with host augmentation on forked process
+    workers, measured in a child process that never touches the card."""
+    import numpy
+
+    from dig_tpu_torch.data.dataset import build_pretraining_dataset
+    from dig_tpu_torch.data.pipeline import make_train_loader
+
+    try:
+        import cv2
+        cv2_version = cv2.__version__
+    except ImportError:
+        cv2_version = None
+    check(cv2_version is not None, "host augmentation needs OpenCV (cv2), which is not installed")
+    cores = len(os.sched_getaffinity(0))
+    rates = {}
+    for tag, num_view in (("host aug", 2), ("num_view=1", 1)):
+        ds = build_pretraining_dataset([db], num_view=num_view, rng=np.random.default_rng(0))
+        loader = make_train_loader(ds, local_batch=PRE_BATCH, rank=0, world=1, seed=0,
+                                   num_workers=10)
+        check(len(loader) == PRE_CLI_RECORDS // PRE_BATCH, f"{len(loader)} batches an epoch")
+        t0 = time.perf_counter()
+        batches = list(loader)
+        dt = time.perf_counter() - t0
+        check(len(batches) == len(loader), f"[loader {tag}] {len(batches)} batches")
+        differ = 0
+        for ori, aug, mask in batches:
+            check(ori.shape == aug.shape == (PRE_BATCH, 32, 128, 3)
+                  and ori.dtype == aug.dtype == np.uint8, f"[loader {tag}] {ori.shape} {ori.dtype}")
+            check(mask.shape == (PRE_BATCH, num_view, L) and mask.dtype == np.bool_
+                  and bool((mask.sum(-1) == PRE_MASKED).all()), f"[loader {tag}] masks {mask.shape}")
+            differ += int((ori != aug).reshape(PRE_BATCH, -1).any(1).sum())
+        if num_view == 2:  # this machine's OpenCV: the view must be an augmented one
+            check(differ >= 0.9 * PRE_CLI_RECORDS, f"only {differ} augmented views differ")
+        else:
+            check(differ == 0, "num_view=1 must not augment on the host")
+        rates[tag] = PRE_CLI_RECORDS / dt
+    probe = subprocess.run([sys.executable, "-c", LOADER_PROBE, db, str(PRE_BATCH), "8"],
+                           capture_output=True, text=True, timeout=180, cwd=ROOT,
+                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    check(probe.returncode == 0, f"the process-worker probe failed: {probe.stderr[-2000:]}")
+    n, dt = probe.stdout.split()
+    check(int(n) == PRE_CLI_RECORDS, f"the process-worker probe read {n} images")
+    rates["host aug, 8 process workers"] = PRE_CLI_RECORDS / float(dt)
+    print(f"[loader] one epoch of {PRE_CLI_RECORDS} PNG records, batch {PRE_BATCH}, host clock, "
+          f"pool start included; {cores} cores, numpy {numpy.__version__}, cv2 {cv2_version}, "
+          f"Generator.spawn {hasattr(np.random.default_rng(0), 'spawn')}: "
+          + "; ".join(f"{k}: {v:.1f} images/s" for k, v in rates.items())
+          + " (10 worker threads unless said otherwise)")
+    return rates
+
+
+def epoch_rate(screen, epoch):
+    """(seconds a step, seconds a step spent waiting for data) of `epoch`
+    from the CLI's own screen.txt: the epoch's total and its last log line."""
+    total = re.search(rf"Epoch: \[{epoch}\] Total time: \S+ \(([0-9.]+) s / it\)", screen)
+    last = re.findall(rf"Epoch: \[{epoch}\] \[\d+/\d+\].*time: ([0-9.]+)  data: ([0-9.]+)", screen)
+    check(total and last, f"screen.txt has no timing for epoch {epoch}")
+    return float(total.group(1)), float(last[-1][1])
+
+
+def run_pretrain_cli(torch, tag, argv, steps, cut_after_epoch=None):
+    """`run_pretrain.main` on `argv`; checks the step count, the launch
+    counts of every step, and that stdout came back.  With
+    `cut_after_epoch`, the run is stopped by an exception from that epoch's
+    log write, as a job killed after its checkpoint would be.  Returns
+    (state or None, launch counts, seconds)."""
+    from dig_tpu_torch.cli import run_pretrain
+    from dig_tpu_torch.config import PretrainConfig, parse_config
+
+    class Cut(Exception):
+        pass
+
+    real_write = run_pretrain.JsonlLogger.write
+
+    def write(self, **stats):
+        real_write(self, **stats)
+        if stats["epoch"] == cut_after_epoch:
+            raise Cut
+
+    cfg = parse_config(PretrainConfig, argv)
+    stdout = sys.stdout
+    reset_counts()
+    t0 = time.perf_counter()
+    state = None
+    if cut_after_epoch is None:
+        state = run_pretrain.main(cfg)
+    else:
+        run_pretrain.JsonlLogger.write = write
+        try:
+            run_pretrain.main(cfg)
+        except Cut:
+            pass
+        else:
+            check(False, f"[{tag}] the run was not cut after epoch {cut_after_epoch}")
+        finally:
+            run_pretrain.JsonlLogger.write = real_write
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    check(sys.stdout is stdout, f"[{tag}] main left its tee on sys.stdout")
+    if state is not None:
+        check(state.step == state.optimizer.count == PRE_CLI_STEPS,
+              f"[{tag}] {state.step} steps, want {PRE_CLI_STEPS}")
+    check_counts(f"[{tag}]", counts, PER_STEP, steps)
+    return state, counts, dt
+
+
+def check_cli_outputs(out, tag):
+    """log.txt (finite losses), both checkpoints with their commit marker, screen.txt."""
+    with open(os.path.join(out, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    check([l["epoch"] for l in log] == list(range(PRE_CLI_EPOCHS)), f"[{tag}] log.txt epochs {log}")
+    for l in log:
+        for k in ("train_loss", "train_loss_contrast", "train_loss_pixel", "train_grad_norm"):
+            check(math.isfinite(l[k]), f"[{tag}] {k} = {l[k]} in epoch {l['epoch']}")
+    for epoch in range(PRE_CLI_EPOCHS):
+        with open(os.path.join(out, f"checkpoint-{epoch}", "meta.json")) as f:
+            meta = json.load(f)
+        want = {"step": (epoch + 1) * PRE_CLI_STEPS // PRE_CLI_EPOCHS, "extra": {"epoch": epoch}}
+        check(meta == want, f"[{tag}] checkpoint-{epoch} meta {meta}")
+        check(os.path.getsize(os.path.join(out, f"checkpoint-{epoch}", "checkpoint.pth")) > 1e6,
+              f"[{tag}] checkpoint-{epoch} has no payload")
+    with open(os.path.join(out, "screen.txt")) as f:
+        return log, f.read()
+
+
+def phase_pretrain_cli(torch, np, db, out, tag, extra_argv):
+    """`run_pretrain.main` as a user calls it: PretrainConfig defaults (the
+    full-width model, bf16, batch 128, 10 loader threads), two epochs."""
+    from dig_tpu_torch.cli.run_pretrain import build_model
+    from dig_tpu_torch.config import PretrainConfig, parse_config
+
+    argv = ["--image_alone_path", db, "--output_dir", out, "--epochs", str(PRE_CLI_EPOCHS),
+            *extra_argv]
+    cfg = parse_config(PretrainConfig, argv)
+    check(cfg.batch_size == PRE_BATCH and cfg.dtype == "bfloat16" and cfg.num_workers == 10
+          and cfg.model == "pretrain_simmim_moco_ori_vit_small_patch4_32x128", f"config {cfg}")
+    state, counts, dt = run_pretrain_cli(torch, tag, argv, PRE_CLI_STEPS)
+    log, screen = check_cli_outputs(out, tag)
+    start = build_model(cfg, "cuda").state_dict()  # the same seed: the weights the run began with
+    final = state.model.state_dict()
+    moved = sum(not torch.equal(final[k], start[k]) for k in start)
+    check(moved == len(start), f"[{tag}] {len(start) - moved} of {len(start)} tensors did not move")
+    s_it, s_data = epoch_rate(screen, PRE_CLI_EPOCHS - 1)
+    print(f"[{tag}] run_pretrain.main {' '.join(extra_argv) or '(host augmentation)'}, bf16 batch "
+          f"{PRE_BATCH}, {PRE_CLI_EPOCHS} epochs of {PRE_CLI_STEPS // PRE_CLI_EPOCHS} steps in "
+          f"{dt:.3f} s (model build and checkpoints included); the last epoch {s_it * 1e3:.1f} "
+          f"ms a step = {PRE_BATCH / s_it:.1f} images/s by the CLI's own clock, its steps waiting "
+          f"{s_data * 1e3:.1f} ms each for the loader; launches per step "
+          f"{ {k: v // PRE_CLI_STEPS for k, v in counts.items() if v} }; epoch losses "
+          f"{[round(l['train_loss'], 5) for l in log]}; {moved} tensors moved; checkpoint-0 and "
+          f"checkpoint-1 written")
+    del state, start, final
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_pretrain_resume(torch, np, db, root):
+    """Resume equivalence on the card, fp32, `--device_aug`: two epochs
+    straight (A) against one epoch, a fresh `main` that auto-resumes
+    checkpoint-0, and the second epoch (B)."""
+    tag = "pretrain cli resume"
+    argv = lambda out: ["--image_alone_path", db, "--output_dir", os.path.join(root, out),
+                        "--epochs", str(PRE_CLI_EPOCHS), "--device_aug", "--dtype", "float32"]
+    half = PRE_CLI_STEPS // PRE_CLI_EPOCHS
+    a, _, dt_a = run_pretrain_cli(torch, tag + " A", argv("resume_a"), PRE_CLI_STEPS)
+    run_pretrain_cli(torch, tag + " B first epoch", argv("resume_b"), half, cut_after_epoch=0)
+    b, _, _ = run_pretrain_cli(torch, tag + " B resumed", argv("resume_b"), PRE_CLI_STEPS - half)
+    with open(os.path.join(root, "resume_b", "screen.txt")) as f:
+        check("auto-resumed from" in f.read(), f"[{tag}] B did not auto-resume")
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    check(not differ, f"[{tag}] {len(differ)} of {len(sa)} tensors differ, e.g. {differ[:4]}")
+    oa = a.optimizer.inner.state_dict()["state"]
+    ob = b.optimizer.inner.state_dict()["state"]
+    check(sorted(oa) == sorted(ob) and len(oa) > 0, f"[{tag}] AdamW states {len(oa)} vs {len(ob)}")
+    moments = 0
+    for i in oa:
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(oa[i][name], ob[i][name]), f"[{tag}] AdamW {name} of parameter {i}")
+            moments += 1
+    momentum = sum(k.startswith(("momentum_", "pix_projector_m")) for k in sa)
+    with open(os.path.join(root, "resume_a", "log.txt")) as fa, \
+            open(os.path.join(root, "resume_b", "log.txt")) as fb:
+        la, lb = fa.read(), fb.read()
+    check(la == lb, f"[{tag}] the two runs' log.txt differ")
+    print(f"[{tag}] fp32 --device_aug batch {PRE_BATCH}: {PRE_CLI_EPOCHS} epochs straight "
+          f"({dt_a:.3f} s) vs 1 epoch + a fresh main auto-resuming checkpoint-0 + 1 epoch: "
+          f"{len(sa)} tensors ({momentum} of the momentum branch) and {moments} AdamW moment and "
+          f"step tensors equal bit for bit (torch.equal); log.txt equal byte for byte")
+
+
+def phase_pretrain_data(torch, np, paths):
+    """The pre-training data path and CLI on one LMDB in a temporary directory."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        db = os.path.join(d, "words")
+        write_word_lmdb(np, db, PRE_CLI_RECORDS, 6)
+        phase_device_view(torch, np, db)
+        phase_loader(torch, np, db)
+        paths["pretrain_cli"] = phase_pretrain_cli(
+            torch, np, db, os.path.join(d, "host_aug"), "pretrain cli", [])
+        paths["pretrain_cli_device_aug"] = phase_pretrain_cli(
+            torch, np, db, os.path.join(d, "device_aug"), "pretrain cli device_aug",
+            ["--device_aug"])
+        phase_pretrain_resume(torch, np, db, d)
 
 
 def profile_fn(torch, fn, n_top=10):
@@ -1262,6 +1578,7 @@ def main():
         paths["eval_switch"] = phase_eval(torch, np, "eval switch",
                                           per_step(attention_fwd=12, layer_norm_fwd=24))
     phase_finetune_cpu_parity(torch, np)
+    phase_pretrain_data(torch, np, paths)
 
     def row(name, source, replaces, measured, path):
         return dict(name=name, route="cuda", source=f"dig_tpu_torch/ops/csrc/{source}.cu",

@@ -189,8 +189,10 @@ def config_to_json(cfg) -> str:
 
 @dataclasses.dataclass
 class PretrainConfig:
-    """`dig_tpu.config.PretrainConfig`: the same fields and defaults.  The
-    pretrain CLI that parses them is not ported yet."""
+    """`dig_tpu.config.PretrainConfig`: the same fields and defaults, parsed
+    by `dig_tpu_torch.cli.run_pretrain`, which refuses with a message the
+    ones whose code is not ported yet (`remat`, `n_fsdp` / `n_tensor` above
+    1, `profile_steps`, `opt` other than adamw, `patchnet_name` conv)."""
 
     # model
     model: str = "pretrain_simmim_moco_ori_vit_small_patch4_32x128"

@@ -138,9 +138,13 @@ class PixDecoder(nn.Sequential):
 class DiGPretrainModel(nn.Module):
     """Student and momentum modules of the DiG SSL graph.
 
-    `forward_student(all_images, mask)` -> dict(q1, q2 [B*W, dim],
-    pix_pred [2B, N, p*p*3]); `forward_key(all_images, mask)` -> (k1, k2),
-    run on the momentum modules without gradients."""
+    `forward_student(all_images, mask, generator)` -> dict(q1, q2
+    [B*W, dim], pix_pred [2B, N, p*p*3]); `forward_key(all_images, mask)` ->
+    (k1, k2), run on the momentum modules without gradients.
+    `drop_path_rate` is the student encoder's (`--drop_path`): its masks
+    are drawn from `forward_student`'s `generator`; the momentum branch
+    always runs without drop-path, as `deterministic=True` makes it in the
+    JAX package."""
 
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: int = 4,
                  encoder_embed_dim: int = 384, encoder_depth: int = 12,
@@ -150,7 +154,7 @@ class DiGPretrainModel(nn.Module):
                  num_windows: int = 5, use_pixel_target: bool = True,
                  use_moco_target: bool = True, use_pix_projector: bool = True,
                  patchnet_name: str = "regular", label_smoothing: float = 0.0,
-                 dtype=torch.float32):
+                 drop_path_rate: float = 0.0, dtype=torch.float32):
         super().__init__()
         self.img_size, self.patch_size = tuple(img_size), patch_size
         self.temperature, self.label_smoothing = temperature, label_smoothing
@@ -158,7 +162,7 @@ class DiGPretrainModel(nn.Module):
         c = encoder_embed_dim
         self.encoder = PretrainViTEncoder(
             img_size, patch_size, c, encoder_depth, encoder_num_heads, mlp_ratio, qkv_bias,
-            use_final_norm=not use_moco_target, dtype=dtype)
+            use_final_norm=not use_moco_target, drop_path_rate=drop_path_rate, dtype=dtype)
         self.has_pix_projector = use_pixel_target and use_moco_target and use_pix_projector
         if use_moco_target:
             if patchnet_name == "conv":
@@ -208,10 +212,10 @@ class DiGPretrainModel(nn.Module):
     def num_patches(self):
         return self.encoder.num_patches
 
-    def _encode(self, encoder, pix_projector, all_images, mask):
+    def _encode(self, encoder, pix_projector, all_images, mask, generator=None):
         """Encoder trunk, then the pix projector on the first (ori) half.
         Returns (features for the contrastive branch, raw encoder output)."""
-        enc = encoder(all_images, mask)
+        enc = encoder(all_images, mask, generator)
         if pix_projector is None:
             return enc, enc
         b2, l, c = enc.shape
@@ -219,10 +223,10 @@ class DiGPretrainModel(nn.Module):
         projected = pix_projector(ori.reshape(-1, c)).reshape(b2 // 2, l, c)
         return torch.cat([projected, aug], dim=0), enc
 
-    def forward_student(self, all_images, mask=None):
+    def forward_student(self, all_images, mask=None, generator=None):
         out = {}
         pix = self.pix_projector if self.has_pix_projector else None
-        feats, enc_raw = self._encode(self.encoder, pix, all_images, mask)
+        feats, enc_raw = self._encode(self.encoder, pix, all_images, mask, generator)
         if self.use_moco_target:
             patches = self.patch_extractor(feats)
             b2, w, c = patches.shape
@@ -247,8 +251,8 @@ class DiGPretrainModel(nn.Module):
         k1, k2 = ks.chunk(2, dim=0)
         return k1.reshape(-1, k1.shape[-1]), k2.reshape(-1, k2.shape[-1])
 
-    def forward(self, all_images, mask=None):
-        return self.forward_student(all_images, mask)
+    def forward(self, all_images, mask=None, generator=None):
+        return self.forward_student(all_images, mask, generator)
 
 
 _SIZES = {"micro": (64, 2), "tiny": (192, 3), "small": (384, 6), "base": (512, 8)}
@@ -279,7 +283,7 @@ def build_pretrain_model(name: str = "pretrain_simmim_moco_ori_vit_small_patch4_
     the CPU, so one seed gives the same weights on every device), the
     momentum branch an exact copy of the student, then move it to
     `device`.  `kwargs` are the model's own (mlp_dim, dim, temperature,
-    num_windows, patchnet_name, label_smoothing), as
+    num_windows, patchnet_name, label_smoothing, drop_path_rate), as
     `dig_tpu.cli.run_pretrain.build_model` passes them."""
     from dig_tpu_torch.models.rec_model import init_weights
     from dig_tpu_torch.models.registry import create_model

@@ -9,7 +9,8 @@
 * `PretrainViTEncoder`, the SimMIM encoder of the pre-training step: all
   tokens kept, masked positions replaced by a learned mask token *before*
   the position table is added (modeling_pretrain_vit.py:27-111), with the
-  `simmim_vit_*` registry names.
+  `simmim_vit_*` registry names and drop-path rates rising linearly over
+  the depth (`--drop_path` of the pre-training CLI).
 
 Width table (reference registry): micro=64/2h (2 layers, tests only),
 tiny=192/3h, small=384/6h, base=512/8h, depth 12, patch 4.
@@ -81,13 +82,17 @@ class VisionTransformer(nn.Module):
 class PretrainViTEncoder(nn.Module):
     """[B, 32, 128, 3] images and an optional [B, N] bool mask (True =
     masked) -> [B, N, C].  `use_final_norm=False` under MoCo, whose
-    `MoCo_ViT` replaces the last LayerNorm with Identity."""
+    `MoCo_ViT` replaces the last LayerNorm with Identity.  With
+    `drop_path_rate` > 0 a pass that is given a `generator` draws its
+    blocks' drop-path masks from it; without one the pass is deterministic
+    (the momentum branch, evaluation)."""
 
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: int = 4,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, init_values: float = 0.0,
-                 use_final_norm: bool = True, dtype=torch.float32):
+                 use_final_norm: bool = True, drop_path_rate: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed(img_size, patch_size, 3, embed_dim, dtype)
@@ -96,9 +101,12 @@ class PretrainViTEncoder(nn.Module):
             "pos_table",
             torch.from_numpy(sinusoid_position_table(self.patch_embed.num_patches, embed_dim)),
             persistent=False)
+        # drop-path rising linearly over the depth (dig_tpu/models/vit.py:221)
+        dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
-            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale, init_values, dtype=dtype)
-            for _ in range(depth))
+            Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale, init_values,
+                  drop_path_rate=dpr[i], dtype=dtype)
+            for i in range(depth))
         self.norm = LayerNorm(embed_dim, 1e-6, dtype) if use_final_norm else None
 
     @property
@@ -109,14 +117,14 @@ class PretrainViTEncoder(nn.Module):
     def num_patches(self):
         return self.patch_embed.num_patches
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, generator=None):
         x = self.patch_embed(x)
         if mask is not None:
             m = mask.to(x.dtype)[..., None]
             x = x * (1.0 - m) + self.mask_token.to(x.dtype) * m
         x = x + self.pos_table.to(x.dtype)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         if self.norm is not None:
             x = self.norm(x)
         return x

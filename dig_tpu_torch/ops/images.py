@@ -2,8 +2,10 @@
 
 Hosts ship raw uint8 NHWC batches (4x fewer bytes to the card than
 float32); the conversion is the first op on the device.  The expression
-is the one in `dig_tpu/ops/images.py:21-22`, so both packages see the
-same float32 values.
+is the one in `dig_tpu/ops/images.py:21-22`, so on the CPU both packages
+see the same float32 values.  On the card PyTorch divides by a scalar as a
+product with its reciprocal, so a value may differ from the CPU's by one
+ulp (seen on an NVIDIA H100 by chip_smoke.py's `[device view]` check).
 """
 
 from __future__ import annotations

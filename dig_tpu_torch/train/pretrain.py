@@ -16,9 +16,12 @@ operations:
 5. backward, then clipping + AdamW (`dig_tpu_torch.optim`).
 
 The step runs where its model lives.  Masks and augmented views arrive as
-batch inputs; the data path (`make_device_view_fn`, the loaders) is not
-ported yet.  The returned metrics are device tensors, so a step does not
-wait for the card.
+batch inputs: from the host loader (`data/pipeline.py`, SeqCLR augmentation
+on the workers), or, under `--device_aug`, from `make_device_view_fn` on
+the model's device.  The step's `generator` draws the student's drop-path
+masks (`--drop_path` > 0); the CLI seeds one per step from (seed, step)
+(`utils/rng.py`).  The returned metrics are device tensors, so a step does
+not wait for the card.
 """
 
 from __future__ import annotations
@@ -53,13 +56,16 @@ def masked_mse(pred, target, mask):
 def make_pretrain_step(model, momentum_schedule, contrast_weight_schedule,
                        loss_weight_pixel: float = 1.0, only_mim_on_ori_img: bool = True,
                        normalize_target: bool = True):
-    """Returns `train_step(state, batch) -> (state, metrics)`.  batch:
-    images and aug_images [B, H, W, 3] (uint8, or floats already in
-    [-1, 1]) and mask [B, 2, N] bool, as numpy arrays or tensors."""
+    """Returns `train_step(state, batch, generator=None) -> (state,
+    metrics)`.  batch: images and aug_images [B, H, W, 3] (uint8, or floats
+    already in [-1, 1]) and mask [B, 2, N] bool, as numpy arrays or
+    tensors.  `generator` (on the model's device) is the JAX step's `rng`:
+    the student's drop-path draws from it; without one, or at drop-path
+    rate 0, nothing is drawn."""
     mom_arr = np.asarray(momentum_schedule, np.float32)
     cw_arr = np.asarray(contrast_weight_schedule, np.float32)
 
-    def train_step(state: TrainState, batch):
+    def train_step(state: TrainState, batch, generator=None):
         device = next(model.parameters()).device
         images = to_model_images(torch.as_tensor(batch["images"]).to(device))
         aug_images = to_model_images(torch.as_tensor(batch["aug_images"]).to(device))
@@ -84,7 +90,7 @@ def make_pretrain_step(model, momentum_schedule, contrast_weight_schedule,
 
         metrics = {}
         loss = torch.zeros((), dtype=torch.float32, device=device)
-        out = model.forward_student(all_images, flat_mask)
+        out = model.forward_student(all_images, flat_mask, generator)
         if model.use_moco_target:
             k1, k2 = model.forward_key(all_images, flat_mask)
             t, ls = model.temperature, model.label_smoothing
@@ -110,9 +116,35 @@ def make_pretrain_step(model, momentum_schedule, contrast_weight_schedule,
         opt.zero_grad()
         loss.backward()
         metrics["grad_norm"] = global_norm(p.grad for p in opt.params if p.grad is not None)
-        metrics["moco_m"] = torch.tensor(m, dtype=torch.float32)
+        # filled on the device: torch.tensor(m, device=...) would copy from
+        # pageable host memory, which waits for the card once a step
+        metrics["moco_m"] = torch.full((), m, dtype=torch.float32, device=device)
         opt.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_device_view_fn(num_patches: int, mask_ratio: float = 0.7, num_view: int = 2):
+    """The on-device view generator of `--device_aug`: returns
+    `view_fn(generator, images, params=None)`, which turns a uint8 (or
+    already normalized) image batch on the model's device into the whole
+    pre-training batch {"images", "aug_images", "mask"}: the original view
+    through `to_model_images`, the augmented second view
+    (`device_augment`) and exact-count SimMIM masks [B, num_view, N].
+    `generator` lives on the images' device; the augmentation's draws come
+    first, then the masks'.  `params` hands the augmentation its draws
+    (`draw_augment_params`); the masks are still drawn from `generator`."""
+    from dig_tpu_torch.data.device_aug import device_augment, random_mask_batch
+
+    num_mask = int(mask_ratio * num_patches)  # 179 for 0.7 x 256, as the JAX package counts
+
+    @torch.no_grad()
+    def view_fn(generator, images, params=None):
+        images = to_model_images(images)  # uint8 transport (ops/images.py)
+        aug = device_augment(generator, images, params)
+        mask = random_mask_batch(generator, images.shape[0], num_patches, num_mask, num_view)
+        return {"images": images, "aug_images": aug, "mask": mask}
+
+    return view_fn

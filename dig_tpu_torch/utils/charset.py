@@ -1,10 +1,13 @@
-"""Character vocabulary for decoding predictions.
+"""Character vocabulary and label codec.
 
-A copy of the parts of `dig_tpu.utils.charset` that inference and the
-eval metrics use (the port imports nothing of the JAX package).  Semantics follow the
-reference vocabulary (dataset/dataset_lmdb.py:75-97): three voc types,
-with EOS, PADDING and UNKNOWN appended in that order; the decoders' BOS
-id is ``num_classes``.
+A copy of the parts of `dig_tpu.utils.charset` that inference, the eval
+metrics and the labeled datasets use (the port imports nothing of the JAX
+package).  Semantics follow the reference vocabulary
+(dataset/dataset_lmdb.py:75-97, :185-204): three voc types, with EOS,
+PADDING and UNKNOWN appended in that order; labels are fixed `max_len` int
+arrays padded with PADDING, one EOS after the characters; a word with
+``len(word) + 1 >= max_len`` is rejected; the decoders' BOS id is
+``num_classes``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,19 @@ class Charset:
     @property
     def unknown_id(self) -> int:
         return self.num_classes - 1
+
+    def encode(self, word: str):
+        """One word -> (label [max_len] int32, label_len), or None when it
+        is too long: usable only when ``len(word) + 1 < max_len``."""
+        if self.voc_type == "LOWERCASE":
+            word = word.lower()
+        if len(word) + 1 >= self.max_len:
+            return None
+        label = np.full((self.max_len,), self.padding_id, dtype=np.int32)
+        lut = {c: i for i, c in enumerate(self.classes)}
+        ids = [lut.get(ch, self.unknown_id) for ch in word] + [self.eos_id]
+        label[: len(ids)] = np.asarray(ids, dtype=np.int32)
+        return label, len(ids)
 
     def decode(self, ids) -> str:
         """Ids to text: stop at the first EOS, drop UNKNOWN/PADDING and
