@@ -59,15 +59,32 @@
    1,024 seeded PNG word images (8 steps an epoch at batch 128): the
    on-device view generator on one batch (exact mask counts, range, and in
    fp32 the card against the CPU under one set of draws); the loader alone
-   over one epoch, with host SeqCLR augmentation and without (thread workers,
-   and process workers in a child process); `run_pretrain.main` itself for
+   over one epoch, with host SeqCLR augmentation and without (thread
+   workers), and on 8 process workers started from this process with CUDA
+   initialised, one iterator abandoned half-way first (a watchdog fails the
+   run if it hangs); `run_pretrain.main` itself for
    two epochs with host augmentation and with `--device_aug` (16 steps, the
    launch counts of item 5 at every step, finite losses in log.txt, both
    checkpoints, parameters moved); and resume equivalence in fp32: two
    epochs straight against one epoch, a fresh `main` that auto-resumes, and
    the second epoch, every parameter, momentum parameter and AdamW moment
    compared bit for bit.
-10. Prints one JSON line describing every kernel, then as the last line
+10. Drives the fine-tuning CLI at the FinetuneConfig defaults on labelled
+   LMDBs (1,024 train records, 4 steps an epoch; 512 eval records), its
+   encoder from item 9's last pre-training checkpoint directory (checked bit
+   for bit): `run_finetune.main` with host ABI augmentation and with
+   `--device_abi_aug` (2 epochs, eval after each; 24 / 24 LayerNorm launches
+   at every step, 12 / 24 attention / LayerNorm launches every eval batch);
+   `device_abi_augment` alone on one batch (card vs CPU under one set of
+   draws, and its time); resume equivalence in fp32 with attention dropout
+   0 and `--update_freq 2` (12 / 12 / 24 / 24 launches a micro-step; every
+   parameter, AdamW moment, step tensor and accumulator bit for bit,
+   log.txt byte for byte); the `--eval` sweep over two LMDBs, greedy and
+   beam 3 (eval_results.json), beam width 1 against greedy, a beam batch
+   timed.  `to_model_images` on the card against the CPU for all 256
+   values, and `torch.cuda.set_sync_debug_mode("warn")` over one
+   fine-tuning step and one beam batch.
+11. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -81,6 +98,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -136,6 +154,13 @@ SOURCES = ["attention_lse_fwd", "attention_lse_bwd", "attention_fwd", "attention
            "layernorm_fwd", "layernorm_bwd", "colsum"]
 FT_BATCH = 256
 FT_WARMUP, FT_STEPS = 3, 10
+# the fine-tuning CLI's LMDBs: 4 steps an epoch, 2 eval batches (the second
+# eval set ends in a partial batch)
+FT_CLI_RECORDS, FT_CLI_EVAL_RECORDS, FT_CLI_EVAL2_RECORDS, FT_CLI_EPOCHS = 1024, 512, 300, 2
+FT_EVAL_BATCH = per_step(attention_lse_fwd=12, layer_norm_fwd=24)  # greedy or beam alike
+# attention dropout 0 (the resume run): the encoder's attention on the kernel pair
+FT_PER_STEP_RESUME = dict(FT_PER_STEP, attention_lse_fwd=12, attention_lse_bwd=12)
+PROCESS_WATCHDOG_S = 60
 FC1_ROWS, FC1_COLS = PRE_B * 256, 4 * 384  # dy of fc1 in both trainers
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 FMA pipes
@@ -524,9 +549,9 @@ def phase_device_view(torch, np, db):
     on_cpu = view_fn(torch.Generator().manual_seed(1), u8, params)
     on_card = view_fn(torch.Generator(device="cuda").manual_seed(1), x, params)
     check(on_card["aug_images"].dtype == torch.float32, "the parity check is not fp32")
-    # the card divides by the scalar 255 as a product with its reciprocal: one fp32 ulp
+    # both map uint8 through the same table (ops/images.py): equal
     ierr = max_err(on_card["images"].cpu(), on_cpu["images"])
-    check(ierr <= 2**-23, f"the original views differ by {ierr}, more than an ulp")
+    check(ierr == 0.0, f"the original views differ by {ierr}")
     err = max_err(on_card["aug_images"].cpu(), on_cpu["aug_images"])
     check(err <= VIEW_ATOL, f"augmented view, card vs CPU: max abs err {err} > {VIEW_ATOL}")
     mats = affine_mats(*(params[k] for k in ("angle", "scale", "shear", "tx", "ty")), 32, 128)
@@ -547,26 +572,13 @@ def phase_device_view(torch, np, db):
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall")
 
 
-LOADER_PROBE = """
-import sys, time
-import numpy as np
-from dig_tpu_torch.data.dataset import build_pretraining_dataset
-from dig_tpu_torch.data.pipeline import make_train_loader
-db, batch, workers = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-ds = build_pretraining_dataset([db], num_view=2, rng=np.random.default_rng(0))
-loader = make_train_loader(ds, local_batch=batch, rank=0, world=1, seed=0, num_workers=workers,
-                           worker_type="process")
-t0 = time.perf_counter()
-n = sum(len(b[0]) for b in loader)
-print(n, time.perf_counter() - t0)
-"""
-
-
-def phase_loader(torch, np, db):
-    """The loader alone over one epoch of the LMDB: images/s with host
-    SeqCLR augmentation and with `num_view=1` (what `--device_aug` reads),
-    on 10 worker threads; and with host augmentation on forked process
-    workers, measured in a child process that never touches the card."""
+def phase_loader(torch, np, d):
+    """The loader alone over one epoch of the LMDB `d`/words: images/s with
+    host SeqCLR augmentation and with `num_view=1` (what `--device_aug`
+    reads), on 10 worker threads; and with host augmentation on 8 process
+    workers started from this process, which has CUDA initialised
+    (`phase_process_workers_under_cuda`)."""
+    db = os.path.join(d, "words")
     import numpy
 
     from dig_tpu_torch.data.dataset import build_pretraining_dataset
@@ -601,13 +613,7 @@ def phase_loader(torch, np, db):
         else:
             check(differ == 0, "num_view=1 must not augment on the host")
         rates[tag] = PRE_CLI_RECORDS / dt
-    probe = subprocess.run([sys.executable, "-c", LOADER_PROBE, db, str(PRE_BATCH), "8"],
-                           capture_output=True, text=True, timeout=180, cwd=ROOT,
-                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
-    check(probe.returncode == 0, f"the process-worker probe failed: {probe.stderr[-2000:]}")
-    n, dt = probe.stdout.split()
-    check(int(n) == PRE_CLI_RECORDS, f"the process-worker probe read {n} images")
-    rates["host aug, 8 process workers"] = PRE_CLI_RECORDS / float(dt)
+    rates["host aug, 8 process workers"] = phase_process_workers_under_cuda(np, d)
     print(f"[loader] one epoch of {PRE_CLI_RECORDS} PNG records, batch {PRE_BATCH}, host clock, "
           f"pool start included; {cores} cores, numpy {numpy.__version__}, cv2 {cv2_version}, "
           f"Generator.spawn {hasattr(np.random.default_rng(0), 'spawn')}: "
@@ -758,20 +764,551 @@ def phase_pretrain_resume(torch, np, db, root):
 
 
 def phase_pretrain_data(torch, np, paths):
-    """The pre-training data path and CLI on one LMDB in a temporary directory."""
+    """The pre-training data path and CLI on one LMDB in a temporary
+    directory, then the fine-tuning CLI, its encoder from the pre-training
+    CLI's last checkpoint."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as d:
         db = os.path.join(d, "words")
         write_word_lmdb(np, db, PRE_CLI_RECORDS, 6)
         phase_device_view(torch, np, db)
-        phase_loader(torch, np, db)
+        phase_loader(torch, np, d)
         paths["pretrain_cli"] = phase_pretrain_cli(
             torch, np, db, os.path.join(d, "host_aug"), "pretrain cli", [])
         paths["pretrain_cli_device_aug"] = phase_pretrain_cli(
             torch, np, db, os.path.join(d, "device_aug"), "pretrain cli device_aug",
             ["--device_aug"])
         phase_pretrain_resume(torch, np, db, d)
+        phase_finetune_data(torch, np, d, paths,
+                            os.path.join(d, "host_aug", f"checkpoint-{PRE_CLI_EPOCHS - 1}"))
+
+
+def phase_finetune_data(torch, np, d, paths, pre_ckpt):
+    write_labelled_lmdb(np, os.path.join(d, "labelled"), FT_CLI_RECORDS, 7)
+    write_labelled_lmdb(np, os.path.join(d, "labelled_eval"), FT_CLI_EVAL_RECORDS, 8)
+    phase_device_abi_aug(torch, np, d)
+    paths["finetune_cli"], ft_out = phase_finetune_cli(torch, np, d, pre_ckpt, "finetune cli", [])
+    paths["finetune_cli_device_abi_aug"], _ = phase_finetune_cli(
+        torch, np, d, pre_ckpt, "finetune cli device_abi_aug", ["--device_abi_aug"])
+    paths["finetune_cli_resume"] = phase_finetune_resume(torch, d, pre_ckpt)
+    paths["finetune_eval_sweep"] = phase_finetune_eval_sweep(torch, np, d, ft_out)
+
+
+def phase_to_model_images(torch, np):
+    """uint8 -> model input on the card against the CPU, all 256 values:
+    both read the same table, built on the host with the JAX package's
+    arithmetic."""
+    from dig_tpu_torch.ops.images import to_model_images
+
+    x = torch.arange(256, dtype=torch.uint8).reshape(1, 4, 64, 1)
+    cpu, card = to_model_images(x), to_model_images(x.cuda()).cpu()
+    differ = int((cpu.view(torch.int32) != card.view(torch.int32)).sum())
+    check(differ == 0, f"[to_model_images] {differ} of 256 values differ between card and CPU")
+    direct = ((x.cuda().float() / 255.0 - 0.5) / 0.5).cpu()
+    off = int((direct.view(torch.int32) != cpu.view(torch.int32)).sum())
+    print(f"[to_model_images] card vs CPU, all 256 uint8 values: {differ} differ (bit for bit); "
+          f"the division computed on the card, as before the table: {off} of 256 one ulp off")
+
+
+def write_labelled_lmdb(np, path, n, seed):
+    """An LMDB of `n` seeded PNG word images with ``label-%09d`` words of
+    1-25 characters of the charset (those of 24 or more are skipped by the
+    dataset, as the reference skips them)."""
+    from dig_tpu_torch.data.lmdb_store import LmdbWriter
+    from dig_tpu_torch.utils.charset import build_charset
+
+    charset = build_charset("ALLCASES_SYMBOLS", 25)
+    rng = np.random.default_rng(seed)
+    with LmdbWriter(path) as w:
+        for i in range(1, n + 1):
+            w.put(b"image-%09d" % i, encode_png(np, word_image(np, rng, i)))
+            ids = rng.integers(0, charset.eos_id, rng.integers(1, 26))
+            w.put(b"label-%09d" % i, "".join(charset.classes[j] for j in ids).encode())
+        w.put(b"num-samples", str(n).encode())
+
+
+@contextlib.contextmanager
+def counted_calls(module, name, log, sync):
+    """Wrap the factory `module.name` so that every call of the function it
+    returns appends (launch counts of that call, seconds on the host clock)
+    to `log`: with `sync`, to the end of its work on the card; without, to
+    the end of its launches (the counts are the wrappers' host-side
+    counters, so nothing waits for the card)."""
+    import torch
+
+    real = getattr(module, name)
+
+    def factory(*a, **k):
+        fn = real(*a, **k)
+
+        def run(*args):
+            before = read_counts()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if sync:
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = read_counts()
+            log.append(({n: after[n] - before[n] for n in after}, dt))
+            return out
+        return run
+
+    setattr(module, name, factory)
+    try:
+        yield log
+    finally:
+        setattr(module, name, real)
+
+
+def run_finetune_cli(torch, tag, argv, cut_after_epoch=None):
+    """`run_finetune.main` on `argv`, every step's and every eval batch's
+    launches recorded (the step and eval-step factories wrapped; an eval
+    batch is timed to its end on the card, which the CLI waits for anyway
+    to score its ids; a step is not waited for); with `cut_after_epoch`,
+    stopped by an exception from that epoch's log write.  Returns (state or results, step log, eval log,
+    launch counts of the whole run, seconds)."""
+    from dig_tpu_torch.cli import run_finetune
+    from dig_tpu_torch.config import FinetuneConfig, parse_config
+
+    class Cut(Exception):
+        pass
+
+    real_write = run_finetune.JsonlLogger.write
+
+    def write(self, **stats):
+        real_write(self, **stats)
+        if stats["epoch"] == cut_after_epoch:
+            raise Cut
+
+    cfg = parse_config(FinetuneConfig, argv)
+    stdout = sys.stdout
+    steps, evals = [], []
+    reset_counts()
+    t0 = time.perf_counter()
+    out = None
+    with counted_calls(run_finetune, "make_finetune_step", steps, sync=False), \
+            counted_calls(run_finetune, "make_eval_step", evals, sync=True):
+        run_finetune.JsonlLogger.write = write
+        try:
+            out = run_finetune.main(cfg)
+        except Cut:
+            pass
+        finally:
+            run_finetune.JsonlLogger.write = real_write
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(sys.stdout is stdout, f"[{tag}] main left its tee on sys.stdout")
+    check((out is None) == (cut_after_epoch is not None), f"[{tag}] the run was not cut")
+    return out, steps, evals, read_counts(), dt
+
+
+def check_each(tag, what, log, want):
+    for i, (counts, _) in enumerate(log):
+        check(counts == want, f"[{tag}] {what} {i}: launches {counts} != {want}")
+
+
+def launches_text(counts):
+    return str({k: v for k, v in counts.items() if v})
+
+
+def phase_finetune_cli(torch, np, d, pre_ckpt, tag, extra_argv):
+    """`run_finetune.main` as a user calls it: FinetuneConfig defaults (the
+    full-width recognizer, bf16, batch 256, dropouts 0.1, 10 loader
+    threads), the encoder from the pre-training CLI's checkpoint directory,
+    2 epochs of 4 steps, eval on the eval LMDB after each."""
+    from dig_tpu_torch.cli import run_finetune
+    from dig_tpu_torch.config import FinetuneConfig, parse_config
+    from dig_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    out = os.path.join(d, tag.replace(" ", "_"))
+    argv = ["--data_path", os.path.join(d, "labelled"), "--eval_data_path",
+            os.path.join(d, "labelled_eval"), "--finetune", pre_ckpt, "--output_dir", out,
+            "--epochs", str(FT_CLI_EPOCHS), *extra_argv]
+    cfg = parse_config(FinetuneConfig, argv)
+    check(cfg.batch_size == FT_BATCH and cfg.dtype == "bfloat16" and cfg.num_workers == 10
+          and cfg.use_abi_aug and cfg.model == "vit_small_patch4_32x128"
+          and cfg.decoder_name == "tf_decoder" and cfg.attn_drop_rate == 0.1, f"config {cfg}")
+    # the encoder right after the init, against the file
+    inits = []
+    real_init = run_finetune.load_finetune_init
+
+    def init(c, model):
+        n = real_init(c, model)
+        inits.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+                      if k.startswith("encoder.")})
+        return n
+
+    run_finetune.load_finetune_init = init
+    try:
+        state, steps, evals, counts, dt = run_finetune_cli(torch, tag, argv)
+    finally:
+        run_finetune.load_finetune_init = real_init
+    saved = restore_checkpoint(pre_ckpt)["model"]
+    check(len(inits) == 1 and inits[0], f"[{tag}] the encoder was not initialized")
+    differ = [k for k, v in inits[0].items() if not torch.equal(v, saved[k])]
+    check(not differ, f"[{tag}] {len(differ)} encoder tensors differ from the file: {differ[:4]}")
+    n_steps = FT_CLI_RECORDS // FT_BATCH * FT_CLI_EPOCHS
+    n_evals = -(-FT_CLI_EVAL_RECORDS // FT_BATCH) * FT_CLI_EPOCHS
+    check(len(steps) == n_steps and len(evals) == n_evals,
+          f"[{tag}] {len(steps)} steps, {len(evals)} eval batches; want {n_steps}, {n_evals}")
+    check_each(tag, "step", steps, FT_PER_STEP)
+    check_each(tag, "eval batch", evals, FT_EVAL_BATCH)
+    check(state.step == state.optimizer.count == n_steps, f"[{tag}] {state.step} steps")
+    with open(os.path.join(out, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    check([l["epoch"] for l in log] == list(range(FT_CLI_EPOCHS)), f"[{tag}] log.txt {log}")
+    for l in log:
+        check(math.isfinite(l["train_loss"]) and math.isfinite(l["train_grad_norm"])
+              and l["val_acc"] is not None, f"[{tag}] log line {l}")
+    for epoch in range(FT_CLI_EPOCHS):
+        with open(os.path.join(out, f"checkpoint-{epoch}", "meta.json")) as f:
+            meta = json.load(f)
+        check(meta == {"step": (epoch + 1) * n_steps // FT_CLI_EPOCHS, "extra": {"epoch": epoch}},
+              f"[{tag}] checkpoint-{epoch} meta {meta}")
+    best = os.path.exists(os.path.join(out, "checkpoint-best", "meta.json"))
+    check(best == (log[-1]["max_accuracy"] > 0),
+          f"[{tag}] checkpoint-best {'written' if best else 'missing'} at max accuracy "
+          f"{log[-1]['max_accuracy']}")
+    with open(os.path.join(out, "screen.txt")) as f:
+        screen = f.read()
+    s_it, s_data = epoch_rate(screen, FT_CLI_EPOCHS - 1)
+    eval_ms = [t * 1e3 for _, t in evals]
+    step_ms = [t * 1e3 for _, t in steps]
+    print(f"[{tag}] run_finetune.main {' '.join(extra_argv) or '(host ABI augmentation)'}, "
+          f"--finetune the pre-training CLI's {os.path.basename(pre_ckpt)} ({len(inits[0])} "
+          f"encoder tensors equal to the file's bit for bit), bf16 batch {FT_BATCH}, "
+          f"{FT_CLI_EPOCHS} epochs of {n_steps // FT_CLI_EPOCHS} steps + eval of "
+          f"{FT_CLI_EVAL_RECORDS} records after each, in {dt:.3f} s (model build, evals and "
+          f"checkpoints included); the last epoch {s_it * 1e3:.1f} ms a step = "
+          f"{FT_BATCH / s_it:.1f} images/s by the CLI's own clock, waiting {s_data * 1e3:.1f} ms "
+          f"a step for the loader; the host queues a step in (median) "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.1f} ms; eval {statistics.mean(eval_ms):.1f} ms a "
+          f"batch of {FT_BATCH} (greedy, full length); launches {launches_text(steps[0][0])} at "
+          f"every step, {launches_text(evals[0][0])} every eval batch; epoch losses "
+          f"{[round(l['train_loss'], 4) for l in log]}, val acc {[l['val_acc'] for l in log]}; "
+          f"checkpoint-0, checkpoint-1{', checkpoint-best' if best else ''} written")
+    del state
+    torch.cuda.empty_cache()
+    return counts, out
+
+
+def phase_device_abi_aug(torch, np, d):
+    """`device_abi_augment` on one loader batch of 256: card against CPU
+    under one set of draws (the warp from one set of matrices at
+    WARP_ATOL, the whole view at VIEW_ATOL on images as smooth as a word
+    image), and its time on the card's clock."""
+    from dig_tpu_torch.data import device_aug as aug
+    from dig_tpu_torch.data.dataset import build_dataset
+    from dig_tpu_torch.data.pipeline import make_train_loader
+    from dig_tpu_torch.ops.images import to_model_images
+    from dig_tpu_torch.utils.rng import step_generator
+
+    ds = build_dataset([os.path.join(d, "labelled")], is_train=True)
+    loader = make_train_loader(ds, local_batch=FT_BATCH, rank=0, world=1, seed=0, num_workers=4)
+    u8 = torch.from_numpy(next(iter(loader))[0])
+    check(u8.shape == (FT_BATCH, 32, 128, 3) and u8.dtype == torch.uint8, f"batch {u8.shape}")
+    x_cpu = to_model_images(u8)
+    x = x_cpu.cuda()
+    out = aug.device_abi_augment(step_generator(1, 1, 0, "cuda"), x)
+    check(out.shape == x.shape and out.is_cuda and bool(torch.isfinite(out).all())
+          and float(out.abs().max()) <= 1.0, "the ABI view is not a finite image in [-1, 1]")
+    again = aug.device_abi_augment(step_generator(1, 1, 0, "cuda"), x)
+    check(torch.equal(out, again), "one (seed, stream, step), two views")
+    changed = int((out != x).flatten(1).any(1).sum())
+
+    params = aug.draw_abi_augment_params(torch.Generator().manual_seed(0), FT_BATCH, 32, 128)
+    every_op = dict(params, **{k: torch.ones_like(v) for k, v in params.items()
+                               if k.endswith("_gate")})
+    smooth = torch.from_numpy(np.repeat(np.repeat(np.random.default_rng(1).uniform(
+        -1, 1, (FT_BATCH, 8, 32, 3)).astype(np.float32), 4, axis=1), 4, axis=2))
+    errs = []
+    for p in (params, every_op):  # the batch's own gates, then every op on every sample
+        err = max_err(aug.device_abi_augment(None, smooth.cuda(), p).cpu(),
+                      aug.device_abi_augment(None, smooth, p))
+        check(err <= VIEW_ATOL, f"[device abi aug] view, card vs CPU: {err} > {VIEW_ATOL}")
+        errs.append(err)
+    h_mats = aug.perspective_h(params["persp_noise_h"], params["persp_noise_w"], 32, 128)
+    werr = max_err(aug.batched_projective_warp(x, h_mats.cuda()).cpu(),
+                   aug.batched_projective_warp(x_cpu, h_mats))
+    check(werr <= WARP_ATOL, f"[device abi aug] the warp from one set of matrices: {werr}")
+    steps = iter(range(1, 1000))
+    ms = time_ms(lambda: aug.device_abi_augment(step_generator(1, 1, next(steps), "cuda"), x),
+                 iters=20)
+    _, busy_ms, wall_ms = profile_fn(torch, lambda: aug.device_abi_augment(
+        step_generator(1, 1, 0, "cuda"), x))
+    print(f"[device abi aug] batch {FT_BATCH} of word images: {changed} views changed; card vs "
+          f"CPU under one set of draws, fp32, on smooth images: max abs err {errs[0]:.3e} "
+          f"(the batch's gates), {errs[1]:.3e} (every op on every sample; atol {VIEW_ATOL}); the "
+          f"projective warp alone from one set of matrices, on the batch: {werr:.3e} (atol "
+          f"{WARP_ATOL}); {ms:.3f} ms a batch (CUDA events, 20 batches); one profiled batch: "
+          f"device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall")
+    return ms
+
+
+def phase_finetune_resume(torch, d, pre_ckpt):
+    """Resume equivalence of the fine-tuning CLI on the card: fp32,
+    attention dropout 0 (the encoder's attention on the kernel pair #3 /
+    #4), `--update_freq 2`, `--device_abi_aug`: two epochs straight (A)
+    against one epoch, a fresh `main` that auto-resumes checkpoint-0, and
+    the second epoch (B)."""
+    tag = "finetune cli resume"
+    argv = lambda out: ["--data_path", os.path.join(d, "labelled"), "--finetune", pre_ckpt,
+                        "--output_dir", os.path.join(d, out), "--epochs", str(FT_CLI_EPOCHS),
+                        "--dtype", "float32", "--attn_drop_rate", "0", "--update_freq", "2",
+                        "--device_abi_aug"]
+    a, steps_a, _, counts, dt_a = run_finetune_cli(torch, tag + " A", argv("ft_resume_a"))
+    _, steps_b1, _, _, _ = run_finetune_cli(torch, tag + " B", argv("ft_resume_b"),
+                                            cut_after_epoch=0)
+    b, steps_b2, _, _, _ = run_finetune_cli(torch, tag + " B resumed", argv("ft_resume_b"))
+    n_micro = FT_CLI_RECORDS // FT_BATCH * FT_CLI_EPOCHS
+    check(len(steps_a) == len(steps_b1) + len(steps_b2) == n_micro,
+          f"[{tag}] {len(steps_a)} / {len(steps_b1)} + {len(steps_b2)} micro-steps")
+    for log in (steps_a, steps_b1, steps_b2):
+        check_each(tag, "micro-step", log, FT_PER_STEP_RESUME)
+    check(a.step == b.step == n_micro and a.optimizer.count == b.optimizer.count == n_micro // 2,
+          f"[{tag}] steps {a.step} / {b.step}, updates {a.optimizer.count} / {b.optimizer.count}")
+    with open(os.path.join(d, "ft_resume_b", "screen.txt")) as f:
+        check("auto-resumed from" in f.read(), f"[{tag}] B did not auto-resume")
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    check(not differ, f"[{tag}] {len(differ)} of {len(sa)} tensors differ, e.g. {differ[:4]}")
+    oa = a.optimizer.inner.state_dict()["state"]
+    ob = b.optimizer.inner.state_dict()["state"]
+    check(sorted(oa) == sorted(ob) and len(oa) > 0, f"[{tag}] AdamW states {len(oa)} vs {len(ob)}")
+    moments = 0
+    for i in oa:
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch.equal(oa[i][name], ob[i][name]), f"[{tag}] AdamW {name} of parameter {i}")
+            moments += 1
+    check(all(torch.equal(x, y) for x, y in zip(a.optimizer.acc, b.optimizer.acc))
+          and a.optimizer.mini_step == b.optimizer.mini_step == 0, f"[{tag}] accumulators")
+    with open(os.path.join(d, "ft_resume_a", "log.txt")) as fa, \
+            open(os.path.join(d, "ft_resume_b", "log.txt")) as fb:
+        check(fa.read() == fb.read(), f"[{tag}] the two runs' log.txt differ")
+    print(f"[{tag}] fp32 --attn_drop_rate 0 --update_freq 2 --device_abi_aug batch {FT_BATCH}: "
+          f"{FT_CLI_EPOCHS} epochs straight ({n_micro} micro-steps, {n_micro // 2} updates, "
+          f"{dt_a:.3f} s) vs 1 epoch + a fresh main auto-resuming checkpoint-0 + 1 epoch: "
+          f"{len(sa)} tensors, {moments} AdamW moment and step tensors and "
+          f"{len(a.optimizer.acc)} accumulators equal bit for bit (torch.equal); log.txt equal "
+          f"byte for byte; launches {launches_text(steps_a[0][0])} at every micro-step")
+    del a, b
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_finetune_eval_sweep(torch, np, d, ft_out):
+    """`--eval` over the eval LMDB and a second one from the fine-tuning
+    CLI's checkpoint (`--resume`), greedy and then `--beam_width 3`; beam
+    width 1 against greedy on one batch; one beam batch timed; and
+    `torch.cuda.set_sync_debug_mode("warn")` around one beam batch."""
+    import warnings
+
+    from dig_tpu_torch.cli import run_finetune
+    from dig_tpu_torch.config import FinetuneConfig, parse_config
+    from dig_tpu_torch.train.finetune import make_eval_step
+    from dig_tpu_torch.utils.charset import build_charset
+
+    tag = "finetune eval sweep"
+    second = os.path.join(d, "labelled_eval2")
+    write_labelled_lmdb(np, second, FT_CLI_EVAL2_RECORDS, 9)
+    sets = [(os.path.join(d, "labelled_eval"), FT_CLI_EVAL_RECORDS),
+            (second, FT_CLI_EVAL2_RECORDS)]
+    ckpt = os.path.join(ft_out, f"checkpoint-{FT_CLI_EPOCHS - 1}")
+    counts_all = per_step()
+    results = {}
+    for beam in (0, 3):
+        out = os.path.join(d, f"sweep_beam{beam}")
+        argv = ["--eval", "--resume", ckpt, "--eval_data_path", sets[0][0],
+                "--other_test_data_folders", sets[1][0], "--beam_width", str(beam),
+                "--output_dir", out]
+        res, _, evals, counts, dt = run_finetune_cli(torch, f"{tag} beam {beam}", argv)
+        n_batches = sum(-(-n // FT_BATCH) for _, n in sets)
+        check(len(evals) == n_batches, f"[{tag}] {len(evals)} eval batches, want {n_batches}")
+        check_each(tag, "eval batch", evals, FT_EVAL_BATCH)
+        with open(os.path.join(out, "eval_results.json")) as f:
+            saved = json.load(f)
+        check([r["n"] for r in saved["benchmarks"]] == [n for _, n in sets]
+              and saved["n_images"] == sum(n for _, n in sets) and saved["beam_width"] == beam,
+              f"[{tag}] eval_results.json {saved}")
+        results[beam] = (saved, statistics.mean(t for _, t in evals) * 1e3, dt)
+        counts_all = {k: counts_all[k] + counts[k] for k in counts}
+
+    # beam width 1 against greedy on one batch: the ids up to each row's first EOS
+    cfg = parse_config(FinetuneConfig, ["--resume", ckpt])
+    model = run_finetune.build_model(cfg, "cuda")
+    from dig_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    model.load_state_dict(restore_checkpoint(ckpt)["model"])
+    charset = build_charset(cfg.voc_type, cfg.max_len)
+    images = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (FT_BATCH, 32, 128, 3), dtype=np.uint8)).cuda()
+    batch = {"images": images, "targets": torch.zeros((FT_BATCH, 25), dtype=torch.long,
+                                                      device="cuda"),
+             "lengths": torch.ones((FT_BATCH,), dtype=torch.long, device="cuda")}
+    greedy, _ = make_eval_step(model)(batch)
+    beam1, loss1 = make_eval_step(model, 1, charset.eos_id)(batch)
+    greedy, beam1 = greedy.cpu().numpy(), beam1.cpu().numpy()
+    mismatch = 0
+    for g, b in zip(greedy, beam1):
+        stop = list(g).index(charset.eos_id) + 1 if charset.eos_id in g else len(g)
+        mismatch += int(not np.array_equal(g[:stop], b[:stop]))
+    check(mismatch == 0 and float(loss1.abs().max()) == 0.0,
+          f"[{tag}] beam width 1 differs from greedy in {mismatch} of {FT_BATCH} rows")
+    beam_step = make_eval_step(model, 3, charset.eos_id)
+    beam_ms = time_ms(lambda: beam_step(batch), iters=3, warmup=1)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            beam_step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sync_sites(caught)
+    (g_res, g_ms, g_dt), (b_res, b_ms, b_dt) = results[0], results[3]
+    print(f"[{tag}] --eval --resume checkpoint-{FT_CLI_EPOCHS - 1} over "
+          f"{' + '.join(str(n) for _, n in sets)} records (batch {FT_BATCH}, the last of each "
+          f"padded): greedy acc {[round(r['acc'], 4) for r in g_res['benchmarks']]} in "
+          f"{g_dt:.3f} s ({g_ms:.1f} ms an eval batch), beam 3 acc "
+          f"{[round(r['acc'], 4) for r in b_res['benchmarks']]} in {b_dt:.3f} s ({b_ms:.1f} ms "
+          f"an eval batch); eval_results.json n = {[r['n'] for r in b_res['benchmarks']]}; beam "
+          f"width 1 equals greedy up to each row's first EOS in all {FT_BATCH} rows; a beam-3 "
+          f"batch {beam_ms:.1f} ms (CUDA events); launches {launches_text(FT_EVAL_BATCH)} every "
+          f"eval batch, greedy and beam; set_sync_debug_mode('warn') over one beam-3 batch: "
+          f"{sum(syncs.values())} synchronisations {dict(syncs)}")
+    del model
+    torch.cuda.empty_cache()
+    return counts_all
+
+
+def sync_sites(caught):
+    """{file:line of the Python call: count} of the host waits that
+    `torch.cuda.set_sync_debug_mode("warn")` reported in `caught`."""
+    import collections
+
+    return collections.Counter(f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+                               if "called a synchronizing" in str(w.message))
+
+
+def phase_sync_debug_step(torch, np):
+    """`torch.cuda.set_sync_debug_mode("warn")` around one fine-tuning step
+    at the FinetuneConfig defaults: every host wait it finds."""
+    import warnings
+
+    model, state, step, batch_np, _ = finetune_setup(torch, np, torch.bfloat16, FT_BATCH, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, batch, gen)  # warm-up
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sync_sites(caught)
+    print(f"[sync debug] set_sync_debug_mode('warn') over one fine-tuning step (bf16 batch "
+          f"{FT_BATCH}): {sum(syncs.values())} synchronisations {dict(syncs)}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+
+def phase_process_workers_under_cuda(np, d):
+    """A process-worker loader started from this process, which has CUDA
+    initialised and runs threads: abandoned half-way, then started again
+    and read to its end.  A watchdog fails the run after PROCESS_WATCHDOG_S."""
+    import threading
+
+    from dig_tpu_torch.data.dataset import build_pretraining_dataset
+    from dig_tpu_torch.data.pipeline import make_train_loader, stop_worker_processes
+
+    ds = build_pretraining_dataset([os.path.join(d, "words")], num_view=2,
+                                   rng=np.random.default_rng(0))
+    loader = make_train_loader(ds, local_batch=PRE_BATCH, rank=0, world=1, seed=0,
+                               num_workers=8, worker_type="process")
+    result = {}
+
+    def run():
+        t0 = time.perf_counter()
+        for i, _ in enumerate(loader):
+            if i == len(loader) // 2 - 1:
+                break
+        result["abandon_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        result["n"] = sum(len(b[0]) for b in loader)
+        result["epoch_s"] = time.perf_counter() - t0
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+    worker.join(PROCESS_WATCHDOG_S)
+    if worker.is_alive():  # hung: no result line, and no wait on the stuck pool at exit
+        print(f"chip_smoke: FAILED: [process workers under CUDA] no end after "
+              f"{PROCESS_WATCHDOG_S} s", file=sys.stderr, flush=True)
+        for proc in child_processes():  # the stuck pool may hold the forkserver's lock
+            with contextlib.suppress(OSError):
+                os.kill(int(proc.split()[0]), 9)
+        os._exit(1)
+    check(result.get("n") == PRE_CLI_RECORDS, f"[process workers under CUDA] {result}")
+    t0 = time.perf_counter()
+    terminated = stop_worker_processes()
+    check(not terminated, f"[process workers under CUDA] workers still alive after 30 s: {terminated}")
+    check(not child_processes(), f"[process workers under CUDA] processes left: {child_processes()}")
+    result["stop_s"] = time.perf_counter() - t0
+    rate = PRE_CLI_RECORDS / result["epoch_s"]
+    print(f"[process workers under CUDA] 8 forkserver workers started from this process (CUDA "
+          f"initialised): an epoch abandoned after {len(loader) // 2} of {len(loader)} batches "
+          f"({result['abandon_s']:.2f} s, pool start included), then a whole epoch of "
+          f"{result['n']} images with host SeqCLR augmentation in {result['epoch_s']:.2f} s = "
+          f"{rate:.1f} images/s; watchdog {PROCESS_WATCHDOG_S} s; workers, forkserver and "
+          f"resource tracker stopped in {result['stop_s']:.2f} s, no child process left")
+    return rate
+
+
+def child_processes():
+    """["pid args"] of every live process descended from this one, read
+    from /proc: the script must leave none when it ends."""
+    parent, args = {}, {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:  # ended while we read
+            continue
+        fields = stat[stat.rfind(")") + 2:].split()
+        if fields[0] != "Z":  # a zombie has ended: only its exit status is left
+            parent[int(entry)], args[int(entry)] = int(fields[1]), cmd[:120]
+    found, todo = [], [os.getpid()]
+    while todo:
+        pid = todo.pop()
+        kids = [p for p, pp in parent.items() if pp == pid]
+        found += [f"{p} {args[p]}" for p in kids]
+        todo += kids
+    return found
+
+
+def stop_children(wait_s=10.0):
+    """Stop what the port's process workers started and wait up to
+    `wait_s` for any other child; kill what is still alive then, and
+    return its list (empty when everything had ended)."""
+    try:
+        from dig_tpu_torch.data.pipeline import stop_worker_processes
+
+        stop_worker_processes(timeout=wait_s)
+    except ImportError:
+        pass
+    deadline = time.monotonic() + wait_s
+    while child_processes() and time.monotonic() < deadline:
+        time.sleep(0.1)
+    left = child_processes()
+    for proc in left:
+        with contextlib.suppress(OSError):
+            os.kill(int(proc.split()[0]), 9)
+    return left
 
 
 def profile_fn(torch, fn, n_top=10):
@@ -1556,6 +2093,7 @@ def main():
     rec_bwd_rows = phase_attention_bwd_recompute(torch, attn, gen)
     colsum_row = phase_colsum(torch, fd, gen)
 
+    phase_to_model_images(torch, np)
     paths = {"predict": phase_predict(torch, np)}
     phase_host_images(np)
     paths["predict_cli"] = phase_predict_cli(torch, np)
@@ -1578,6 +2116,7 @@ def main():
         paths["eval_switch"] = phase_eval(torch, np, "eval switch",
                                           per_step(attention_fwd=12, layer_norm_fwd=24))
     phase_finetune_cpu_parity(torch, np)
+    phase_sync_debug_step(torch, np)
     phase_pretrain_data(torch, np, paths)
 
     def row(name, source, replaces, measured, path):
@@ -1604,6 +2143,8 @@ def main():
         row("column_sum", "colsum", "dig_tpu/ops/fused_dense.py:37", colsum_row,
             "pretrain_switches"),
     ]
+    left = stop_children()
+    check(not left, f"processes left running at the end: {left}")
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1620,4 +2161,7 @@ if __name__ == "__main__":
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: processes left running: {left}", file=sys.stderr)
         sys.exit(1)

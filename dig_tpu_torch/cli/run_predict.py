@@ -9,13 +9,14 @@ output, ``name<TAB>text<TAB>confidence``.  Inputs are image files,
 directories (recursed), globs, and-or LMDBs in the reference schema
 (``image-%09d`` / ``num-samples``; labels ignored), files first.
 Confidence is the geometric mean of the chosen-token probabilities up to
-the first EOS.  Runs on CUDA; `main(cfg, device="cpu")` runs the plain
-versions of the kernels.
+the first EOS; under `--beam_width` the beam's ids are rescored by one
+teacher-forced pass, as the JAX CLI rescores them.  Runs on CUDA;
+`main(cfg, device="cpu")` runs the plain versions of the kernels.
 
 Not yet ported (each refused with a message): `--resume` of a native
 `dig_tpu` checkpoint (its `treedef.pkl` needs JAX to unpickle: convert it
-with `tools/export_pth.py` and pass the `.pth` to `--finetune`), beam
-search, `--text_cond_vis`, and model kinds other than ``rec``
+with `tools/export_pth.py` and pass the `.pth` to `--finetune`),
+`--text_cond_vis`, and model kinds other than ``rec``
 (`--decoder_type attention`, `--use_seq_cls_token`).
 """
 
@@ -148,14 +149,21 @@ def iter_lmdb_batches(data_paths, batch_size, cfg, num_workers: int = 4):
             reader.close()
 
 
-def make_predict_fn(model, eos: int):
+def make_predict_fn(model, eos: int, beam_width: int = 0):
     """uint8 images [B,H,W,3] (on the model's device) -> (ids [B,T],
     confidence [B]).  Confidence is exp(mean log p) of the chosen tokens up
-    to and including the first EOS (all T steps when there is none)."""
+    to and including the first EOS (all T steps when there is none).  Beam
+    search (`beam_width` > 0) returns ids only; their probabilities come
+    from one teacher-forced pass over them, the sequence's exact softmax
+    chain (`dig_tpu/cli/run_predict.py:174-185`)."""
 
     @torch.no_grad()
     def predict(images):
-        probs, ids = model.recognize(to_model_images(images), 0, eos)
+        x = to_model_images(images)
+        probs, ids = model.recognize(x, beam_width, eos)
+        if probs is None:
+            lens = torch.full((ids.shape[0],), ids.shape[1], dtype=torch.long, device=ids.device)
+            probs = torch.softmax(model(x, ids, lens, deterministic=True).float(), dim=-1)
         step_p = torch.gather(probs, -1, ids[..., None])[..., 0]
         t = ids.shape[1]
         is_eos = ids == eos
@@ -228,8 +236,6 @@ def main(cfg: PredictConfig, device="cuda"):
             f"--model_kind {cfg.model_kind!r} (--decoder_type attention, --use_seq_cls_token "
             f"in the reference's spelling) is not ported yet: only 'rec' "
             f"(--decoder_type tf_decoder) runs here")
-    if cfg.beam_width > 0:
-        raise NotImplementedError("--beam_width > 0 is not ported yet (greedy only)")
     if cfg.text_cond_vis:
         raise NotImplementedError("--text_cond_vis is not ported yet")
     device = torch.device(device)
@@ -244,7 +250,7 @@ def main(cfg: PredictConfig, device="cuda"):
         raise ValueError(f"--voc_type {cfg.voc_type} has {charset.num_classes} "
                          f"classes, --nb_classes is {cfg.nb_classes}")
     model = load_model(cfg, device)
-    predict_fn = make_predict_fn(model, charset.eos_id)
+    predict_fn = make_predict_fn(model, charset.eos_id, cfg.beam_width)
 
     def batches():  # files first, then the LMDBs, as the JAX CLI orders them
         if cfg.images:

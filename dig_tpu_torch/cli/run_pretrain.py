@@ -14,21 +14,24 @@ generator on the model's device) -> loader with device prefetch -> the
 pre-training step -> metric log -> checkpoint -> resume.  Outputs under
 `--output_dir`: ``checkpoint-{epoch}/{checkpoint.pth,meta.json}``
 (`utils/checkpoint.py`), ``log.txt`` (one JSON line an epoch),
-``screen.txt`` (stdout's copy) and ``tb/``.
+``screen.txt`` (stdout's copy), ``tb/`` and, with `--profile_steps`, a
+trace of a window of steps (``profile/trace.json``, `utils/profiling.py`).
+SIGTERM / SIGINT checkpoint at the next step boundary and exit 0 (143
+without an `--output_dir`; `utils/preemption.py`), as in the JAX CLI.
 
 Every random draw of a step comes from a generator seeded with (seed,
 stream, global step) (`utils/rng.py`), so with `--device_aug` a resumed run
 repeats an uninterrupted one.
 
 Runs on CUDA; `main(cfg, device="cpu")` runs the plain versions of the
-kernels.  stdout is teed into ``screen.txt`` only while `main` runs: the
-stream is put back when it returns or raises (the JAX CLI leaves its tee
-installed).
+kernels.  stdout is teed into ``screen.txt``, and the signal handlers are
+installed, only while `main` runs: both are put back when it returns or
+raises (the JAX CLI leaves them installed).
 
 Not ported yet, each refused with a message (see ROADMAP.md): `--n_fsdp` /
-`--n_tensor` above 1, `--remat`, `--profile_steps`, optimizers other than
-adamw, `--patchnet_name conv`, `--resume` of a native `dig_tpu` checkpoint
-directory, remote checkpoint URIs, and the preemption guard.
+`--n_tensor` above 1, `--remat`, optimizers other than adamw,
+`--patchnet_name conv`, `--resume` of a native `dig_tpu` checkpoint
+directory, and remote checkpoint URIs.
 """
 
 from __future__ import annotations
@@ -60,6 +63,8 @@ from dig_tpu_torch.utils.checkpoint import (
 )
 from dig_tpu_torch.utils.logging import JsonlLogger, ScreenTee, TensorboardLogger
 from dig_tpu_torch.utils.metric_logger import MetricLogger
+from dig_tpu_torch.utils.preemption import PreemptionGuard
+from dig_tpu_torch.utils.profiling import StepTraceWindow
 from dig_tpu_torch.utils.rng import step_generator
 from dig_tpu_torch.utils.schedules import (
     contrast_weight_schedule,
@@ -89,9 +94,6 @@ def _refuse_unported(cfg: PretrainConfig) -> None:
     if cfg.remat:
         raise NotImplementedError("--remat (activation rematerialization) is not ported yet; "
                                   "see ROADMAP.md")
-    if cfg.profile_steps > 0:
-        raise NotImplementedError("--profile_steps (the step trace window) is not ported yet; "
-                                  "see ROADMAP.md")
     if cfg.opt.lower() != "adamw":
         raise NotImplementedError(f"--opt {cfg.opt!r} is not ported yet (adamw only; "
                                   f"see ROADMAP.md)")
@@ -112,14 +114,16 @@ def main(cfg: PretrainConfig, device="cuda"):
     if cfg.output_dir:
         os.makedirs(cfg.output_dir, exist_ok=True)
         tee = ScreenTee(cfg.output_dir).install()
+    guard = PreemptionGuard.install()
     try:
-        return _run(cfg, device)
+        return _run(cfg, device, guard)
     finally:
+        guard.uninstall()
         if tee is not None:
             tee.close()
 
 
-def _run(cfg: PretrainConfig, device):
+def _run(cfg: PretrainConfig, device, guard):
     print(config_to_json(cfg))
     cfg.finalize(1)
     print(f"devices: 1 ({device}), lr: {cfg.absolute_lr:.2e}")
@@ -191,6 +195,8 @@ def _run(cfg: PretrainConfig, device):
 
     tb = TensorboardLogger(cfg.log_dir or os.path.join(cfg.output_dir, "tb"))
     jsonl = JsonlLogger(cfg.output_dir)
+    tracer = StepTraceWindow(os.path.join(cfg.output_dir, "profile"), cfg.profile_steps,
+                             cfg.profile_start_step)
 
     def to_device(item):
         ori, aug, mask = item
@@ -213,6 +219,14 @@ def _run(cfg: PretrainConfig, device):
                 batch = view_fn(step_generator(cfg.seed + 1, 1, gstep, device),
                                 batch["images"])
             state, metrics = step_fn(state, batch, step_generator(cfg.seed + 1, 0, gstep, device))
+            tracer.tick()
+            if guard.should_stop:
+                # extra epoch - 1: auto-resume redoes this epoch (with
+                # --device_aug, the same batches)
+                tracer.close()
+                guard.checkpoint_and_exit(cfg.output_dir, lambda: save_checkpoint(
+                    cfg.output_dir, epoch, state, extra={"epoch": epoch - 1}),
+                    f"epoch {epoch} step {it}")
             # the metrics stay on the device but for these steps: reading a
             # scalar waits for the card, and a wait a step would stall it
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
@@ -237,6 +251,7 @@ def _run(cfg: PretrainConfig, device):
             **{f"train_{k}": m.global_avg for k, m in logger.meters.items()},
             n_parameters=int(n_params),
         )
+    tracer.close()
     tb.flush()
     return state
 

@@ -34,11 +34,24 @@ from dig_tpu_torch.data.transforms import ABIAugment, SeqCLRAugment
 from dig_tpu_torch.utils.charset import build_charset
 
 
-class ImageLmdb:
+class _ReopensInChild:
+    """Pickles as its constructor arguments, so that a process worker
+    rebuilds the dataset and opens its own LMDB reader (a native handle
+    does not pickle).  The rng wrapper pickles as its base stream, and one
+    shared by several datasets stays shared."""
+
+    def __getstate__(self):
+        return self._init_args
+
+    def __setstate__(self, state):
+        self.__init__(**state)
+
+
+class ImageLmdb(_ReopensInChild):
     """Labeled recognition dataset.
 
-    `__getitem__` returns (image [H,W,3] float32 normalized, label
-    [max_len] int32, label_len int32).
+    `__getitem__` returns (image [H,W,3] uint8, label [max_len] int32,
+    label_len int32).
     """
 
     def __init__(
@@ -54,6 +67,12 @@ class ImageLmdb:
         use_color_aug: bool = False,
         rng: Optional[np.random.Generator] = None,
     ):
+        if not isinstance(rng, ThreadLocalRng):
+            rng = ThreadLocalRng(rng if rng is not None else np.random.default_rng())
+        self._init_args = dict(root=root, voc_type=voc_type, max_len=max_len,
+                               num_samples=num_samples, img_height=img_height,
+                               img_width=img_width, use_aug=use_aug, use_abi_aug=use_abi_aug,
+                               use_color_aug=use_color_aug, rng=rng)
         self.root = root
         self.reader = LmdbReader(root)
         n = int(self.reader.get(b"num-samples"))
@@ -67,8 +86,6 @@ class ImageLmdb:
         self.use_aug = use_aug
         # per-thread child streams: the loader fans single samples out to
         # worker threads, and numpy Generators are not thread-safe
-        if not isinstance(rng, ThreadLocalRng):
-            rng = ThreadLocalRng(rng if rng is not None else np.random.default_rng())
         self.rng = rng
         if use_aug:
             if use_abi_aug:
@@ -121,7 +138,7 @@ class ImageLmdb:
         raise RuntimeError(f"no usable sample near index {index} in {self.root}")
 
 
-class AloneImageLmdb:
+class AloneImageLmdb(_ReopensInChild):
     """Unlabeled pre-training dataset: (original, augmented, masks)."""
 
     def __init__(
@@ -137,6 +154,12 @@ class AloneImageLmdb:
         use_aug: bool = True,
         rng: Optional[np.random.Generator] = None,
     ):
+        if not isinstance(rng, ThreadLocalRng):
+            rng = ThreadLocalRng(rng if rng is not None else np.random.default_rng())
+        self._init_args = dict(root=root, max_len=max_len, num_samples=num_samples,
+                               img_height=img_height, img_width=img_width,
+                               mask_ratio=mask_ratio, num_view=num_view,
+                               window_size=window_size, use_aug=use_aug, rng=rng)
         self.root = root
         self.reader = LmdbReader(root)
         n = int(self.reader.get(b"num-samples"))
@@ -146,8 +169,6 @@ class AloneImageLmdb:
             n = int(n * num_samples)
         self.num_samples_total = n
         self.img_height, self.img_width = img_height, img_width
-        if not isinstance(rng, ThreadLocalRng):
-            rng = ThreadLocalRng(rng if rng is not None else np.random.default_rng())
         self.rng = rng
         self.use_aug = use_aug
         self.num_view = num_view

@@ -7,24 +7,29 @@ reference has torch's `DataLoader(num_workers=10, pin_memory=True)`
 order: with the same seed and one worker it yields the JAX package's
 batches byte for byte, which the parity tests stand on.  Decode and
 augmentation are CPU-bound but mostly GIL-releasing (cv2, numpy), so the
-default thread pool suffices; `worker_type="process"` switches to forked
+default thread pool suffices; `worker_type="process"` switches to
 process workers for hosts where Python-level augmentation serializes on
-the GIL.  Batches are assembled as contiguous numpy arrays;
+the GIL: those start from a ``forkserver`` (never a fork of this process,
+which may hold threads and the card) and receive the dataset pickled; the
+datasets pickle their constructor arguments and reopen their LMDB readers
+in the child.  Batches are assembled as contiguous numpy arrays;
 `device_prefetch` with `pinned_to_device` keeps a few of them in flight to
 the card through pinned memory, so the only host-to-device copies of a
 step happen here and overlap the previous step.
 
-Deviation from the JAX package: a forked worker reseeds its streams from
-its ordinal (0 .. num_workers - 1, in the order the workers start), not
-from its PID, so a run with process workers draws from the same set of
-streams every time.  Which worker serves which sample is still decided by
-arrival, as with threads.
+Deviations from the JAX package: it forks its process workers from the
+loading process, this loader starts them from a forkserver; a process
+worker reseeds its streams from its ordinal (0 .. num_workers - 1, in the
+order the workers start), not from its PID, so a run with process workers
+draws from the same set of streams every time.  Which worker serves which
+sample is still decided by arrival, as with threads.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Optional
 
@@ -63,14 +68,20 @@ class ThreadLocalRng:
 
     def reseed(self, seed: int) -> None:
         """Replace the base stream and drop any cached thread-local
-        children.  Used by process workers after fork: every child
-        inherits the parent's RNG state bit-for-bit, so without a
+        children.  Used by process workers as they start: every worker
+        receives the parent's RNG state bit-for-bit, so without a
         per-worker reseed all workers would produce IDENTICAL
         augmentation streams (the reference guards the same hazard with
         `seed_worker`, utils/utils.py)."""
         with self._lock:
             self._base = np.random.default_rng(seed)
             self._tl = threading.local()
+
+    def __getstate__(self):
+        return {"base": self._base}
+
+    def __setstate__(self, state):
+        self.__init__(state["base"])
 
     def __getattr__(self, name):
         return getattr(self._rng(), name)
@@ -88,15 +99,16 @@ def reseed_dataset_rngs(dataset, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Process workers (fork).  The dataset is made visible to children by
-# forking AFTER it exists — read-only mmap LMDB handles are fork-safe and
-# shared copy-on-write, so nothing is pickled per task except the integer
-# index and the returned sample.  Children must reseed their RNGs (see
-# ThreadLocalRng.reseed).  A child runs numpy and cv2 only: it never
-# touches the model or the card, which a process forked after CUDA was
-# initialised must not do.  Use when host augmentation is pure-Python
-# (GIL-bound) or the host has cores to spare; the default thread pool is
-# cheaper when the per-sample work releases the GIL (cv2/numpy).
+# Process workers (forkserver).  Each worker is forked from a server process
+# that was started fresh, never from this one: a fork of a process that runs
+# threads, or has initialised CUDA, may inherit a lock that is held forever.
+# The dataset reaches the worker pickled (as its constructor arguments; the
+# LMDB reader is reopened there), with the shared start counter; each worker
+# reseeds its RNGs from its ordinal (see ThreadLocalRng.reseed).  A worker
+# runs numpy and cv2 only: it never touches the model or the card.  Use when
+# host augmentation is pure-Python (GIL-bound) or the host has cores to
+# spare; the default thread pool is cheaper when the per-sample work releases
+# the GIL (cv2/numpy).
 # ---------------------------------------------------------------------------
 
 _proc_dataset = None
@@ -121,6 +133,31 @@ def _proc_init(dataset, base_seed: int, ordinals) -> None:
 
 def _proc_getitem(i: int):
     return _proc_dataset[i]
+
+
+def stop_worker_processes(timeout: float = 30.0) -> list:
+    """Stop every process that process workers started, for a program that
+    must leave none behind when it exits: wait up to `timeout` s for the
+    workers of finished or abandoned iterators (terminating any still
+    alive then), then stop the forkserver and the resource tracker.  Left
+    alone, the forkserver outlives its program by the seconds its own
+    interpreter takes to shut down.  Call it once no loader is being read;
+    a later process-worker loader starts a new server.  Returns the names
+    of the workers that had to be terminated."""
+    import multiprocessing as mp
+    from multiprocessing import forkserver, resource_tracker
+
+    deadline = time.monotonic() + timeout
+    terminated = []
+    for p in mp.active_children():
+        p.join(max(0.0, deadline - time.monotonic()))
+        if p.is_alive():
+            terminated.append(p.name)
+            p.terminate()
+            p.join(5.0)
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    return terminated
 
 
 def _stack(samples):
@@ -267,7 +304,11 @@ class DataLoader:
                 import multiprocessing as mp
                 from concurrent.futures import ProcessPoolExecutor
 
-                ctx = mp.get_context("fork")
+                ctx = mp.get_context("forkserver")
+                # the server imports the dataset's module (torch included)
+                # once, before it forks any worker: a worker starts with it
+                # loaded instead of importing it anew (seconds each)
+                ctx.set_forkserver_preload([type(self.dataset).__module__])
                 return ProcessPoolExecutor(
                     self.num_workers, mp_context=ctx, initializer=_proc_init,
                     initargs=(self.dataset, self.seed, ctx.Value("i", 0))), _proc_getitem
@@ -276,38 +317,34 @@ class DataLoader:
 
         def produce():
             pool, fetch = make_pool()
-            with pool:
-                pending = []
+            pending = []
 
-                def drain(futs) -> bool:
-                    return put(("ok", self.collate([f.result() for f in futs])))
+            def drain(futs) -> bool:
+                return put(("ok", self.collate([f.result() for f in futs])))
 
-                try:
-                    for batch_idx in self._batches():
-                        if stop.is_set():
+            try:
+                for batch_idx in self._batches():
+                    if stop.is_set():
+                        break
+                    # fan out per SAMPLE, not per batch: decode/aug of one
+                    # batch spreads over all workers (cv2/numpy release
+                    # the GIL), so batch latency is ~1/num_workers of the
+                    # serial cost on multi-core hosts
+                    pending.append([pool.submit(fetch, i) for i in batch_idx])
+                    while len(pending) >= self.prefetch:
+                        if not drain(pending.pop(0)):
                             break
-                        # fan out per SAMPLE, not per batch: decode/aug of one
-                        # batch spreads over all workers (cv2/numpy release
-                        # the GIL), so batch latency is ~1/num_workers of the
-                        # serial cost on multi-core hosts
-                        pending.append(
-                            [pool.submit(fetch, i) for i in batch_idx]
-                        )
-                        while len(pending) >= self.prefetch:
-                            if not drain(pending.pop(0)):
-                                break
-                    for futs in pending:
-                        if stop.is_set():
-                            break
-                        drain(futs)
-                    put(("end", None))
-                except Exception as e:  # propagate into the consumer
-                    put(("err", e))
-                finally:
-                    if stop.is_set():  # abandoned: skip queued decode work
-                        for futs in pending:
-                            for f in futs:
-                                f.cancel()
+                for futs in pending:
+                    if stop.is_set():
+                        break
+                    drain(futs)
+                put(("end", None))
+            except Exception as e:  # propagate into the consumer
+                put(("err", e))
+            finally:
+                # abandoned: drop the queued work and do not wait for the
+                # samples in flight
+                pool.shutdown(wait=not stop.is_set(), cancel_futures=True)
 
         t = threading.Thread(target=produce, daemon=True)
         t.start()

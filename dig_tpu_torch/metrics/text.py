@@ -1,9 +1,11 @@
 """Word-level recognition metrics for the eval step's ids.
 
 The port's own copy of the parts of `dig_tpu/metrics/text.py` that score
-greedy predictions (reference: evaluation_metric/metrics.py:14-81):
+a recognizer's predictions (reference: evaluation_metric/metrics.py:14-202):
 decode to text stopping at EOS, case-insensitive alphanumeric
-normalization, word accuracy and the summed edit distance.
+normalization, word accuracy, the character-set F-measure, the summed
+edit distance, lexicon-constrained accuracy and the per-word confidence of
+`rec_post_process`.  The CTC and multi-label metrics wait for their models.
 """
 
 from __future__ import annotations
@@ -22,6 +24,18 @@ def accuracy(pred_ids, target_ids, charset: Charset) -> float:
     preds = decode_batch(pred_ids, charset)
     targs = decode_batch(target_ids, charset)
     return float(sum(p == t for p, t in zip(preds, targs))) / max(len(preds), 1)
+
+
+def recognition_f_measure(pred_ids, target_ids, charset: Charset) -> float:
+    """Character-set F1 averaged over samples."""
+    fs = []
+    for pred, targ in zip(decode_batch(pred_ids, charset), decode_batch(target_ids, charset)):
+        pred_chars, targ_chars = set(pred), set(targ)
+        num_right = float(len(pred_chars & targ_chars))
+        p = num_right / (len(pred_chars) + 1e-5)
+        r = num_right / (len(targ_chars) + 1e-5)
+        fs.append(2 * p * r / (p + r + 1e-5))
+    return float(sum(fs)) / max(len(fs), 1)
 
 
 def levenshtein(a: str, b: str) -> int:
@@ -43,3 +57,39 @@ def edit_distance(pred_ids, target_ids, charset: Charset) -> int:
     preds = decode_batch(pred_ids, charset)
     targs = decode_batch(target_ids, charset)
     return sum(levenshtein(p, t) for p, t in zip(preds, targs))
+
+
+def lexicon_search(lexicon, word: str) -> str:
+    """The nearest lexicon entry by edit distance over normalized strings,
+    the first on a tie."""
+    dists = [levenshtein(normalize_text(w), normalize_text(word)) for w in lexicon]
+    return lexicon[int(np.argmin(np.asarray(dists)))]
+
+
+def accuracy_with_lexicon(pred_ids, target_ids, charset: Charset, lexicons) -> list:
+    """[accuracy without a lexicon, then with each lexicon list]: each
+    prediction replaced by its sample's nearest lexicon entry (an empty
+    lexicon keeps it)."""
+    preds = decode_batch(pred_ids, charset)
+    targs = decode_batch(target_ids, charset)
+    n = max(len(preds), 1)
+    accs = [float(sum(p == t for p, t in zip(preds, targs))) / n]
+    for lex_per_sample in lexicons:
+        refined = [normalize_text(lexicon_search(lex, p)) if lex else p
+                   for lex, p in zip(lex_per_sample, preds)]
+        accs.append(float(sum(p == t for p, t in zip(refined, targs))) / n)
+    return accs
+
+
+def rec_post_process(pred_ids, target_ids, scores, charset: Charset):
+    """(predictions, targets, confidences): each word's confidence is the
+    product of its per-step chosen-symbol probabilities `scores` [N, T] up
+    to and including EOS, counting ``len(normalized prediction) + 1``
+    steps, as the reference does (so a prediction with symbols counts fewer
+    factors than decode steps)."""
+    preds = decode_batch(pred_ids, charset)
+    targs = decode_batch(target_ids, charset)
+    scores = np.asarray(scores)
+    max_len = scores.shape[1]
+    conf = [float(np.prod(scores[i, :min(len(p) + 1, max_len)])) for i, p in enumerate(preds)]
+    return preds, targs, conf

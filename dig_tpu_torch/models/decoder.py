@@ -4,10 +4,32 @@ models/transformer_layer.py:47-118, :204-281, :386-403).
 
 `TFDecoder` embeds ``num_classes + 1`` symbols (BOS is the last id), adds
 the sinusoid table, and runs pre-LN layers of self-attention,
-cross-attention and FFN.  Inference is the KV-cached greedy loop that the
-JAX package runs off the TPU (`greedy_decode`): always `max_seq_len`
-steps.  Dense greedy decoding, the EOS early exit, beam search, the
-decoupled and the text-conditional decoders wait for a later slice.
+cross-attention and FFN.  Inference paths, as in the JAX package:
+
+* `greedy_decode`: token-at-a-time with per-layer KV caches, always
+  `max_seq_len` steps (what the JAX package runs off the TPU);
+* `greedy_decode_dense`: the whole prefix again at every step with the
+  cross K/V computed once, fixed-length or with the EOS early exit (the
+  loop stops once every row has emitted EOS; probabilities past the stop
+  stay 0).  The same ids as `greedy_decode`: causal masking makes position
+  t independent of later tokens;
+* `beam_search` (KV-cached) and `beam_search_dense`: the reference's beam
+  (models/decoder.py:254-370): length-unnormalized log-prob scores, a
+  per-sample top-k over all beams' expansions, a beam that emits EOS is
+  killed (score -inf) and its hypothesis recovered by backtracking through
+  the stored predecessors, symbols and scores.  The per-row token history
+  is *not* reordered by predecessor in the forward loop (the reference
+  writes only ``init_target_seq[:, step + 1]``, :309): row r conditions on
+  its own emissions while its score is inherited from its predecessor.
+  That is observable in the ids, so it is reproduced; it also keeps the KV
+  caches row-aligned.  Ties in the top-k go to the lowest index, as
+  `jax.lax.top_k` breaks them (a stable descending sort: `torch.topk` on
+  CUDA leaves the order of ties open, and killed beams tie at -inf).  The
+  backtracking runs on the host in numpy, exactly as the JAX scan orders
+  its writes, after one copy of the stored steps per batch (the only wait
+  for the card in a beam batch).
+
+The decoupled and the text-conditional decoders wait for a later slice.
 
 None of this reaches a kernel: the self-attention is masked and the
 cross-attention has Lq <= 25 < 128, so both take `_ref_attention`, as on
@@ -20,6 +42,9 @@ masks come from the `torch.Generator` that pass is given.
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,6 +53,7 @@ from dig_tpu_torch.models.layers import (
     LayerNorm,
     attention_with_dropout,
     dropout,
+    embedding,
     make_causal_mask,
     make_pad_mask,
     sinusoid_position_table,
@@ -127,6 +153,69 @@ class TransformerDecoderLayer(nn.Module):
         return x + self.mlp(self.norm3(x))
 
 
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last dim, descending,
+    ties to the lowest index (`jax.lax.top_k`'s order)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def beam_select(scores, logp, b: int, num_classes: int, eos: int):
+    """One reference beam step (models/decoder.py:288-307): expand every
+    beam over every class, take each sample's top k, kill the beams that
+    emitted EOS.  scores [b*k], logp [b*k, C] fp32.  Returns (the stored
+    top scores [b, k], flat predecessors [b*k], symbols [b*k], new scores
+    [b*k])."""
+    k = scores.shape[0] // b
+    cand = (scores[:, None] + logp).reshape(b, k * num_classes)
+    top_scores, top_idx = _top_k(cand, k)
+    sym = (top_idx % num_classes).reshape(-1)
+    rows = torch.arange(b, device=scores.device)[:, None] * k
+    pred = (top_idx // num_classes + rows).reshape(-1)
+    new_scores = torch.where(sym == eos, torch.full_like(top_scores.reshape(-1), -torch.inf),
+                             top_scores.reshape(-1))
+    return top_scores, pred, sym, new_scores
+
+
+def beam_backtrack(st_scores, st_preds, st_syms, b: int, k: int, eos: int) -> np.ndarray:
+    """The reference's backtracking (models/decoder.py:313-370), in numpy:
+    walking time backwards, each step's EOS emissions replace the
+    lowest-ranked final beams of their sample in a ring, in decreasing beam
+    order; returns the best hypothesis's ids [b, T].  The writes run in the
+    order of the JAX package's scan (`dig_tpu/models/decoder.py:211-254`),
+    which decides the ring.
+
+    st_scores [T, b, k]: the post-top-k, pre-kill scores; st_preds /
+    st_syms [T, b*k]: flat predecessors and symbols (numpy arrays)."""
+    t_max = st_scores.shape[0]
+    pos = np.arange(b) * k
+    rows = np.arange(b)
+    last = st_scores[-1]
+    sorted_idx = np.argsort(-last, axis=1, kind="stable")[:, :k]
+    s = np.take_along_axis(last, sorted_idx, axis=1).copy()
+    t_pred = (sorted_idx + pos[:, None]).reshape(-1)
+    count = np.zeros((b,), np.int64)
+    syms_back = []
+    for t in range(t_max - 1, -1, -1):
+        scores_t, preds_t, syms_t = st_scores[t], st_preds[t], st_syms[t]
+        cur = syms_t[t_pred].copy()
+        new_pred = preds_t[t_pred].copy()
+        for j in range(k - 1, -1, -1):
+            flat = pos + j
+            is_eos = syms_t[flat] == eos
+            res_k = k - 1 - (count % k)
+            res_flat = pos + res_k
+            new_pred[res_flat] = np.where(is_eos, preds_t[flat], new_pred[res_flat])
+            cur[res_flat] = np.where(is_eos, eos, cur[res_flat])
+            s[rows, res_k] = np.where(is_eos, scores_t[rows, j], s[rows, res_k])
+            count += is_eos
+        t_pred = new_pred
+        syms_back.append(cur)
+    syms = np.stack(syms_back[::-1])  # [T, b*k]
+    best_flat = pos + np.argmax(s, axis=1)  # ties -> the lowest index, like top_k
+    return syms[:, best_flat].T
+
+
 class TFDecoder(nn.Module):
     def __init__(self, num_classes: int = 97, n_layers: int = 6, d_embedding: int = 512,
                  n_head: int = 8, d_k: int = 64, d_v: int = 64, d_model: int = 512,
@@ -154,7 +243,7 @@ class TFDecoder(nn.Module):
         return self.num_classes  # BOS id, one past the vocabulary
 
     def _embed(self, trg_seq):
-        emb = self.trg_word_emb(trg_seq).to(self.compute_dtype)
+        emb = embedding(self.trg_word_emb.weight, trg_seq).to(self.compute_dtype)
         return emb + self.position_table[:, : trg_seq.shape[1]].to(emb.dtype)
 
     def forward(self, enc_output, targets, tgt_lens, deterministic: bool = False,
@@ -178,7 +267,7 @@ class TFDecoder(nn.Module):
     def decode_step(self, tokens_t, t: int, self_caches, cross_kvs):
         """One greedy step.  tokens_t [B] ids -> logits [B, num_classes];
         the caches are updated in place."""
-        x = self.trg_word_emb(tokens_t[:, None]).to(self.compute_dtype)
+        x = embedding(self.trg_word_emb.weight, tokens_t[:, None]).to(self.compute_dtype)
         x = x + self.position_table[:, t:t + 1].to(x.dtype)
         for layer, (sk, sv), (ck, cv) in zip(self.layer_stack, self_caches, cross_kvs):
             x = layer.decode_step(x, t, sk, sv, ck, cv)
@@ -205,6 +294,115 @@ class TFDecoder(nn.Module):
             probs.append(p)
             ids.append(tokens)
         return torch.stack(probs, dim=1), torch.stack(ids, dim=1)
+
+    def _run_layers_cached_cross(self, tgt, cross_kvs, self_attn_mask):
+        """The deterministic full-width decoder pass with precomputed cross K/V."""
+        x = tgt
+        for layer, (ck, cv) in zip(self.layer_stack, cross_kvs):
+            sa_in = layer.norm1(x)
+            x = x + layer.self_attn(sa_in, sa_in, sa_in, self_attn_mask)
+            x = x + layer.enc_attn.attend(layer.enc_attn.project_q(layer.norm2(x)), ck, cv)
+            x = x + layer.mlp(layer.norm3(x))
+        return self.layer_norm(x)
+
+    def _dense_logits(self, tokens, t: int, cross_kvs, causal):
+        """The step-t logits of a full-prefix pass over tokens[:, :-1]."""
+        out = self._run_layers_cached_cross(self._embed(tokens[:, :-1]), cross_kvs, causal)
+        return self.classifier(out[:, t])
+
+    def greedy_decode_dense(self, enc_output, eos: Optional[int] = None):
+        """Greedy decode that runs the decoder over the whole prefix at
+        every step (the reference's inference structure), with the cross
+        K/V computed once.  Returns (per-step softmax [B, T, num_classes]
+        fp32, ids [B, T]), the ids those of `greedy_decode`.
+
+        With `eos`, the loop ends once every row has emitted EOS (a read of
+        one flag a step from the device); the probabilities and ids past
+        that step stay 0, so only positions up to each row's first EOS may
+        be read (word accuracy, confidence).  Without it, `max_seq_len`
+        steps (what a loss over the whole target needs)."""
+        b = enc_output.shape[0]
+        t_max = self.max_seq_len
+        dev = enc_output.device
+        causal = make_causal_mask(t_max, dev)[:, None]
+        cross_kvs = self.prepare_cross(enc_output)
+        tokens = torch.zeros((b, t_max + 1), dtype=torch.long, device=dev)
+        tokens[:, 0] = self.start_idx
+        probs = torch.zeros((b, t_max, self.num_classes), dtype=torch.float32, device=dev)
+        has_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+        for t in range(t_max):
+            p = torch.softmax(self._dense_logits(tokens, t, cross_kvs, causal).float(), dim=-1)
+            nxt = torch.argmax(p, dim=-1)
+            tokens[:, t + 1] = nxt
+            probs[:, t] = p
+            if eos is not None:
+                has_eos |= nxt == eos
+                if bool(has_eos.all()):
+                    break
+        return probs, tokens[:, 1:]
+
+    def _beam_start(self, n: int, k: int, device):
+        """Only beam 0 of each sample is live at step 0."""
+        live = torch.arange(n, device=device) % k == 0
+        return torch.where(live, 0.0, -torch.inf).to(torch.float32)
+
+    def _beam_finish(self, stored, b: int, k: int, eos: int, device):
+        """Backtrack on the host after one copy of the stored steps (scores,
+        predecessors and symbols in one float64 tensor: exact for all three)."""
+        t, n = len(stored), b * k
+        scores, preds, syms = (torch.stack(x) for x in zip(*stored))
+        host = torch.cat([scores.reshape(t, n).double(), preds.double(), syms.double()],
+                         dim=1).cpu().numpy()
+        ids = beam_backtrack(host[:, :n].astype(np.float32).reshape(t, b, k),
+                             host[:, n:2 * n].astype(np.int64), host[:, 2 * n:].astype(np.int64),
+                             b, k, eos)
+        ids = torch.from_numpy(ids)
+        if torch.device(device).type == "cuda":
+            ids = ids.pin_memory()
+        return ids.to(device, non_blocking=True)
+
+    def beam_search(self, enc_output, beam_width: int, eos: int = 94):
+        """KV-cached beam search with the reference's semantics (module
+        docstring).  enc_output [B, N, C] -> ids [B, T]."""
+        b = enc_output.shape[0]
+        k = beam_width
+        t_max = self.max_seq_len
+        enc = enc_output.repeat_interleave(k, dim=0)  # beams contiguous per sample
+        cross_kvs = self.prepare_cross(enc)
+        caches = [(enc.new_zeros((b * k, t_max, self.n_head, self.d_k)),
+                   enc.new_zeros((b * k, t_max, self.n_head, self.d_v)))
+                  for _ in self.layer_stack]
+        scores = self._beam_start(b * k, k, enc.device)
+        tokens = torch.full((b * k,), self.start_idx, dtype=torch.long, device=enc.device)
+        stored = []
+        for t in range(t_max):
+            logits = self.decode_step(tokens, t, caches, cross_kvs)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            top_scores, pred, tokens, scores = beam_select(scores, logp, b, self.num_classes, eos)
+            stored.append((top_scores, pred, tokens))
+        return self._beam_finish(stored, b, k, eos, enc.device)
+
+    def beam_search_dense(self, enc_output, beam_width: int, eos: int = 94):
+        """Beam search over the whole prefix at every step; the ids of
+        `beam_search`."""
+        b = enc_output.shape[0]
+        k = beam_width
+        t_max = self.max_seq_len
+        enc = enc_output.repeat_interleave(k, dim=0)
+        dev = enc.device
+        causal = make_causal_mask(t_max, dev)[:, None]
+        cross_kvs = self.prepare_cross(enc)
+        scores = self._beam_start(b * k, k, dev)
+        tokens = torch.zeros((b * k, t_max + 1), dtype=torch.long, device=dev)
+        tokens[:, 0] = self.start_idx
+        stored = []
+        for t in range(t_max):
+            logp = torch.log_softmax(self._dense_logits(tokens, t, cross_kvs, causal).float(),
+                                     dim=-1)
+            top_scores, pred, sym, scores = beam_select(scores, logp, b, self.num_classes, eos)
+            tokens[:, t + 1] = sym
+            stored.append((top_scores, pred, sym))
+        return self._beam_finish(stored, b, k, eos, dev)
 
 
 def create_decoder(decoder_name: str, num_classes: int, max_len: int,

@@ -99,9 +99,34 @@ def attention_with_dropout(q, k, v, mask, scale: float, rate: float,
     product.  q [B, Lq, H, D], k/v [B, Lk, H, D] -> [B, Lq, H, D]."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
     if mask is not None:
-        logits = torch.where(mask, logits, torch.tensor(-1e30, device=logits.device))
+        # a scalar fill: a tensor made from a host value would wait for the card
+        logits = logits.masked_fill(~mask, -1e30)
     weights = dropout(torch.softmax(logits, dim=-1).to(v.dtype), rate, generator)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+class _EmbeddingRows(torch.autograd.Function):
+    """weight[ids], whose backward sums each row's gradients in a one-hot
+    product: torch's CUDA embedding backward (sorted above 3,072 ids) gives
+    other bits from run to run, seen on an NVIDIA H100 by chip_smoke.py, and
+    a resumed run must repeat an uninterrupted one bit for bit."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.num_rows = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        onehot = F.one_hot(ids.reshape(-1), ctx.num_rows).to(grad.dtype)
+        return onehot.t() @ grad.reshape(-1, grad.shape[-1]), None
+
+
+def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows `ids` of `weight` ([..., D]), with a reproducible backward."""
+    return _EmbeddingRows.apply(weight, ids)
 
 
 class Dense(nn.Linear):

@@ -55,15 +55,22 @@ class RecModel(nn.Module):
         return self.decoder(self.linear_norm(enc), targets, tgt_lens, deterministic, generator)
 
     @torch.no_grad()
-    def recognize(self, images, beam_width: int = 0, eos: int = 94):
-        """Images in [-1, 1], [B, H, W, 3] -> (per-step softmax [B, T, C]
-        fp32, greedy ids [B, T]), deterministic.  Greedy only in this
-        slice; the decode always runs `max_seq_len` steps, which is what
-        the JAX package does for `eos < 0` (the eval step's full-length
-        decode), so `eos` is not read."""
+    def recognize(self, images, beam_width: int = 0, eos: int = 94, dense: bool = False):
+        """Images in [-1, 1], [B, H, W, 3] -> (probs, ids [B, T]),
+        deterministic (`dig_tpu/models/rec_model.py:45-58, 109-113`).
+
+        `beam_width` > 0: beam search with `eos` as its end symbol; probs
+        is None.  Otherwise greedy: the KV-cached loop at full length (what
+        the JAX package runs off the TPU; `eos` is not read), or with
+        `dense` the full-prefix loop, which stops early at `eos` >= 0.
+        probs: the per-step softmax [B, T, C], fp32."""
+        dec_in = self.linear_norm(self._raw_encode(images))
         if beam_width > 0:
-            raise NotImplementedError("beam search is not ported yet (greedy only)")
-        return self.decoder.greedy_decode(self.linear_norm(self._raw_encode(images)))
+            search = self.decoder.beam_search_dense if dense else self.decoder.beam_search
+            return None, search(dec_in, beam_width, eos)
+        if dense:
+            return self.decoder.greedy_decode_dense(dec_in, eos if eos >= 0 else None)
+        return self.decoder.greedy_decode(dec_in)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

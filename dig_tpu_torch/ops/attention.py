@@ -66,7 +66,8 @@ def _ref_attention(q, k, v, mask, scale):
     acc = torch.promote_types(q.dtype, torch.float32)
     logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).to(acc)
     if mask is not None:
-        logits = torch.where(mask, logits, torch.tensor(-1e30, dtype=acc, device=logits.device))
+        # a scalar fill: a tensor made from a host value would wait for the card
+        logits = logits.masked_fill(~mask, -1e30)
     weights = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype), v)
 

@@ -19,11 +19,18 @@ lr scale) pair:
 * optional clipping by the global norm with factor
   min(1, clip / (||g|| + 1e-6));
 * lr and wd read from the schedule arrays at index min(count, len - 1)
-  before every step.
+  before every update;
+* every parameter is updated, a parameter without a gradient as with a
+  zero one (optax steps every leaf; `torch.optim.AdamW` alone would skip
+  it);
+* gradient accumulation (`update_freq` k > 1, optax `MultiSteps` in the
+  JAX package): each call of `step` folds the gradients into a running
+  mean, acc + (g - acc) / (n + 1) for the n-th of k; the k-th call clips
+  that mean and applies AdamW, and the mean starts again from 0.  `count`,
+  the schedules' index and AdamW's step tensors count applied updates only.
 
-The other optimizers of the JAX factory (AdamP, LAMB, Lookahead, ...) and
-gradient accumulation (`update_freq` > 1, optax `MultiSteps`) are not
-ported yet.
+The other optimizers of the JAX factory (AdamP, LAMB, Lookahead, ...) are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -87,9 +94,13 @@ def global_norm(tensors) -> torch.Tensor:
 class AdamW:
     def __init__(self, named_params, lr_schedule, wd_schedule=None, betas=(0.9, 0.999),
                  eps: float = 1e-8, clip_grad: Optional[float] = None, layer_decay: float = 1.0,
-                 num_layers: int = 12, frozen: Optional[Callable[[str], bool]] = None):
+                 num_layers: int = 12, frozen: Optional[Callable[[str], bool]] = None,
+                 update_freq: int = 1):
         named = [(n, p) for n, p in named_params if p.requires_grad]
         self.params = [p for _, p in named]
+        self.update_freq = int(update_freq)
+        self.mini_step = 0  # gradients folded into `acc` since the last update
+        self.acc = None
         self.lr = np.asarray(lr_schedule, np.float32)
         self.wd = None if wd_schedule is None else np.asarray(wd_schedule, np.float32)
         self.clip_grad = clip_grad
@@ -108,10 +119,26 @@ class AdamW:
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
 
-    def step(self):
-        """One update from the parameters' `.grad`s."""
+    def step(self) -> bool:
+        """Take the parameters' `.grad`s: an update, or with `update_freq`
+        > 1 one more gradient into the running mean and an update on the
+        k-th.  Returns whether the parameters were updated."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        if self.update_freq > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(p) for p in self.params]
+            diff = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc, diff)
+            self.mini_step += 1
+            if self.mini_step < self.update_freq:
+                return False
+            self.mini_step = 0
+            grads = [a.clone() for a in self.acc]
+            torch._foreach_zero_(self.acc)
+        for p, g in zip(self.params, grads):
+            p.grad = g
         if self.clip_grad is not None:
-            grads = [p.grad for p in self.params if p.grad is not None]
             factor = torch.clamp(self.clip_grad / (global_norm(grads) + 1e-6), max=1.0)
             torch._foreach_mul_(grads, factor)
         i = min(self.count, len(self.lr) - 1)
@@ -121,6 +148,7 @@ class AdamW:
             group["weight_decay"] = 0.0 if group["no_decay"] else wd
         self.inner.step()
         self.count += 1
+        return True
 
 
 def create_optimizer(opt_name: str, named_params, lr_schedule, wd_schedule=None,
@@ -129,12 +157,11 @@ def create_optimizer(opt_name: str, named_params, lr_schedule, wd_schedule=None,
                      num_layers: int = 12, frozen: Optional[Callable[[str], bool]] = None,
                      update_freq: int = 1) -> AdamW:
     """`create_optimizer` of the JAX package for ``opt_name="adamw"``;
-    `frozen` is a predicate on parameter names (`frozen_encoder_mask`)."""
+    `frozen` is a predicate on parameter names (`frozen_encoder_mask`);
+    `update_freq` > 1 accumulates as optax `MultiSteps` wrapped around it
+    does (`dig_tpu/cli/run_finetune.py:330-334`)."""
     if opt_name.lower() != "adamw":
         raise NotImplementedError(f"optimizer {opt_name!r} is not ported yet (adamw only; "
                                   f"see ROADMAP.md)")
-    if update_freq > 1:
-        raise NotImplementedError("gradient accumulation (update_freq > 1, optax MultiSteps) "
-                                  "is not ported yet; see ROADMAP.md")
     return AdamW(named_params, lr_schedule, wd_schedule, betas, eps, clip_grad, layer_decay,
-                 num_layers, frozen)
+                 num_layers, frozen, update_freq)

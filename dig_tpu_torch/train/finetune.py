@@ -11,12 +11,14 @@ Counterpart of `dig_tpu/train/finetune.py` for ``model_kind="rec"``
   logits with the metrics;
 * `make_eval_step`: deterministic greedy decode at full length (the JAX
   step's ``eos=-1``) and the per-row sequence CE of log(probs + 1e-9), the
-  reference's logging convention (:232-249).
+  reference's logging convention (:232-249); or beam search with the real
+  EOS and a per-row loss of 0.
 
 The steps run where the model lives and take uint8 image batches, as the
-JAX steps do.  Gradient accumulation (`update_freq` > 1) is refused by
-`create_optimizer`; beam search by `make_eval_step`.  The returned
-metrics are device tensors, so a step does not wait for the card.
+JAX steps do.  Gradient accumulation (`update_freq` > 1) lives in the
+optimizer (`dig_tpu_torch.optim.AdamW`), as optax `MultiSteps` does in the
+JAX package: the step is the same.  The returned metrics are device
+tensors, so a step does not wait for the card.
 """
 
 from __future__ import annotations
@@ -73,16 +75,21 @@ def make_finetune_step(model, smoothing: float = 0.1):
     return train_step
 
 
-def make_eval_step(model, beam_width: int = 0):
-    """Returns `eval_step(batch) -> (ids [B, T], per-row loss [B])`: greedy
-    decoding at full length, the loss `seq_cross_entropy_rows` of
-    log(probs + 1e-9) against the targets (`dig_tpu/train/finetune.py:265-309`)."""
-    if beam_width > 0:
-        raise NotImplementedError("beam search is not ported yet (greedy only)")
+def make_eval_step(model, beam_width: int = 0, eos: int = 94):
+    """Returns `eval_step(batch) -> (ids [B, T], per-row loss [B])`
+    (`dig_tpu/train/finetune.py:265-309`).  Greedy decodes at full length
+    (the early exit would leave the probabilities past the stop at 0, which
+    the loss would read) and its loss is `seq_cross_entropy_rows` of
+    log(probs + 1e-9) against the targets; beam (`beam_width` > 0) decodes
+    with `eos` as its end symbol and its loss is 0 by convention."""
+    decode_eos = -1 if beam_width == 0 else eos
 
     def eval_step(batch):
         images, targets, lengths = _batch_on(model, batch)
-        probs, ids = model.recognize(images, 0, -1)
+        probs, ids = model.recognize(images, beam_width, decode_eos)
+        if probs is None:
+            return ids, torch.zeros((targets.shape[0],), dtype=torch.float32,
+                                    device=targets.device)
         return ids, seq_cross_entropy_rows(torch.log(probs + 1e-9), targets, lengths)
 
     return eval_step

@@ -7,7 +7,10 @@ utils/utils.py:546-669); the payload is the port's own.
   ``checkpoint.pth`` and ``meta.json``.
 * ``checkpoint.pth`` is one `torch.save` of ``{"model": state_dict,
   "optimizer": {"inner": torch.optim.AdamW state_dict, "count": int},
-  "step": int}``, written to a temporary name and renamed.  The state dict
+  "step": int}``, written to a temporary name and renamed.  Under
+  gradient accumulation the optimizer entry also holds the running mean
+  and its count (``"acc"``, ``"mini_step"``), as optax's `MultiSteps`
+  state does.  The state dict
   is the model's own, in the reference's `MoCo_ViT` key layout with the
   momentum modules included, so `dig_tpu_torch.utils.convert.load_pth` and
   the JAX package's `--finetune x.pth` loading (`convert_torch_moco`) read
@@ -26,13 +29,23 @@ modules, AdamW's moments and step tensors, the optimizer's schedule index
 `count` and `state.step`.  Restore *after* `init_pretrain_state`, which
 resets the momentum branch to the student.
 
-Not ported yet (see ROADMAP.md): remote URIs (``gs://...`` through fsspec)
-and reading the JAX package's native directories (``arrays.npz`` +
-``treedef.pkl``); both are refused with a message.
+Weights from elsewhere (`dig_tpu/utils/checkpoint.py:375-414, 766-906`),
+as state-dict operations on the reference key layout that the port's
+models use: `load_torch_checkpoint` (the ``--model_key`` order),
+`convert_torch_encoder` (the prefix order), `convert_torch_recognizer`,
+`has_decoder_keys`, and `merge_pretrained_tree`, which grafts what fits
+onto a model.
+
+Not ported yet (see ROADMAP.md): remote URIs (``gs://...`` through fsspec),
+reading the JAX package's native directories (``arrays.npz`` +
+``treedef.pkl``), both refused with a message, and `interpolate_pos_embed`,
+which waits for the learnable position table: the ported encoders hold a
+fixed sinusoid table, so a checkpoint's ``pos_embed`` is reported unused.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import re
@@ -62,10 +75,12 @@ def save_checkpoint(output_dir: str, tag, state, extra: Optional[dict] = None) -
     _refuse_remote(output_dir)
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{tag}"))
     os.makedirs(path, exist_ok=True)
+    opt = state.optimizer
     payload = {"model": state.model.state_dict(),
-               "optimizer": {"inner": state.optimizer.inner.state_dict(),
-                             "count": int(state.optimizer.count)},
+               "optimizer": {"inner": opt.inner.state_dict(), "count": int(opt.count)},
                "step": int(state.step)}
+    if opt.acc is not None:
+        payload["optimizer"].update(acc=opt.acc, mini_step=int(opt.mini_step))
     _replace_into(path, PAYLOAD, lambda tmp: torch.save(payload, tmp))
     meta = {"step": int(state.step)}
     if extra:
@@ -120,6 +135,10 @@ def load_into_state(state, payload: dict):
                          "this run's (another model, layer decay or frozen layers)")
     inner.load_state_dict({"state": saved["state"], "param_groups": groups})
     state.optimizer.count = int(payload["optimizer"]["count"])
+    if "acc" in payload["optimizer"]:
+        device = state.optimizer.params[0].device
+        state.optimizer.acc = [a.to(device) for a in payload["optimizer"]["acc"]]
+        state.optimizer.mini_step = int(payload["optimizer"]["mini_step"])
     state.step = int(payload["step"])
     return state
 
@@ -175,3 +194,99 @@ def auto_resume(output_dir: str, state):
         print(f"auto-resumed from {path}")
         return state, payload.get("extra")
     return state, None
+
+
+# ---------------------------------------------------------------------------
+# Weights from reference checkpoints and from the port's pre-training
+# ---------------------------------------------------------------------------
+
+# the encoder tensors `dig_tpu/utils/checkpoint.py::convert_torch_encoder` maps
+_ENCODER_KEY = re.compile(
+    r"patch_embed\.proj\.(weight|bias)|mask_token|pos_embed|(fc_)?norm\.(weight|bias)"
+    r"|blocks\.\d+\.(attn\.(qkv\.weight|q_bias|v_bias|proj\.(weight|bias))"
+    r"|norm[12]\.(weight|bias)|mlp\.fc[12]\.(weight|bias)|gamma_[12])")
+
+
+def load_torch_checkpoint(path: str, model_key: str = "model|module") -> dict:
+    """A `.pth` -> its state dict of tensors.  `model_key` is the
+    reference's ``--model_key``, a '|'-separated list of candidate
+    top-level keys tried in order (run_class_finetuning.py:372-377), with
+    ``state_dict`` tried last; a file with none of them is the state dict
+    itself.  Unpickling is restricted to tensors, containers and the
+    argparse namespace the reference stores beside them."""
+    _refuse_remote(path)
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in model_key.split("|") + ["state_dict"]:
+        if isinstance(ckpt, dict) and key in ckpt:
+            ckpt = ckpt[key]
+            break
+    return {k: v for k, v in ckpt.items() if torch.is_tensor(v)}
+
+
+def convert_torch_encoder(state_dict: dict, prefix: str = "encoder.") -> dict:
+    """The encoder's tensors of a state dict, keyed as in `VisionTransformer`
+    (``blocks.0.attn.qkv.weight``, ...).  The prefix is searched as the JAX
+    package searches it (run_class_finetuning.py:388-396): `prefix` first,
+    then ``backbone.``, then ``encoder.``, then the bare keys; of the keys
+    under it, those the JAX converter maps (patch embedding, mask token,
+    position table, blocks, final norms)."""
+    sd = state_dict
+    for pfx in (prefix, "backbone.", "encoder."):
+        stripped = {k[len(pfx):]: v for k, v in state_dict.items() if k.startswith(pfx)}
+        if stripped:
+            sd = stripped
+            break
+    return {k: v for k, v in sd.items() if _ENCODER_KEY.fullmatch(k)}
+
+
+def convert_torch_recognizer(state_dict: dict) -> dict:
+    """A fine-tuned reference recognizer's state dict -> {"encoder": ...,
+    "linear_norm": ..., "decoder": ...}, each keyed below its module."""
+    tree = {"encoder": convert_torch_encoder(state_dict, prefix="encoder.")}
+    for top in ("linear_norm", "decoder"):
+        tree[top] = {k[len(top) + 1:]: v for k, v in state_dict.items()
+                     if k.startswith(top + ".")}
+    return tree
+
+
+def has_decoder_keys(state_dict: dict) -> bool:
+    """True when a state dict holds a whole recognizer: the transformer
+    decoder's layer stack or char embedding, or the GRU head's decoder.  A
+    bare ``decoder.`` prefix is not enough: pre-training checkpoints hold a
+    SimMIM pixel decoder under that name (`dig_tpu/utils/checkpoint.py:766-776`)."""
+    return any(k.startswith(("decoder.layer_stack.", "decoder.trg_word_emb.", "decoder.decoder."))
+               for k in state_dict)
+
+
+def merge_pretrained_tree(model, tree: dict) -> int:
+    """Graft {top module: {key below it: tensor}} onto `model` in place,
+    with the JAX package's rules (`merge_pretrained_tree`): a tensor of the
+    model's shape is copied; one the model lacks, or has in another shape,
+    is skipped with a note; a subtree of several tensors that matches
+    nothing means another architecture and raises `ValueError`.  A
+    ``pos_embed`` is reported unused: the ported encoders hold a fixed
+    sinusoid table (`interpolate_pos_embed` waits for the learnable one).
+    Returns the number of tensors copied."""
+    own = model.state_dict()
+    total = 0
+    for top, sub in tree.items():
+        grafted = 0
+        for key, value in sub.items():
+            name = f"{top}.{key}"
+            if key == "pos_embed" and name not in own:
+                print(f"skip {name}: unused, the encoder's position table is a fixed sinusoid")
+            elif name not in own:
+                print(f"skip missing {name}")
+            elif tuple(own[name].shape) != tuple(value.shape):
+                print(f"skip {name}: shape {tuple(value.shape)} vs {tuple(own[name].shape)}")
+            else:
+                with torch.no_grad():
+                    own[name].copy_(value.to(own[name].dtype))
+                grafted += 1
+        if len(sub) > 1 and grafted == 0:
+            raise ValueError(
+                f"checkpoint subtree '{top}' ({len(sub)} tensors) matched nothing in the model: "
+                f"the checkpoint and the configured model are different architectures")
+        total += grafted
+    return total

@@ -587,3 +587,54 @@ def test_drop_path_with_a_cuda_generator_reaches_every_gradient(cuda):
 
     assert loss(0) == loss(0)
     assert loss(0) != loss(1)
+
+
+@pytest.mark.cuda
+def test_decoder_embedding_backward_is_reproducible(cuda):
+    """The decoder's char embedding at a fine-tuning batch's 256 x 25 ids:
+    the same gradient bits on every call (torch's own CUDA embedding
+    backward, sorted above 3,072 ids, is not), close to torch's."""
+    from dig_tpu_torch.models.layers import embedding
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(98, 512, device="cuda", generator=gen, requires_grad=True)
+    ids = torch.randint(0, 98, (256, 25), device="cuda", generator=gen)
+    go = torch.randn(256, 25, 512, device="cuda", generator=gen)
+    grads = []
+    for _ in range(3):
+        w.grad = None
+        embedding(w, ids).backward(go)
+        grads.append(w.grad.clone())
+    assert all(torch.equal(grads[0], g) for g in grads)
+    w.grad = None
+    torch.nn.functional.embedding(ids, w).backward(go)
+    torch.testing.assert_close(grads[0], w.grad, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_masked_attention_and_beam_search_do_not_wait_for_the_card(cuda):
+    """A masked reference attention waits for nothing; a beam batch waits
+    once, for its stored steps (set_sync_debug_mode counts the waits)."""
+    import warnings
+
+    from dig_tpu_torch.models.decoder import create_decoder
+
+    dec = create_decoder("small_tf_decoder", 97, 25).cuda().eval()
+    enc = torch.randn(4, 16, 384, device="cuda")
+    q = torch.randn(2, 5, 6, 64, device="cuda")
+    mask = torch.ones(1, 1, 5, 5, dtype=torch.bool, device="cuda").tril()
+    with torch.no_grad():
+        dec.beam_search(enc, 2)  # warm-up: caches, the allocator
+    torch.cuda.synchronize()
+    counts = []
+    for call in (lambda: tattn.multi_head_attention(q, q, q, mask=mask),
+                 lambda: dec.beam_search(enc, 2)):
+        with warnings.catch_warnings(record=True) as caught, torch.no_grad():
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        counts.append(sum("called a synchronizing" in str(w.message) for w in caught))
+    assert counts == [0, 1]

@@ -349,26 +349,33 @@ def test_abandoned_iterator_releases_producer(lmdb_path):
     assert threading.active_count() <= before, "producer thread leaked"
 
 
+class _Bad:
+    """Module-level, so that process workers can receive it pickled."""
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        raise ValueError("boom")
+
+
 @pytest.mark.parametrize("worker_type", ["thread", "process"])
 def test_worker_error_reaches_consumer(worker_type):
-    class Bad:
-        def __len__(self):
-            return 4
-
-        def __getitem__(self, i):
-            raise ValueError("boom")
-
-    loader = tpipe.DataLoader(Bad(), tsamp.ShardedSampler(4, shuffle=False), batch_size=2,
+    loader = tpipe.DataLoader(_Bad(), tsamp.ShardedSampler(4, shuffle=False), batch_size=2,
                               num_workers=2, worker_type=worker_type)
     with pytest.raises(ValueError, match="boom"):
         list(loader)
 
 
 class _StreamProbe:
-    """Each item: (the first-ever draw of the serving worker's stream, its pid)."""
+    """Each item: (the first-ever draw of the serving worker's stream, its
+    pid).  A worker's first item waits until the other worker has one too
+    (a barrier sent along with the pickled dataset), so that both serve
+    however late a worker starts."""
 
-    def __init__(self):
+    def __init__(self, barrier=None):
         self.rng = tpipe.ThreadLocalRng(np.random.default_rng(0))
+        self.barrier = barrier
         self._first = None
 
     def __len__(self):
@@ -376,17 +383,22 @@ class _StreamProbe:
 
     def __getitem__(self, i):
         if self._first is None:
+            if self.barrier is not None:
+                self.barrier.wait(timeout=60)
             self._first = int(self.rng.integers(0, 2**62))
         time.sleep(0.01)
         return np.int64(self._first), np.int64(os.getpid())
 
 
 def test_process_workers_get_distinct_streams_from_their_ordinals():
-    """Forked workers reseed from seed + ordinal (the JAX package: seed +
+    """Process workers reseed from seed + ordinal (the JAX package: seed +
     PID), so two workers draw from two streams, and the same two on every
     run."""
+    import multiprocessing as mp
+
     def run(seed):
-        loader = tpipe.DataLoader(_StreamProbe(), tsamp.ShardedSampler(48, shuffle=False),
+        probe = _StreamProbe(mp.get_context("forkserver").Barrier(2))
+        loader = tpipe.DataLoader(probe, tsamp.ShardedSampler(48, shuffle=False),
                                   batch_size=4, num_workers=2, worker_type="process", seed=seed)
         firsts, pids = (np.concatenate(x) for x in zip(*loader))
         assert len(set(pids.tolist())) == 2 and os.getpid() not in pids

@@ -272,12 +272,27 @@ def test_finetune_config_matches_jax():
     assert t.absolute_lr == j.absolute_lr == 1e-4 * 64 * 4 / 256
 
 
-def test_unported_options_are_refused():
+STILL_REFUSED = {
+    "opt": (lambda m: toptim.create_optimizer("lamb", m.named_parameters(), [1e-3]), "lamb"),
+    "model_kind": (lambda m: t_build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder",
+                                               model_kind="ctc", device="cpu"), "ctc"),
+    "decoupled_decoder": (lambda m: t_build_rec_model("vit_micro_patch4_32x128",
+                                                      "decoupled_tf_decoder", device="cpu"),
+                          "decoupled"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(STILL_REFUSED))
+def test_unported_options_are_refused(what):
+    """What slice 6 leaves unported is refused by name; gradient
+    accumulation and beam search, refused until it, now run
+    (test_torch_port_finetune_cli.py, test_torch_port_decode.py)."""
     model = t_build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder", device="cpu")
-    with pytest.raises(NotImplementedError, match="update_freq"):
-        toptim.create_optimizer("adamw", model.named_parameters(), [1e-3], update_freq=2)
-    with pytest.raises(NotImplementedError, match="beam"):
-        make_eval_step(model, beam_width=3)
+    call, word = STILL_REFUSED[what]
+    with pytest.raises(NotImplementedError, match=word):
+        call(model)
+    toptim.create_optimizer("adamw", model.named_parameters(), [1e-3], update_freq=2)
+    make_eval_step(model, beam_width=3)
 
 
 # ---------------------------------------------------------------------------
@@ -354,6 +369,21 @@ def test_attention_dropout_takes_the_unfused_path(monkeypatch):
         assert calls == []
         _forward(model, batch, deterministic=True)
     assert len(calls) == 2
+
+
+def test_embedding_matches_torch_forward_and_backward():
+    """The decoder's char embedding: torch's rows, and its gradient summed
+    in a one-hot product (another order: fp32 rounding apart)."""
+    rng = np.random.default_rng(50)
+    w = torch.from_numpy(rng.normal(size=(98, 32)).astype(np.float32)).requires_grad_()
+    w2 = w.detach().clone().requires_grad_()
+    ids = torch.from_numpy(rng.integers(0, 98, (8, 25)))
+    go = torch.from_numpy(rng.normal(size=(8, 25, 32)).astype(np.float32))
+    out = tlayers.embedding(w, ids)
+    assert torch.equal(out, torch.nn.functional.embedding(ids, w2))
+    out.backward(go)
+    torch.nn.functional.embedding(ids, w2).backward(go)
+    torch.testing.assert_close(w.grad, w2.grad, rtol=1e-6, atol=1e-6)
 
 
 def test_finetune_step_leaves_the_global_rng_alone():

@@ -77,6 +77,22 @@ def test_predict_fn_matches_jax(micro_pair):
     np.testing.assert_allclose(tconf.numpy(), np.asarray(jconf), rtol=1e-5)
 
 
+@pytest.mark.parametrize("k", [2, 3])
+def test_predict_fn_beam_matches_jax(micro_pair, k):
+    """Beam ids, and their confidences from the teacher-forced rescoring."""
+    from dig_tpu.cli.run_predict import make_predict_fn as j_make_predict_fn
+    from dig_tpu.config import PredictConfig as JPredictConfig
+    from dig_tpu_torch.cli.run_predict import make_predict_fn
+
+    jm, params, tm, images = micro_pair
+    jids, jconf = j_make_predict_fn(jm, JPredictConfig(beam_width=k), eos=94)(
+        params, jnp.asarray(images))
+    tids, tconf = make_predict_fn(tm, 94, beam_width=k)(torch.from_numpy(images))
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_allclose(tconf.numpy(), np.asarray(jconf), rtol=1e-5)
+    assert ((tconf > 0) & (tconf <= 1)).all()
+
+
 def _write_pngs(d, n):
     import cv2
 
@@ -134,7 +150,6 @@ def test_cli_auto_erf_for_pth(tmp_path, micro_pair):
 @pytest.mark.parametrize("field,value,exc,words", [
     ("resume", "out/checkpoint-best", ValueError, "tools/export_pth.py"),
     ("text_cond_vis", True, NotImplementedError, "text_cond_vis"),
-    ("beam_width", 3, NotImplementedError, "beam"),
     ("model_kind", "attn", NotImplementedError, "decoder_type attention"),
     ("model_kind", "seq_cls", NotImplementedError, "use_seq_cls_token"),
 ])
@@ -217,7 +232,10 @@ def test_port_imports_neither_jax_nor_dig_tpu():
     assert {"dig_tpu_torch/data/images.py", "dig_tpu_torch/data/lmdb_store.py",
             "dig_tpu_torch/data/pipeline.py", "dig_tpu_torch/data/device_aug.py",
             "dig_tpu_torch/utils/checkpoint.py", "dig_tpu_torch/utils/logging.py",
-            "dig_tpu_torch/utils/metric_logger.py", "dig_tpu_torch/cli/run_pretrain.py"} <= names
+            "dig_tpu_torch/utils/metric_logger.py", "dig_tpu_torch/cli/run_pretrain.py",
+            "dig_tpu_torch/cli/run_finetune.py", "dig_tpu_torch/utils/preemption.py",
+            "dig_tpu_torch/utils/profiling.py", "dig_tpu_torch/metrics/text.py",
+            "dig_tpu_torch/models/decoder.py", "dig_tpu_torch/ops/images.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dig_tpu")]
     assert bad == []

@@ -266,11 +266,50 @@ def test_cli_mid_epoch_checkpoint_and_pruning(lmdb_path, tmp_path):
     assert payload["step"] == 16 + 11 and payload["extra"] == {"epoch": 1}
 
 
+def test_cli_profile_steps_writes_a_trace(lmdb_path, tmp_path):
+    out = tmp_path / "out"
+    tcli.main(_port_cfg(lmdb_path, out, "--device_aug", "--profile_steps", "2",
+                        "--profile_start_step", "1"), device="cpu")
+    with open(out / "profile" / "trace.json") as f:
+        assert json.load(f)["traceEvents"]
+    assert "[profile] trace of steps [1, 3)" in (out / "screen.txt").read_text()
+
+
+def test_cli_sigterm_checkpoints_at_the_step_boundary_and_exits_0(lmdb_path, tmp_path):
+    """SIGTERM during step 1 of epoch 0: checkpoint-0 with the mid-epoch
+    state and extra epoch -1, exit 0, the handlers put back; the next run
+    auto-resumes and redoes epoch 0."""
+    calls = []
+    real = tcli.make_pretrain_step
+
+    def killer(*a, **k):
+        step = real(*a, **k)
+
+        def run(*args):
+            calls.append(1)
+            if len(calls) == 2:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step(*args)
+        return run
+
+    out = tmp_path / "out"
+    handler = signal.getsignal(signal.SIGTERM)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tcli, "make_pretrain_step", killer)
+        with pytest.raises(SystemExit) as exit_info:
+            tcli.main(_port_cfg(lmdb_path, out, "--device_aug"), device="cpu")
+    assert exit_info.value.code == 0 and len(calls) == 2
+    assert signal.getsignal(signal.SIGTERM) is handler
+    payload = ckpt.restore_checkpoint(str(out / "checkpoint-0"))
+    assert payload["step"] == 2 and payload["extra"] == {"epoch": -1}
+    state = tcli.main(_port_cfg(lmdb_path, out, "--device_aug"), device="cpu")
+    assert state.step == 2 + 8 and "auto-resumed from" in (out / "screen.txt").read_text()
+
+
 REFUSALS = {
     "n_fsdp": (["--n_fsdp", "2"], "n_fsdp"),
     "n_tensor": (["--n_tensor", "2"], "n_tensor"),
     "remat": (["--remat"], "remat"),
-    "profile_steps": (["--profile_steps", "2"], "profile_steps"),
     "opt": (["--opt", "lamb"], "lamb"),
     "patchnet_name": (["--patchnet_name", "conv"], "ConvPatchNet"),
     "resume_remote": (["--resume", "gs://bucket/run/checkpoint-3"], "remote"),
