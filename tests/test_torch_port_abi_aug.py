@@ -8,10 +8,14 @@ themselves) and hands them to the port as `params`.
 
 Everything is fp32.  The pieces, given the same matrices and draws, agree
 within 1e-5 absolute (values in [-1, 1]): the warps' source coordinates are
-summed in the order of the JAX package's fp32 matrix product.  The matrices
-from the draws agree to rounding (trigonometry, and the perspective's 8 x 8
-solve, which is another LU than XLA's), and the whole view within 1e-4 on
-images as smooth as a word image.
+summed in the order of the JAX package's fp32 matrix product.  So does the
+whole view given JAX's homographies and JAX's cos and sin (`_jax_trig`).
+The matrices from the draws agree only to rounding (cos, sin and tan differ
+by an ulp or two between libms, and the perspective's 8 x 8 solve is
+another LU than XLA's), to what `test_geometry_matrices_from_the_jax_draws`
+accepts; a view made with the port's own matrices and trigonometry is held
+to the bound that their difference, checked against that tolerance, carries
+through the warps (`_own_trig_atol`).
 """
 
 import math
@@ -25,7 +29,12 @@ import torch
 from dig_tpu.data import device_aug as jaug
 from dig_tpu_torch.data import device_aug as taug
 
-PIECE_ATOL, VIEW_ATOL = 1e-5, 1e-4
+PIECE_ATOL = 1e-5
+# what test_geometry_matrices_from_the_jax_draws accepts of an entry
+# (relative; absolute at a hundredth of it): rotation and affine matrices,
+# whose trigonometry is also what cos and sin are held to here, and the
+# perspective's solve
+TRIG_RTOL, PERSP_RTOL = 1e-5, 1e-4
 B, H, W = 12, 32, 128
 
 
@@ -94,6 +103,108 @@ def _as_port(params):
     return {k: v if isinstance(v, int) else _t(v) for k, v in params.items()}
 
 
+def _jax_trig(monkeypatch):
+    """Route torch's cos and sin through XLA's for the rest of the test:
+    two libms may differ in the last bit of each."""
+    for name in ("cos", "sin"):
+        f = getattr(jnp, name)
+        monkeypatch.setattr(torch, name,
+                            lambda t, f=f: torch.from_numpy(np.array(f(jnp.asarray(t.numpy())))))
+
+
+def _jax_homographies(key, b=B, h=H, w=W):
+    """The homography `jaug.device_abi_augment(key, ...)` warps each sample
+    with, and the draw that chose it."""
+    keys = jax.random.split(key, 14)
+    rot = jaug._center_to_corner(jaug._affine_to_h(
+        jaug._rand_abi_affine_mats(keys[0], b, h, w, rotation_only=True)), h, w)
+    aff = jaug._center_to_corner(jaug._affine_to_h(jaug._rand_abi_affine_mats(keys[1], b, h, w)),
+                                 h, w)
+    per = jaug._rand_perspective_h(keys[2], b, h, w)
+    t = jax.random.uniform(keys[3], (b, 1, 1))
+    return np.asarray(jnp.where(t < 1 / 3, rot, jnp.where(t < 2 / 3, aff, per))), np.asarray(t)
+
+
+def _step(x):
+    """The image's largest difference between neighbours."""
+    return max(float(np.abs(np.diff(x, axis=1)).max()), float(np.abs(np.diff(x, axis=2)).max()))
+
+
+def _trig_difference(angles):
+    """The largest difference between torch's and XLA's cos and sin of
+    `angles` (radians), after checking it is what the matrix test accepts."""
+    got = np.stack([torch.cos(_t(angles)).numpy(), torch.sin(_t(angles)).numpy()])
+    want = np.stack([np.asarray(jnp.cos(angles)), np.asarray(jnp.sin(angles))])
+    np.testing.assert_allclose(got, want, rtol=TRIG_RTOL, atol=TRIG_RTOL * 1e-2)
+    return float(np.abs(got.astype(np.float64) - want).max())
+
+
+def _blur_coordinate_slack(angles):
+    """How far a motion-blur tap (offset t * (cos, sin), |t| <= 3) moves
+    when cos and sin differ as they do for `angles`, plus the coordinate's
+    last bit."""
+    return 3 * _trig_difference(angles) + float(np.spacing(np.float32(W - 1)))
+
+
+def _port_homographies(params):
+    """The homography the port warps each sample with, from the draws."""
+    t = _as_port(params)
+    one, zero = torch.ones(B), torch.zeros(B)
+    rot = taug._center_to_corner(taug._affine_to_h(
+        taug.abi_affine_mats(t["rot_angle"], one, zero, zero)), H, W)
+    aff = taug._center_to_corner(taug._affine_to_h(taug.abi_affine_mats(
+        t["aff_angle"], t["aff_scale"], t["aff_shear_x"], t["aff_shear_y"])), H, W)
+    per = taug.perspective_h(t["persp_noise_h"], t["persp_noise_w"], H, W)
+    c = t["geom_choice"][:, None, None]
+    return torch.where(c < 1 / 3, rot, torch.where(c < 2 / 3, aff, per)).numpy()
+
+
+def _homography_slack(got, want, choice):
+    """The most a source coordinate (n / z of a pixel) moves between the
+    port's homographies and JAX's, after checking that every entry is
+    within what the matrix test accepts, plus the coordinate's last bit."""
+    rtol = np.where(choice.reshape(-1) >= 2 / 3, PERSP_RTOL, TRIG_RTOL)[:, None, None]
+    assert (np.abs(got - want) <= rtol * (np.abs(want) + 1e-2)).all()
+    gy, gx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    g = np.stack([gx.ravel(), gy.ravel(), np.ones(H * W)])  # [3, HW]
+    want = want.astype(np.float64)
+    n, dn = want @ g, np.abs(got.astype(np.float64) - want) @ g  # [B, 3, HW]
+    z, dz = np.abs(n[:, 2]), dn[:, 2]
+    assert (z > dz).all()
+    moved = (dn[:, :2] + np.abs(n[:, :2] / n[:, 2:3]) * dz[:, None]) / (z - dz)[:, None]
+    return float(moved.sum(1).max()) + 2 * float(np.spacing(np.float32(W - 1)))
+
+
+def _jitter_gain():
+    """The most the colour jitter grows a difference between two views:
+    [-1, 1] -> [0, 1] and brightness (0.5 * 1.5), contrast and saturation
+    (each c + |1 - c| <= 2 for c in [0.5, 1.5]), the hue rotation's largest
+    row sum over its range of angles, back to [-1, 1] (2)."""
+    hue = max(np.abs(taug._TO_RGB.astype(np.float64)
+                     @ np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+                     @ taug._TO_YIQ).sum(1).max()
+              for a in np.linspace(-0.2 * np.pi, 0.2 * np.pi, 401))
+    return 0.75 * 2 * 2 * hue * 2
+
+
+def _own_trig_atol(x, params, hm, choice):
+    """The bound on a view made with the port's own matrices and
+    trigonometry: each source coordinate moves by its slack
+    (`_homography_slack` for the geometry, `_blur_coordinate_slack` for a
+    tap of the motion blur), a bilinear sample by the image's largest
+    neighbour step for each pixel its two coordinates move (the blur's
+    input: the image's range plus the noise at its largest), and the
+    jitter grows that by `_jitter_gain`; the hue rotation's own cos and sin
+    add their difference times the largest chroma."""
+    geom = _step(x) * _homography_slack(_port_homographies(params), hm, choice)
+    noise = float(np.abs(params["noise"]).max()) * np.sqrt(20.0) / 127.5
+    blur = (float(x.max() - x.min()) + 2 * noise) * 2 * _blur_coordinate_slack(params["blur_angle"])
+    chroma = np.abs(taug._TO_YIQ[1:].astype(np.float64)).sum(1).sum()
+    hue = 2 * np.abs(taug._TO_RGB.astype(np.float64)).sum(1).max() * 2 * chroma * \
+        _trig_difference(params["hue"])
+    return PIECE_ATOL + _jitter_gain() * (geom + blur) + hue
+
+
 # ---------------------------------------------------------------------------
 # the pieces, given the same matrices and draws
 # ---------------------------------------------------------------------------
@@ -135,7 +246,8 @@ def test_geometry_matrices_from_the_jax_draws(seed):
     got_per = taug.perspective_h(t["persp_noise_h"], t["persp_noise_w"], H, W)
     # relative to each matrix entry's size: trigonometry and products in
     # fp32 (the translations reach ~2e2), and another LU for the perspective
-    for got, want, rtol in ((got_rot, rot, 1e-5), (got_aff, aff, 1e-5), (got_per, per, 1e-4)):
+    for got, want, rtol in ((got_rot, rot, TRIG_RTOL), (got_aff, aff, TRIG_RTOL),
+                            (got_per, per, PERSP_RTOL)):
         want = np.asarray(want)
         np.testing.assert_allclose(got.numpy(), want, rtol=rtol, atol=rtol * 1e-2)
 
@@ -156,8 +268,7 @@ def test_linear_resize_matches_jax_image_resize_both_ways():
     _close(taug._resize_linear(_t(small), H, W).numpy(), want, PIECE_ATOL)
 
 
-@pytest.mark.parametrize("seed", [0, 3])
-def test_motion_blur_from_the_jax_draws(seed):
+def _motion_blur_case(seed):
     key = jax.random.PRNGKey(seed)
     x = _images(6 + seed, smooth=False)
     k1, k2 = jax.random.split(key)
@@ -165,8 +276,21 @@ def test_motion_blur_from_the_jax_draws(seed):
     length = np.maximum(np.floor(np.asarray(jax.random.beta(k2, 1.0, 4.0, (B,))) * 6.0), 1.0)
     assert (length > 1).any()  # some samples blur
     want = jaug._motion_blur(jnp.asarray(x), key)
-    got = taug._motion_blur(_t(x), _t(ang), _t(length.astype(np.float32))).numpy()
-    _close(got, want, PIECE_ATOL)
+    return x, want, lambda: taug._motion_blur(_t(x), _t(ang), _t(length.astype(np.float32))), ang
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_motion_blur_from_the_jax_draws(seed, monkeypatch):
+    """JAX's draws and JAX's cos and sin: within PIECE_ATOL on any host."""
+    x, want, blur, _ = _motion_blur_case(seed)
+    _jax_trig(monkeypatch)
+    _close(blur().numpy(), want, PIECE_ATOL)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_motion_blur_with_its_own_trigonometry_within_its_bound(seed):
+    x, want, blur, ang = _motion_blur_case(seed)
+    _close(blur().numpy(), want, PIECE_ATOL + _step(x) * 2 * _blur_coordinate_slack(ang))
 
 
 def test_hue_rotation_matches_jax():
@@ -181,20 +305,43 @@ def test_hue_rotation_matches_jax():
 # the whole view, and the port's own draws
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("seed,p", [(0, None), (1, None), (2, 1.0), (3, 1.0)])
-def test_whole_view_from_the_jax_draws(seed, p):
-    """At p = 1 every sample is warped, deteriorated and jittered."""
+def _view_case(seed, p):
     key = jax.random.PRNGKey(seed)
     x = _images(20 + seed)
     probs = {} if p is None else dict(p_geom=p, p_deter=p, p_jitter=p)
     want = np.asarray(jaug.device_abi_augment(key, jnp.asarray(x), **probs))
-    params = _jax_params(key, B, **probs)
+    return key, x, want, _jax_params(key, B, **probs)
+
+
+VIEW_CASES = [(0, None), (1, None), (2, 1.0), (3, 1.0)]
+
+
+@pytest.mark.parametrize("seed,p", VIEW_CASES)
+def test_whole_view_from_the_jax_draws(seed, p, monkeypatch):
+    """Every JAX draw, JAX's homographies and JAX's cos and sin: the port's
+    warp, deterioration and jitter, in its order, within PIECE_ATOL on any
+    host.  At p = 1 every sample is warped, deteriorated and jittered."""
+    key, x, want, params = _view_case(seed, p)
+    hm, _ = _jax_homographies(key)
+    warp = taug.batched_projective_warp
+    monkeypatch.setattr(taug, "batched_projective_warp", lambda xx, h_mats: warp(xx, _t(hm)))
+    _jax_trig(monkeypatch)
     got = taug.device_abi_augment(None, _t(x), _as_port(params)).numpy()
     assert got.dtype == np.float32 and float(np.abs(got).max()) <= 1.0
-    _close(got, want, VIEW_ATOL)
+    _close(got, want, PIECE_ATOL)
     changed = (np.abs(got - x).reshape(B, -1).max(1) > 1e-3).sum()
     if p == 1.0:
         assert changed == B
+
+
+@pytest.mark.parametrize("seed,p", VIEW_CASES)
+def test_whole_view_with_its_own_matrices_within_their_bound(seed, p):
+    """The whole path, the port's matrices and trigonometry included, within
+    the bound that the matrix test's tolerances carry through the view."""
+    key, x, want, params = _view_case(seed, p)
+    got = taug.device_abi_augment(None, _t(x), _as_port(params)).numpy()
+    hm, choice = _jax_homographies(key)
+    _close(got, want, _own_trig_atol(x, params, hm, choice))
 
 
 def test_draws_have_their_ranges():

@@ -8,10 +8,15 @@ calls of `dig_tpu/data/device_aug.py:396-429`; `bernoulli(k, p)` is
 to the port as `params`, or as the uniforms of the mask ranking.
 
 Everything is fp32.  Images are compared within 1e-5 absolute (values in
-[-1, 1]): the port sums the warp's source coordinates in the order of the
-JAX package's fp32 matrix product, so they agree to the bit and what is left
-is the rounding of the bilinear and photometric arithmetic.  Masks from the
-same uniforms must be equal.
+[-1, 1]) wherever both packages warp with the same matrices: the port sums
+the warp's source coordinates in the order of the JAX package's fp32 matrix
+product, so they agree to the bit and what is left is the rounding of the
+bilinear and photometric arithmetic.  The matrices the port builds from the
+JAX draws agree with JAX's only to what
+`test_affine_matrix_algebra_from_the_jax_draws` accepts (cos, sin and tan
+differ by an ulp or two between libms), so the whole view with the port's
+own matrices is held to the bound that their difference, checked against
+that tolerance, carries through the warp (`_own_matrix_atol`).  Masks from the same uniforms must be equal.
 """
 
 import jax
@@ -29,6 +34,12 @@ from dig_tpu_torch.train.pretrain import make_device_view_fn
 from dig_tpu_torch.utils.rng import step_generator
 
 ATOL = 1e-5
+# what test_affine_matrix_algebra_from_the_jax_draws accepts of an entry
+MAT_RTOL = MAT_ATOL = 1e-5
+# the most the colour jitter can grow a difference between two images:
+# contrast c in [0.6, 1.4] and saturation s in [0.8, 1.2] each mix a pixel
+# with a mean, at a gain of at most c + |1 - c| and s + |1 - s|
+JITTER_GAIN = (1.4 + 0.4) * (1.2 + 0.2)
 B, H, W = 6, 32, 128
 
 
@@ -119,7 +130,7 @@ def test_affine_matrix_algebra_from_the_jax_draws(seed):
     got = taug.affine_mats(**draws, h=H, w=W).numpy()
     assert got.shape == (B, 2, 3)
     # cos, sin, tan and a 2 x 2 inverse in fp32: a few ulp of entries up to ~20
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want, rtol=MAT_RTOL, atol=MAT_ATOL)
 
 
 def test_rand_affine_mats_draws_within_its_ranges():
@@ -193,20 +204,58 @@ def _jax_params(key, b, h, w, c=3, p_geom=0.5, p_blur=0.3, p_jitter=0.8, p_gray=
     )
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3])
-def test_device_augment_matches_jax_under_its_draws(seed):
-    b = 16
+def _augment_case(seed, b=16):
+    """Images, the JAX view, the JAX draws as the port's params and the
+    JAX package's own affine matrices (from `keys[0]`, as `device_augment`
+    builds them) of one case."""
     x = _images(30 + seed, b, smooth=seed % 2 == 0)
     key = jax.random.PRNGKey(seed)
     want = np.asarray(jaug.device_augment(key, jnp.asarray(x)))
     params = {k: _t(v) for k, v in _jax_params(key, b, H, W).items()}
+    mats = np.asarray(jaug._rand_affine_mats(jax.random.split(key, 12)[0], b, h=H, w=W))
+    return x, want, params, mats
+
+
+def _own_matrix_atol(got, want, x):
+    """The bound on the view when the port builds its own matrices `got`
+    from the draws whose JAX matrices are `want`: every entry must be within
+    what the matrix test accepts; their differences move a source coordinate
+    by at most the sum of each times |x|, |y|, 1 at the far corner, plus the
+    coordinate's own last bit; a bilinear sample moves by at most the
+    image's largest neighbour step for each pixel the two coordinates move,
+    and the jitter grows that by up to JITTER_GAIN."""
+    np.testing.assert_allclose(got, want, rtol=MAT_RTOL, atol=MAT_ATOL)
+    reach = np.array([(W - 1) / 2, (H - 1) / 2, 1.0])
+    coord = float((np.abs(got.astype(np.float64) - want) @ reach).max()) \
+        + float(np.spacing(np.float32(W - 1)))
+    step = max(float(np.abs(np.diff(x, axis=1)).max()), float(np.abs(np.diff(x, axis=2)).max()))
+    return ATOL + 2 * coord * step * JITTER_GAIN
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_device_augment_matches_jax_under_its_draws(seed, monkeypatch):
+    """Every JAX draw and the JAX package's own matrices: the port's warp,
+    blur, jitter, grey and noise, in its order, within ATOL on any host."""
+    b = 16
+    x, want, params, mats = _augment_case(seed, b)
     # the gates of 16 samples take both values, so every branch is compared
     if seed == 0:
         for gate in ("geom_gate", "blur_gate", "jitter_gate", "gray_gate", "noise_gate"):
             assert 0 < int(params[gate].sum()) < b, gate
+    monkeypatch.setattr(taug, "affine_mats", lambda *a, **k: _t(mats))
     got = taug.device_augment(None, _t(x), params).numpy()
     _close(got, want)
     assert np.abs(got).max() <= 1.0 and not np.allclose(got, x, atol=1e-2)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_device_augment_with_its_own_matrices_within_their_bound(seed):
+    """The whole path, the port's matrix arithmetic included, within the
+    bound that the matrix test's tolerance carries through the warp."""
+    x, want, params, mats = _augment_case(seed)
+    got = taug.device_augment(None, _t(x), params).numpy()
+    own = taug.affine_mats(*(params[k] for k in ("angle", "scale", "shear", "tx", "ty")), H, W)
+    _close(got, want, _own_matrix_atol(own.numpy(), mats, x))
 
 
 def test_draw_augment_params_names_shapes_and_rates():
