@@ -84,7 +84,19 @@
    timed.  `to_model_images` on the card against the CPU for all 256
    values, and `torch.cuda.set_sync_debug_mode("warn")` over one
    fine-tuning step and one beam batch.
-11. Prints one JSON line describing every kernel, then as the last line
+11. Runs both training CLIs data-parallel under torchrun
+   (`python -m torch.distributed.run --nproc_per_node 1`, this script's
+   `--ddp-child` mode calling `run_pretrain.main` / `run_finetune.main`):
+   the process group must be NCCL at world size 1 and be torn down at the
+   end.  `[ddp pretrain cli]`: PretrainConfig defaults with `--device_aug`
+   on item 9's LMDB, 2 epochs, the launches of item 5 at every step, ms a
+   step beside the one-process run's; then item 9's fp32 resume argv,
+   whose parameters, AdamW state and log.txt must equal the one-process
+   straight run's bit for bit.  `[ddp finetune cli]`: item 10's argv with
+   `--dist_eval`, the launches of every step and eval batch, ms a step
+   beside the one-process run's; then item 10's fp32 resume argv
+   (`--update_freq 2`), equal bit for bit to its straight run.
+12. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -122,6 +134,7 @@ PRE_CLI_STEPS = PRE_CLI_RECORDS // PRE_BATCH * PRE_CLI_EPOCHS
 # ulp or two: up to 2e-5 pixels at the image's ends, and up to 4e-5 in a
 # bilinear sample of these records, which are noise (neighbours up to 2 apart)
 WARP_ATOL, VIEW_ATOL = 1e-5, 1e-4
+DDP_CHILD_TIMEOUT = 300  # seconds a torchrun of one CLI may take, its start included
 KERNEL_NAMES = ("attention_lse_fwd", "attention_lse_bwd", "attention_fwd", "attention_bwd",
                 "layer_norm_fwd", "layer_norm_bwd", "column_sum")
 
@@ -761,6 +774,10 @@ def phase_pretrain_resume(torch, np, db, root):
           f"({dt_a:.3f} s) vs 1 epoch + a fresh main auto-resuming checkpoint-0 + 1 epoch: "
           f"{len(sa)} tensors ({momentum} of the momentum branch) and {moments} AdamW moment and "
           f"step tensors equal bit for bit (torch.equal); log.txt equal byte for byte")
+    ref = straight_run(a, la, dt_a)
+    del a, b
+    torch.cuda.empty_cache()
+    return ref
 
 
 def phase_pretrain_data(torch, np, paths):
@@ -779,7 +796,8 @@ def phase_pretrain_data(torch, np, paths):
         paths["pretrain_cli_device_aug"] = phase_pretrain_cli(
             torch, np, db, os.path.join(d, "device_aug"), "pretrain cli device_aug",
             ["--device_aug"])
-        phase_pretrain_resume(torch, np, db, d)
+        resume_ref = phase_pretrain_resume(torch, np, db, d)
+        paths["ddp_pretrain_cli"] = phase_ddp_pretrain_cli(torch, db, d, resume_ref)
         phase_finetune_data(torch, np, d, paths,
                             os.path.join(d, "host_aug", f"checkpoint-{PRE_CLI_EPOCHS - 1}"))
 
@@ -791,8 +809,271 @@ def phase_finetune_data(torch, np, d, paths, pre_ckpt):
     paths["finetune_cli"], ft_out = phase_finetune_cli(torch, np, d, pre_ckpt, "finetune cli", [])
     paths["finetune_cli_device_abi_aug"], _ = phase_finetune_cli(
         torch, np, d, pre_ckpt, "finetune cli device_abi_aug", ["--device_abi_aug"])
-    paths["finetune_cli_resume"] = phase_finetune_resume(torch, d, pre_ckpt)
+    paths["finetune_cli_resume"], resume_ref = phase_finetune_resume(torch, d, pre_ckpt)
+    paths["ddp_finetune_cli"] = phase_ddp_finetune_cli(torch, d, pre_ckpt, resume_ref)
     paths["finetune_eval_sweep"] = phase_finetune_eval_sweep(torch, np, d, ft_out)
+
+
+# ---------------------------------------------------------------------------
+# data parallel: both training CLIs under torchrun, NCCL at world size 1
+# ---------------------------------------------------------------------------
+
+def straight_run(state, log_text, seconds):
+    """What a straight fp32 run left, on the host: parameters (the momentum
+    branch included), AdamW's per-parameter state, the accumulators,
+    log.txt and its seconds."""
+    inner = state.optimizer.inner.state_dict()["state"]
+    return {"model": {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+            "adamw": {i: {k: v.detach().cpu() for k, v in st.items()} for i, st in inner.items()},
+            "acc": None if state.optimizer.acc is None
+            else [a.detach().cpu() for a in state.optimizer.acc],
+            "log": log_text, "seconds": seconds}
+
+
+def ddp_child(kind, out_file, argv):
+    """The child that torchrun starts: `run_<kind>.main(argv)` on the card,
+    its rank and group from torchrun's variables, with every step's (and
+    every eval batch's) launches counted as in the one-process phases; what
+    it finds of the group, the counts and `straight_run` of its state go to
+    `out_file`."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from dig_tpu_torch.cli import run_finetune, run_pretrain
+    from dig_tpu_torch.config import FinetuneConfig, PretrainConfig, parse_config
+    from dig_tpu_torch.parallel import dist as pdist
+
+    module, config, step_factory = {
+        "pretrain": (run_pretrain, PretrainConfig, "make_pretrain_step"),
+        "finetune": (run_finetune, FinetuneConfig, "make_finetune_step")}[kind]
+    group = {}
+    real_init = module.init_distributed_mode
+
+    def init(device):
+        info = real_init(device)
+        group.update(backend=info["backend"], world=pdist.get_world_size(),
+                     rank=info["rank"], device=str(info["device"]), created=info["created"])
+        return info
+
+    module.init_distributed_mode = init
+    # as main() sets them for the one-process runs that this one is held to
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timed = {"reduce": [], "all_reduce": [], "all_gather": []}
+
+    def timing(key, fn):
+        """`fn` with CUDA events on the current stream around each call and
+        its host seconds."""
+        def run(*args, **kwargs):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t = time.perf_counter()
+            ev[0].record()
+            out = fn(*args, **kwargs)
+            ev[1].record()
+            timed[key].append((ev, time.perf_counter() - t))
+            return out
+        return run
+
+    real = (pdist.GradientReducer.reduce, pdist.dist.all_reduce, pdist.dist.all_gather)
+    pdist.GradientReducer.reduce = timing("reduce", real[0])
+    pdist.dist.all_reduce = timing("all_reduce", real[1])
+    pdist.dist.all_gather = timing("all_gather", real[2])
+    steps, evals = [], []
+    t0 = time.perf_counter()
+    try:
+        with counted_calls(module, step_factory, steps, sync=False), \
+                counted_calls(run_finetune, "make_eval_step", evals, sync=True):
+            state = module.main(parse_config(config, argv))
+    finally:
+        pdist.GradientReducer.reduce, pdist.dist.all_reduce, pdist.dist.all_gather = real
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    group["destroyed"] = not pdist.is_distributed()
+    # (calls, card ms, host ms) of each: the reducer's all-reduce is among
+    # the all-reduces too
+    collectives = {k: (len(v), sum(e[0].elapsed_time(e[1]) for e, _ in v),
+                       sum(h for _, h in v) * 1e3) for k, v in timed.items()}
+    log = ""
+    out = parse_config(config, argv).output_dir
+    with open(os.path.join(out, "log.txt")) as f:
+        log = f.read()
+    torch.save({"group": group, "steps": [c for c, _ in steps], "evals": [c for c, _ in evals],
+                "step": state.step, "count": state.optimizer.count, "collectives": collectives,
+                "run": straight_run(state, log, dt)}, out_file)
+    return 0
+
+
+def run_ddp_cli(torch, tag, kind, argv, out_file):
+    """`python -m torch.distributed.run --nproc_per_node 1` of this script's
+    `ddp_child`: the CLI over NCCL at world size 1, the group checked."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.empty_cache()  # the child allocates on the same card
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+           "1", "--master_addr", "127.0.0.1", "--master_port", str(port),
+           os.path.abspath(__file__), "--ddp-child", kind, out_file, *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DDP_CHILD_TIMEOUT, cwd=ROOT)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[{tag}] torchrun exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    res = torch.load(out_file, weights_only=False)
+    g = res["group"]
+    check(g["backend"] == "nccl" and g["world"] == 1 and g["rank"] == 0 and g["created"]
+          and g["destroyed"] and g["device"] == "cuda:0", f"[{tag}] process group {g}")
+    return res, dt
+
+
+def collectives_text(res, steps):
+    """The reducer's and the collectives' cost a step in a torchrun child,
+    on the card's clock (CUDA events on the step's stream) and the host's."""
+    c = res["collectives"]
+    n, card, host = c["reduce"]
+    check(n == res["count"], f"the reducer ran {n} times for {res['count']} updates")
+    return (f"the gradient reducer {card / n:.3f} ms on the card and {host / n:.3f} ms on the "
+            f"host an update; all-reduces {c['all_reduce'][0] / steps:.1f} a step "
+            f"({c['all_reduce'][1] / steps:.3f} ms card, {c['all_reduce'][2] / steps:.3f} ms "
+            f"host, the reducer's and the per-epoch and print-step host reductions included), "
+            f"all-gathers {c['all_gather'][0] / steps:.1f} a step "
+            f"({c['all_gather'][1] / steps:.3f} ms card)")
+
+
+def check_bit_equal(tag, got, want):
+    """A torchrun run's `straight_run` against the one-process one's."""
+    differ = [k for k in want["model"] if not torch_equal(got["model"][k], want["model"][k])]
+    check(not differ, f"[{tag}] {len(differ)} of {len(want['model'])} tensors differ from the "
+          f"one-process run, e.g. {differ[:4]}")
+    check(sorted(got["adamw"]) == sorted(want["adamw"]) and want["adamw"],
+          f"[{tag}] AdamW states {len(got['adamw'])} vs {len(want['adamw'])}")
+    moments = 0
+    for i, st in want["adamw"].items():
+        for name in ("exp_avg", "exp_avg_sq", "step"):
+            check(torch_equal(got["adamw"][i][name], st[name]), f"[{tag}] AdamW {name} of {i}")
+            moments += 1
+    if want["acc"] is not None:
+        check(len(got["acc"]) == len(want["acc"])
+              and all(torch_equal(x, y) for x, y in zip(got["acc"], want["acc"])),
+              f"[{tag}] accumulators")
+    check(got["log"] == want["log"], f"[{tag}] log.txt differs from the one-process run's:\n"
+          f"{got['log']}\n{want['log']}")
+    return len(want["model"]), moments
+
+
+def torch_equal(a, b):
+    import torch
+
+    return torch.equal(a, b)
+
+
+def phase_ddp_pretrain_cli(torch, db, d, resume_ref):
+    """`run_pretrain` under torchrun at world size 1 over NCCL: at the
+    PretrainConfig defaults with `--device_aug` (bf16, 2 epochs), the
+    launches of every step asserted and its ms a step beside the
+    one-process run's; then `[pretrain cli resume]`'s fp32 argv, equal bit
+    for bit to that phase's straight run."""
+    tag = "ddp pretrain cli"
+    out = os.path.join(d, "ddp_device_aug")
+    res, dt = run_ddp_cli(torch, tag, "pretrain", [
+        "--image_alone_path", db, "--output_dir", out, "--epochs", str(PRE_CLI_EPOCHS),
+        "--device_aug"], os.path.join(d, "ddp_pretrain.pt"))
+    check(len(res["steps"]) == PRE_CLI_STEPS and res["step"] == res["count"] == PRE_CLI_STEPS,
+          f"[{tag}] {len(res['steps'])} steps")
+    for i, counts in enumerate(res["steps"]):
+        check(counts == PER_STEP, f"[{tag}] step {i}: launches {counts} != {PER_STEP}")
+    log, screen = check_cli_outputs(out, tag)
+    check("devices: 1 (cuda:0, nccl)" in screen, f"[{tag}] screen.txt names no NCCL group")
+    s_it, s_data = epoch_rate(screen, PRE_CLI_EPOCHS - 1)
+    with open(os.path.join(d, "device_aug", "screen.txt")) as f:
+        one_it, one_data = epoch_rate(f.read(), PRE_CLI_EPOCHS - 1)
+    print(f"[{tag}] torchrun --nproc_per_node 1 run_pretrain --device_aug, bf16 batch "
+          f"{PRE_BATCH}: NCCL, world size 1; {PRE_CLI_EPOCHS} epochs of "
+          f"{PRE_CLI_STEPS // PRE_CLI_EPOCHS} steps in {dt:.3f} s (torchrun's start, the "
+          f"process's imports and CUDA set-up included); the last epoch {s_it * 1e3:.1f} ms a "
+          f"step ({PRE_BATCH / s_it:.1f} images/s, waiting {s_data * 1e3:.1f} ms for the "
+          f"loader) against {one_it * 1e3:.1f} ms ({one_data * 1e3:.1f} waiting) in one process "
+          f"([pretrain cli device_aug], this script): the reducer, the gathers and the "
+          f"statistics' all-reduces at world 1 cost {(s_it - one_it) * 1e3:+.1f} ms a step by "
+          f"the CLIs' own clocks; launches {launches_text(res['steps'][0])} at every step; "
+          f"epoch losses {[round(line['train_loss'], 5) for line in log]}; "
+          f"{collectives_text(res, PRE_CLI_STEPS)}")
+    tag = "ddp pretrain cli resume argv"
+    out = os.path.join(d, "ddp_resume")
+    res, dt = run_ddp_cli(torch, tag, "pretrain", [
+        "--image_alone_path", db, "--output_dir", out, "--epochs", str(PRE_CLI_EPOCHS),
+        "--device_aug", "--dtype", "float32"], os.path.join(d, "ddp_pretrain_fp32.pt"))
+    for i, counts in enumerate(res["steps"]):
+        check(counts == PER_STEP, f"[{tag}] step {i}: launches {counts} != {PER_STEP}")
+    n, moments = check_bit_equal(tag, res["run"], resume_ref)
+    print(f"[{tag}] fp32 --device_aug under torchrun, NCCL at world size 1, against "
+          f"[pretrain cli resume]'s straight run in this process: {n} tensors and {moments} "
+          f"AdamW moment and step tensors equal bit for bit (torch.equal), log.txt byte for "
+          f"byte; {res['run']['seconds']:.3f} s in the child against "
+          f"{resume_ref['seconds']:.3f} s")
+    return dict(zip(KERNEL_NAMES, (sum(c[k] for c in res["steps"]) for k in KERNEL_NAMES)))
+
+
+def phase_ddp_finetune_cli(torch, d, pre_ckpt, resume_ref):
+    """`run_finetune` under torchrun at world size 1 over NCCL: `[finetune
+    cli]`'s argv with `--dist_eval` (bf16, the encoder from the pre-training
+    CLI's checkpoint, 2 epochs, eval after each), every step's and eval
+    batch's launches asserted, its ms a step beside the one-process run's;
+    then `[finetune cli resume]`'s fp32 argv, equal bit for bit to that
+    phase's straight run."""
+    tag = "ddp finetune cli"
+    out = os.path.join(d, "ddp_finetune")
+    res, dt = run_ddp_cli(torch, tag, "finetune", [
+        "--data_path", os.path.join(d, "labelled"), "--eval_data_path",
+        os.path.join(d, "labelled_eval"), "--finetune", pre_ckpt, "--output_dir", out,
+        "--epochs", str(FT_CLI_EPOCHS), "--dist_eval"], os.path.join(d, "ddp_finetune.pt"))
+    n_steps = FT_CLI_RECORDS // FT_BATCH * FT_CLI_EPOCHS
+    n_evals = -(-FT_CLI_EVAL_RECORDS // FT_BATCH) * FT_CLI_EPOCHS
+    check(len(res["steps"]) == n_steps and len(res["evals"]) == n_evals
+          and res["step"] == n_steps, f"[{tag}] {len(res['steps'])} steps, "
+          f"{len(res['evals'])} eval batches")
+    for i, counts in enumerate(res["steps"]):
+        check(counts == FT_PER_STEP, f"[{tag}] step {i}: launches {counts} != {FT_PER_STEP}")
+    for i, counts in enumerate(res["evals"]):
+        check(counts == FT_EVAL_BATCH, f"[{tag}] eval batch {i}: launches {counts}")
+    with open(os.path.join(out, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    check([line["epoch"] for line in log] == list(range(FT_CLI_EPOCHS))
+          and all(math.isfinite(line["train_loss"]) and line["val_acc"] is not None
+                  for line in log), f"[{tag}] log.txt {log}")
+    with open(os.path.join(out, "screen.txt")) as f:
+        screen = f.read()
+    check("devices: 1 (cuda:0, nccl)" in screen, f"[{tag}] screen.txt names no NCCL group")
+    check(f"{FT_CLI_EVAL_RECORDS} images, Acc" in screen, f"[{tag}] no eval line")
+    s_it, s_data = epoch_rate(screen, FT_CLI_EPOCHS - 1)
+    with open(os.path.join(d, "finetune_cli", "screen.txt")) as f:
+        one_it, one_data = epoch_rate(f.read(), FT_CLI_EPOCHS - 1)
+    print(f"[{tag}] torchrun --nproc_per_node 1 run_finetune --dist_eval, bf16 batch "
+          f"{FT_BATCH}: NCCL, world size 1; {FT_CLI_EPOCHS} epochs of {n_steps // FT_CLI_EPOCHS} "
+          f"steps + eval of {FT_CLI_EVAL_RECORDS} records after each in {dt:.3f} s; the last "
+          f"epoch {s_it * 1e3:.1f} ms a step (waiting {s_data * 1e3:.1f} ms for the loader) "
+          f"against {one_it * 1e3:.1f} ms ({one_data * 1e3:.1f} waiting) in one process "
+          f"([finetune cli]); launches {launches_text(res['steps'][0])} at every step, "
+          f"{launches_text(res['evals'][0])} every eval batch; val acc "
+          f"{[line['val_acc'] for line in log]}; {collectives_text(res, n_steps)}")
+    tag = "ddp finetune cli resume argv"
+    res, dt = run_ddp_cli(torch, tag, "finetune", [
+        "--data_path", os.path.join(d, "labelled"), "--finetune", pre_ckpt, "--output_dir",
+        os.path.join(d, "ddp_ft_resume"), "--epochs", str(FT_CLI_EPOCHS), "--dtype", "float32",
+        "--attn_drop_rate", "0", "--update_freq", "2", "--device_abi_aug"],
+        os.path.join(d, "ddp_finetune_fp32.pt"))
+    for i, counts in enumerate(res["steps"]):
+        check(counts == FT_PER_STEP_RESUME, f"[{tag}] micro-step {i}: launches {counts}")
+    check(res["step"] == n_steps and res["count"] == n_steps // 2,
+          f"[{tag}] {res['step']} micro-steps, {res['count']} updates")
+    n, moments = check_bit_equal(tag, res["run"], resume_ref)
+    print(f"[{tag}] fp32 --attn_drop_rate 0 --update_freq 2 --device_abi_aug under torchrun, "
+          f"NCCL at world size 1, against [finetune cli resume]'s straight run: {n} tensors, "
+          f"{moments} AdamW moment and step tensors and {len(resume_ref['acc'])} accumulators "
+          f"equal bit for bit, log.txt byte for byte; {res['run']['seconds']:.3f} s in the "
+          f"child against {resume_ref['seconds']:.3f} s")
+    return dict(zip(KERNEL_NAMES, (sum(c[k] for c in res["steps"]) for k in KERNEL_NAMES)))
 
 
 def phase_to_model_images(torch, np):
@@ -1092,9 +1373,11 @@ def phase_finetune_resume(torch, d, pre_ckpt):
           f"{len(sa)} tensors, {moments} AdamW moment and step tensors and "
           f"{len(a.optimizer.acc)} accumulators equal bit for bit (torch.equal); log.txt equal "
           f"byte for byte; launches {launches_text(steps_a[0][0])} at every micro-step")
+    with open(os.path.join(d, "ft_resume_a", "log.txt")) as f:
+        ref = straight_run(a, f.read(), dt_a)
     del a, b
     torch.cuda.empty_cache()
-    return counts
+    return counts, ref
 
 
 def phase_finetune_eval_sweep(torch, np, d, ft_out):
@@ -2154,6 +2437,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-child"]:  # started by run_ddp_cli through torchrun
+        sys.exit(ddp_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
     try:
         sys.exit(main())
     except Exception as e:  # any failed phase: report and exit non-zero, no result line

@@ -6,8 +6,8 @@
         --use_abi_aug --nb_classes 97 --max_len 25 \
         --finetune pretrain_out/checkpoint-9 --data_path ... --eval_data_path ...
 
-Counterpart of `dig_tpu.cli.run_finetune` on one device, with the same
-flags and the same order of work: labelled LMDBs -> dataset -> host ABI
+Counterpart of `dig_tpu.cli.run_finetune`, with the same flags and the
+same order of work: labelled LMDBs -> dataset -> host ABI
 (or SeqCLR) augmentation on the loader's workers, or under
 `--device_abi_aug` the ABI recipe on the model's device -> loader with
 device prefetch -> the fine-tuning step (gradient accumulation over
@@ -32,22 +32,34 @@ otherwise, as in `dig_tpu` (weights trained under torch's erf GELU); a
 directory keeps tanh, the form the port pre-trains with.
 
 Every random draw of a step comes from a generator seeded with (seed,
-stream, micro-step) (`utils/rng.py`): stream 0 the step's dropout, stream 1
-the on-device augmentation.  The micro-step is ``epoch * len(loader) +
+stream, micro-step, rank) (`utils/rng.py`): stream 0 the step's dropout,
+stream 1 the on-device augmentation.  The micro-step is ``epoch * len(loader) +
 it``; the JAX CLI's ``epoch * steps_per_epoch + it`` overlaps across epochs
 when `--update_freq` > 1, and is not copied.  Under `--device_abi_aug` the
 host augments nothing (the JAX CLI still runs SeqCLR on the host there).
 
+Data parallel, one process per card over NCCL, as `run_pretrain`:
+
+    torchrun --nproc_per_node 8 -m dig_tpu_torch.cli.run_finetune ...
+
+Each rank trains on its own `--batch_size` rows; the gradients are
+averaged over the ranks before clipping (under `--update_freq`, once, on
+the accumulated mean), so N ranks train as one process would on the
+global batch.  With `--dist_eval` the eval set is split over the ranks and
+their sums (correct, total, F-measure, loss) are added up; without it
+every rank evaluates the whole set and rank 0's figures decide.  Only rank
+0 prints and writes.
+
 SIGTERM / SIGINT checkpoint at the next step boundary and exit 0 (143
 without an `--output_dir`); a non-finite loss exits 1.  Runs on CUDA;
-`main(cfg, device="cpu")` runs the plain versions of the kernels.  stdout
-is teed into ``screen.txt``, and the signal handlers and the GELU form are
-set, only while `main` runs.
+`main(cfg, device="cpu")` runs the plain versions of the kernels (and,
+across processes, over gloo).  stdout is teed into ``screen.txt``, and the
+signal handlers and the GELU form are set, only while `main` runs.
 
 Refused with a message (see ROADMAP.md): `--model_kind` other than rec,
 feature distillation, optimizers other than adamw, `--text_cond_vis`,
-`--n_fsdp` / `--n_tensor` above 1, `--dist_eval` across processes, remote
-checkpoint URIs and native `dig_tpu` checkpoint directories.
+`--n_fsdp` / `--n_tensor` above 1, remote checkpoint URIs and native
+`dig_tpu` checkpoint directories.
 """
 
 from __future__ import annotations
@@ -76,6 +88,16 @@ from dig_tpu_torch.models.rec_model import build_rec_model
 from dig_tpu_torch.ops import activations
 from dig_tpu_torch.ops.images import to_model_images
 from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
+from dig_tpu_torch.parallel.dist import (
+    all_reduce_floats,
+    broadcast_floats,
+    broadcast_module,
+    destroy,
+    get_rank,
+    get_world_size,
+    init_distributed_mode,
+)
+from dig_tpu_torch.parallel.mesh import check_mesh, host_local_rows, local_batch
 from dig_tpu_torch.train.finetune import init_finetune_state, make_eval_step, make_finetune_step
 from dig_tpu_torch.utils.charset import build_charset
 from dig_tpu_torch.utils.checkpoint import (
@@ -91,9 +113,16 @@ from dig_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from dig_tpu_torch.utils.logging import JsonlLogger, ScreenTee, TensorboardLogger
+from dig_tpu_torch.cli.run_pretrain import mean_over_ranks
+from dig_tpu_torch.utils.logging import (
+    JsonlLogger,
+    ScreenTee,
+    TensorboardLogger,
+    is_main_process,
+    stdout_on_main_process_only,
+)
 from dig_tpu_torch.utils.metric_logger import MetricLogger
-from dig_tpu_torch.utils.preemption import PreemptionGuard
+from dig_tpu_torch.utils.preemption import STOP_POLL_STEPS, PreemptionGuard
 from dig_tpu_torch.utils.profiling import StepTraceWindow
 from dig_tpu_torch.utils.rng import step_generator
 from dig_tpu_torch.utils.schedules import cosine_schedule
@@ -125,13 +154,7 @@ def _refuse_unported(cfg: FinetuneConfig) -> None:
     if cfg.text_cond_vis:
         raise NotImplementedError("--text_cond_vis (the text-conditional decoder) is not ported "
                                   "yet; see ROADMAP.md")
-    if cfg.n_fsdp > 1 or cfg.n_tensor > 1:
-        raise NotImplementedError(
-            f"--n_fsdp {cfg.n_fsdp} / --n_tensor {cfg.n_tensor}: sharded training is not "
-            f"ported yet (one device only; see ROADMAP.md)")
-    if cfg.dist_eval and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("--dist_eval across processes is not ported yet (one process "
-                                  "evaluates the whole set; see ROADMAP.md)")
+    check_mesh(cfg.n_fsdp, cfg.n_tensor)
     if cfg.resume.endswith((".pth", ".pt")):
         raise ValueError("--resume expects a checkpoint directory; to initialize from a torch "
                          f".pth use --finetune (got --resume {cfg.resume})")
@@ -164,13 +187,17 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
     """Greedy or beam decoding over one benchmark LMDB
     (`dig_tpu/cli/run_finetune.py:105-188`): the last partial batch padded
     to the batch size (zero images and targets, length 1), per-row losses
-    summed with the padding rows sliced off.  Prints the JAX CLI's line;
-    returns {"acc", "n", "fmeasure"}."""
+    summed with the padding rows sliced off.  With `--dist_eval` each rank
+    scores its share of the set (`ShardedSampler`, which repeats a few
+    records to give every rank as many) and the sums are added up over the
+    ranks; without it every rank scores the whole set and takes rank 0's
+    sums.  Prints the JAX CLI's line; returns {"acc", "n", "fmeasure"}."""
     ds = build_dataset(data_path, is_train=False, voc_type=cfg.voc_type, max_len=cfg.max_len,
                        img_height=cfg.input_h, img_width=cfg.input_w)
-    bs = cfg.batch_size
-    loader = DataLoader(ds, ShardedSampler(len(ds), shuffle=False), batch_size=bs,
-                        num_workers=cfg.num_workers, drop_last=False)
+    bs = local_batch(cfg.batch_size)
+    rank, world = (get_rank(), get_world_size()) if cfg.dist_eval else (0, 1)
+    loader = DataLoader(ds, ShardedSampler(len(ds), rank=rank, world=world, shuffle=False),
+                        batch_size=bs, num_workers=cfg.num_workers, drop_last=False)
     n_correct, n_total, f_sum, loss_sum = 0.0, 0, 0.0, 0.0
     for images, targets, lens in loader:
         n = images.shape[0]
@@ -181,12 +208,17 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
             lens = np.concatenate([lens, np.ones((pad,), lens.dtype)])
         ids, loss = eval_fn(pinned_to_device({"images": images, "targets": targets,
                                               "lengths": lens}, device))
-        ids = ids[:n].cpu().numpy()
+        ids = host_local_rows(ids)[:n].cpu().numpy()
         acc = word_accuracy(ids, targets[:n], charset)
         n_correct += acc * n
         n_total += n
         f_sum += recognition_f_measure(ids, targets[:n], charset) * n
-        loss_sum += float(loss[:n].sum())
+        loss_sum += float(host_local_rows(loss)[:n].sum())
+    sums = [n_correct, n_total, f_sum, loss_sum]
+    # one figure on every rank: the ranks decide on it together (checkpoint-best)
+    n_correct, n_total, f_sum, loss_sum = (all_reduce_floats(sums) if cfg.dist_eval
+                                           else broadcast_floats(sums))
+    n_total = int(n_total)
     acc = n_correct / max(n_total, 1)
     # beam computes no teacher-forced loss (0 by convention in the step)
     loss_str = "n/a" if cfg.beam_width > 0 else f"{loss_sum / max(n_total, 1):.4f}"
@@ -197,25 +229,31 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
 
 def main(cfg: FinetuneConfig, device="cuda"):
     _refuse_unported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_finetune runs on CUDA and no card is visible; "
                            "call main(cfg, device='cpu') for the CPU")
+    dist_info = init_distributed_mode(device)
     tee = None
-    if cfg.output_dir:
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        tee = ScreenTee(cfg.output_dir).install()
     exact_before = activations.EXACT
     try:
-        return _run(cfg, device)
+        with stdout_on_main_process_only():
+            if cfg.output_dir and is_main_process():
+                os.makedirs(cfg.output_dir, exist_ok=True)
+                tee = ScreenTee(cfg.output_dir).install()
+            try:
+                return _run(cfg, dist_info)
+            finally:
+                activations.set_exact(exact_before)
+                if tee is not None:
+                    tee.close()
     finally:
-        activations.set_exact(exact_before)
-        if tee is not None:
-            tee.close()
+        if dist_info["created"]:
+            destroy()
 
 
-def _run(cfg: FinetuneConfig, device):
+def _run(cfg: FinetuneConfig, dist_info: dict):
     print(config_to_json(cfg))
+    device, world = dist_info["device"], dist_info["world_size"]
     # the GELU form, before any model code runs: weights from a torch .pth
     # were trained under the erf form (dig_tpu/ops/activations.py)
     exact = activations.resolve_exact_gelu(cfg.exact_gelu, (cfg.finetune, cfg.resume))
@@ -223,8 +261,9 @@ def _run(cfg: FinetuneConfig, device):
         print("torch checkpoint requested: using exact (erf) GELU "
               "(override with --exact_gelu false)")
     activations.set_exact(exact)
-    cfg.finalize(1)
-    print(f"devices: 1 ({device}), lr: {cfg.absolute_lr:.2e}")
+    cfg.finalize(world)
+    backend = f", {dist_info['backend']}" if dist_info["backend"] else ""
+    print(f"devices: {world} ({device}{backend}), lr: {cfg.absolute_lr:.2e}")
     charset = build_charset(cfg.voc_type, cfg.max_len)
     if charset.num_classes != cfg.nb_classes:
         raise ValueError(f"--voc_type {cfg.voc_type} has {charset.num_classes} classes, "
@@ -243,27 +282,29 @@ def _run(cfg: FinetuneConfig, device):
         total = sum(r["n"] for r in results)
         avg = sum(r["acc"] * r["n"] for r in results) / max(total, 1)
         print(f"average word accuracy over {len(results)} benchmarks: {avg:.4f}")
-        if cfg.output_dir:
+        if cfg.output_dir and is_main_process():
             with open(os.path.join(cfg.output_dir, "eval_results.json"), "w") as f:
                 json.dump({"benchmarks": results, "average_acc": avg, "n_images": int(total),
                            "beam_width": cfg.beam_width}, f, indent=2)
         return results
     guard = PreemptionGuard.install()
     try:
-        return _train(cfg, device, model, eval_fn, charset, guard)
+        return _train(cfg, dist_info, model, eval_fn, charset, guard)
     finally:
         guard.uninstall()
 
 
-def _train(cfg: FinetuneConfig, device, model, eval_fn, charset, guard):
+def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard):
+    device, rank, world = dist_info["device"], dist_info["rank"], dist_info["world_size"]
     device_abi = cfg.device_abi_aug and cfg.use_abi_aug
     train_ds = build_dataset(
         cfg.data_path, is_train=True, voc_type=cfg.voc_type, max_len=cfg.max_len,
         num_samples=cfg.num_samples, use_aug=cfg.num_view > 1 and not device_abi,
         use_abi_aug=cfg.use_abi_aug, img_height=cfg.input_h, img_width=cfg.input_w,
-        rng=np.random.default_rng(cfg.seed))
+        rng=np.random.default_rng(cfg.seed + rank))
     loader = make_train_loader(
-        train_ds, local_batch=cfg.batch_size, rank=0, world=1, seed=cfg.seed,
+        train_ds, local_batch=local_batch(cfg.batch_size), rank=rank, world=world,
+        seed=cfg.seed,
         num_workers=cfg.num_workers, worker_type=cfg.worker_type,
         batch_wise_shuffle=cfg.batch_wise_shuffle)
     micro_steps = len(loader)  # loader batches an epoch; updates: // update_freq
@@ -298,6 +339,7 @@ def _train(cfg: FinetuneConfig, device, model, eval_fn, charset, guard):
         state, extra = auto_resume(cfg.output_dir, state)
         if extra is not None:
             start_epoch = int(extra.get("epoch", -1)) + 1
+    broadcast_module(model)  # every rank starts from rank 0's weights
 
     step_fn = make_finetune_step(model, smoothing=cfg.smoothing)
     aug_fn = None
@@ -307,8 +349,8 @@ def _train(cfg: FinetuneConfig, device, model, eval_fn, charset, guard):
 
     tb = TensorboardLogger(cfg.log_dir or os.path.join(cfg.output_dir, "tb"))
     jsonl = JsonlLogger(cfg.output_dir)
-    tracer = StepTraceWindow(os.path.join(cfg.output_dir, "profile"), cfg.profile_steps,
-                             cfg.profile_start_step)
+    tracer = StepTraceWindow(os.path.join(cfg.output_dir, "profile"),
+                             cfg.profile_steps if rank == 0 else 0, cfg.profile_start_step)
     max_accuracy = 0.0
 
     def to_device(item):
@@ -333,12 +375,12 @@ def _train(cfg: FinetuneConfig, device, model, eval_fn, charset, guard):
                                                     total=steps_per_epoch)):
             gstep = epoch * micro_steps + it
             if aug_fn is not None:
-                batch["images"] = aug_fn(step_generator(cfg.seed + 1, 1, gstep, device),
+                batch["images"] = aug_fn(step_generator(cfg.seed + 1, 1, gstep, device, rank),
                                          batch["images"])
-            state, metrics, pred_ids = step_fn(state, batch,
-                                               step_generator(cfg.seed + 1, 0, gstep, device))
+            state, metrics, pred_ids = step_fn(
+                state, batch, step_generator(cfg.seed + 1, 0, gstep, device, rank))
             tracer.tick()
-            if guard.should_stop:
+            if guard.sync_should_stop(step=it, every=STOP_POLL_STEPS):
                 # extra epoch - 1: auto-resume redoes this epoch's data with
                 # the mid-epoch optimizer state
                 tracer.close()
@@ -347,16 +389,17 @@ def _train(cfg: FinetuneConfig, device, model, eval_fn, charset, guard):
                     f"epoch {epoch} step {it}")
             # the metrics stay on the device but for these steps
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
-                host_metrics = {k: float(v) for k, v in metrics.items()}
+                class_acc = word_accuracy(
+                    pred_ids.cpu().numpy(), batch["targets"].cpu().numpy(), charset)
+                host_metrics = mean_over_ranks(dict(metrics, class_acc=class_acc), world)
                 if not math.isfinite(host_metrics["loss"]):
                     print(f"Loss is {host_metrics['loss']}, stopping training")
                     sys.exit(1)
-                host_metrics["class_acc"] = word_accuracy(
-                    pred_ids.cpu().numpy(), batch["targets"].cpu().numpy(), charset)
                 logger.update(**host_metrics)
                 tb.update(head="loss", step=int(state.step), **host_metrics)
             if cfg.eval_freq and it >= 1 and it % cfg.eval_freq == 0 and cfg.eval_data_path:
                 eval_and_keep_best(epoch)
+        logger.synchronize_between_processes()
         print("Averaged stats:", logger)
         stats = eval_and_keep_best(epoch) if cfg.eval_data_path else {}
         if cfg.output_dir and cfg.save_ckpt and (

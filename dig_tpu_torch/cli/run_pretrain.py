@@ -7,8 +7,8 @@
         --loss_weight_pixel 1. --loss_weight_contrast 0.1 \
         --image_alone_path /path/to/lmdb ...
 
-Counterpart of `dig_tpu.cli.run_pretrain` on one device, with the same
-flags and the same order of work: LMDB -> dataset -> host SeqCLR
+Counterpart of `dig_tpu.cli.run_pretrain`, with the same flags and the
+same order of work: LMDB -> dataset -> host SeqCLR
 augmentation on the loader's workers (or, under `--device_aug`, the view
 generator on the model's device) -> loader with device prefetch -> the
 pre-training step -> metric log -> checkpoint -> resume.  Outputs under
@@ -20,13 +20,32 @@ SIGTERM / SIGINT checkpoint at the next step boundary and exit 0 (143
 without an `--output_dir`; `utils/preemption.py`), as in the JAX CLI.
 
 Every random draw of a step comes from a generator seeded with (seed,
-stream, global step) (`utils/rng.py`), so with `--device_aug` a resumed run
-repeats an uninterrupted one.
+stream, global step, rank) (`utils/rng.py`), so with `--device_aug` a
+resumed run repeats an uninterrupted one.
+
+Data parallel, one process per card over NCCL:
+
+    torchrun --nproc_per_node 8 -m dig_tpu_torch.cli.run_pretrain ...
+
+Each rank runs the step on its own `--batch_size` rows of the epoch
+(`ShardedSampler`); the keys of InfoNCE are gathered from every rank, the
+heads' batch statistics are the global batch's and the gradients are
+averaged over the ranks before clipping (`parallel/dist.py`), so N ranks
+train as one process would on the global batch of N x `--batch_size`
+(the lr scales with it, `cfg.finalize(world)`).  Ranks draw their own
+dropout, masks and views; rank 0's draws are the single process's.  Only
+rank 0 prints, writes ``log.txt``, ``screen.txt``, TensorBoard scalars, the
+trace and checkpoints; every rank resumes from the same checkpoint.  A
+signal that reaches any rank stops every rank at the same step boundary
+(polled every `STOP_POLL_STEPS` steps).  `main` finds its rank from
+torchrun's variables (`parallel.dist.init_distributed_mode`), or joins a
+process group its caller made.
 
 Runs on CUDA; `main(cfg, device="cpu")` runs the plain versions of the
-kernels.  stdout is teed into ``screen.txt``, and the signal handlers are
-installed, only while `main` runs: both are put back when it returns or
-raises (the JAX CLI leaves them installed).
+kernels (and, across processes, over gloo).  stdout is teed into
+``screen.txt``, and the signal handlers are installed, only while `main`
+runs: both are put back when it returns or raises (the JAX CLI leaves
+them installed).
 
 Not ported yet, each refused with a message (see ROADMAP.md): `--n_fsdp` /
 `--n_tensor` above 1, `--remat`, optimizers other than adamw,
@@ -48,6 +67,13 @@ from dig_tpu_torch.data.dataset import build_pretraining_dataset
 from dig_tpu_torch.data.pipeline import device_prefetch, make_train_loader, pinned_to_device
 from dig_tpu_torch.models.moco import build_pretrain_model
 from dig_tpu_torch.optim import create_optimizer
+from dig_tpu_torch.parallel.dist import (
+    all_reduce_floats,
+    broadcast_module,
+    destroy,
+    init_distributed_mode,
+)
+from dig_tpu_torch.parallel.mesh import check_mesh, local_batch
 from dig_tpu_torch.train.pretrain import (
     init_pretrain_state,
     make_device_view_fn,
@@ -61,9 +87,15 @@ from dig_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from dig_tpu_torch.utils.logging import JsonlLogger, ScreenTee, TensorboardLogger
+from dig_tpu_torch.utils.logging import (
+    JsonlLogger,
+    ScreenTee,
+    TensorboardLogger,
+    is_main_process,
+    stdout_on_main_process_only,
+)
 from dig_tpu_torch.utils.metric_logger import MetricLogger
-from dig_tpu_torch.utils.preemption import PreemptionGuard
+from dig_tpu_torch.utils.preemption import STOP_POLL_STEPS, PreemptionGuard
 from dig_tpu_torch.utils.profiling import StepTraceWindow
 from dig_tpu_torch.utils.rng import step_generator
 from dig_tpu_torch.utils.schedules import (
@@ -87,10 +119,7 @@ def build_model(cfg: PretrainConfig, device):
 def _refuse_unported(cfg: PretrainConfig) -> None:
     """Raise for every flag whose code is not ported, before anything is
     built or written."""
-    if cfg.n_fsdp > 1 or cfg.n_tensor > 1:
-        raise NotImplementedError(
-            f"--n_fsdp {cfg.n_fsdp} / --n_tensor {cfg.n_tensor}: sharded training is not "
-            f"ported yet (one device only; see ROADMAP.md)")
+    check_mesh(cfg.n_fsdp, cfg.n_tensor)
     if cfg.remat:
         raise NotImplementedError("--remat (activation rematerialization) is not ported yet; "
                                   "see ROADMAP.md")
@@ -106,29 +135,35 @@ def _refuse_unported(cfg: PretrainConfig) -> None:
 
 def main(cfg: PretrainConfig, device="cuda"):
     _refuse_unported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pretrain runs on CUDA and no card is visible; "
                            "call main(cfg, device='cpu') for the CPU")
+    dist_info = init_distributed_mode(device)
     tee = None
-    if cfg.output_dir:
-        os.makedirs(cfg.output_dir, exist_ok=True)
-        tee = ScreenTee(cfg.output_dir).install()
-    guard = PreemptionGuard.install()
     try:
-        return _run(cfg, device, guard)
+        with stdout_on_main_process_only():
+            if cfg.output_dir and is_main_process():
+                os.makedirs(cfg.output_dir, exist_ok=True)
+                tee = ScreenTee(cfg.output_dir).install()
+            guard = PreemptionGuard.install()
+            try:
+                return _run(cfg, dist_info, guard)
+            finally:
+                guard.uninstall()
+                if tee is not None:
+                    tee.close()
     finally:
-        guard.uninstall()
-        if tee is not None:
-            tee.close()
+        if dist_info["created"]:
+            destroy()
 
 
-def _run(cfg: PretrainConfig, device, guard):
+def _run(cfg: PretrainConfig, dist_info: dict, guard):
     print(config_to_json(cfg))
-    cfg.finalize(1)
-    print(f"devices: 1 ({device}), lr: {cfg.absolute_lr:.2e}")
+    device, rank, world = dist_info["device"], dist_info["rank"], dist_info["world_size"]
+    cfg.finalize(world)
+    backend = f", {dist_info['backend']}" if dist_info["backend"] else ""
+    print(f"devices: {world} ({device}{backend}), lr: {cfg.absolute_lr:.2e}")
 
-    rank, world = 0, 1
     rng = np.random.default_rng(cfg.seed + rank)
     dataset = build_pretraining_dataset(
         cfg.image_alone_path,
@@ -142,7 +177,7 @@ def _run(cfg: PretrainConfig, device, guard):
         rng=rng,
     )
     loader = make_train_loader(
-        dataset, local_batch=cfg.batch_size, rank=rank, world=world,
+        dataset, local_batch=local_batch(cfg.batch_size), rank=rank, world=world,
         seed=cfg.seed, num_workers=cfg.num_workers,
         worker_type=cfg.worker_type,
         batch_wise_shuffle=cfg.batch_wise_shuffle)
@@ -182,6 +217,7 @@ def _run(cfg: PretrainConfig, device, guard):
         state, extra = auto_resume(cfg.output_dir, state)
         if extra is not None:
             start_epoch = int(extra.get("epoch", -1)) + 1
+    broadcast_module(model)  # every rank starts from rank 0's weights
 
     step_fn = make_pretrain_step(
         model, mom_sched, cw_sched,
@@ -195,8 +231,8 @@ def _run(cfg: PretrainConfig, device, guard):
 
     tb = TensorboardLogger(cfg.log_dir or os.path.join(cfg.output_dir, "tb"))
     jsonl = JsonlLogger(cfg.output_dir)
-    tracer = StepTraceWindow(os.path.join(cfg.output_dir, "profile"), cfg.profile_steps,
-                             cfg.profile_start_step)
+    tracer = StepTraceWindow(os.path.join(cfg.output_dir, "profile"),
+                             cfg.profile_steps if rank == 0 else 0, cfg.profile_start_step)
 
     def to_device(item):
         ori, aug, mask = item
@@ -213,14 +249,15 @@ def _run(cfg: PretrainConfig, device, guard):
             logger.log_every(batches, PRINT_FREQ, header, total=steps_per_epoch)
         ):
             # one generator a step and a stream, from (seed, stream, global
-            # step) alone: 0 the train step, 1 the view generator
+            # step, rank) alone: 0 the train step, 1 the view generator
             gstep = epoch * steps_per_epoch + it
             if view_fn is not None:
-                batch = view_fn(step_generator(cfg.seed + 1, 1, gstep, device),
+                batch = view_fn(step_generator(cfg.seed + 1, 1, gstep, device, rank),
                                 batch["images"])
-            state, metrics = step_fn(state, batch, step_generator(cfg.seed + 1, 0, gstep, device))
+            state, metrics = step_fn(
+                state, batch, step_generator(cfg.seed + 1, 0, gstep, device, rank))
             tracer.tick()
-            if guard.should_stop:
+            if guard.sync_should_stop(step=it, every=STOP_POLL_STEPS):
                 # extra epoch - 1: auto-resume redoes this epoch (with
                 # --device_aug, the same batches)
                 tracer.close()
@@ -230,7 +267,7 @@ def _run(cfg: PretrainConfig, device, guard):
             # the metrics stay on the device but for these steps: reading a
             # scalar waits for the card, and a wait a step would stall it
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
-                host_metrics = {k: float(v) for k, v in metrics.items()}
+                host_metrics = mean_over_ranks(metrics, world)
                 if not math.isfinite(host_metrics["loss"]):
                     print(f"Loss is {host_metrics['loss']}, stopping training")
                     sys.exit(1)
@@ -239,6 +276,7 @@ def _run(cfg: PretrainConfig, device, guard):
             if cfg.eval_freq and it >= 1 and it % (cfg.eval_freq * 10) == 0:
                 save_checkpoint(cfg.output_dir, f"{epoch}_{it}", state,
                                 extra={"epoch": epoch})
+        logger.synchronize_between_processes()
         print("Averaged stats:", logger)
         if cfg.output_dir and (
             (epoch + 1) % cfg.save_ckpt_freq == 0 or epoch + 1 == cfg.epochs
@@ -254,6 +292,15 @@ def _run(cfg: PretrainConfig, device, guard):
     tracer.close()
     tb.flush()
     return state
+
+
+def mean_over_ranks(metrics: dict, world: int) -> dict:
+    """A step's metrics (device scalars or numbers) on the host, each the mean over the
+    data-parallel ranks of their values: the global batch's loss, as the
+    JAX step logs it, and one value on every rank, so every rank takes the
+    same decision on it (a non-finite loss)."""
+    sums = all_reduce_floats([float(v) for v in metrics.values()])
+    return {k: v / world for k, v in zip(metrics, sums)}
 
 
 if __name__ == "__main__":

@@ -212,7 +212,15 @@ def make_train_loader(dataset, *, local_batch: int, rank: int, world: int,
     per-host `ShardedSampler` + fixed batch size, or — with
     ``batch_wise_shuffle`` — the `MultiSourceBatchSampler` that draws every
     batch from ONE source LMDB (the sampler the reference ships but never
-    wires; dist_multisrc_batch_sampler.py:14-154)."""
+    wires; dist_multisrc_batch_sampler.py:14-154).
+
+    Every rank gets the same number of batches, each of exactly
+    `local_batch` rows (the sharded sampler pads the epoch to a multiple of
+    the world size and the loader drops a last partial batch; the
+    multi-source sampler yields whole global batches only): the
+    data-parallel losses are means over a rank's rows, and the mean of the
+    ranks' means is the global batch's only when the ranks' batches are
+    equal."""
     from dig_tpu_torch.data.samplers import MultiSourceBatchSampler, ShardedSampler
 
     if batch_wise_shuffle:
@@ -225,7 +233,7 @@ def make_train_loader(dataset, *, local_batch: int, rank: int, world: int,
     sampler = ShardedSampler(len(dataset), rank=rank, world=world, seed=seed)
     return DataLoader(dataset, sampler, batch_size=local_batch,
                       num_workers=num_workers, worker_type=worker_type,
-                      seed=seed)
+                      seed=seed, drop_last=True)
 
 
 class DataLoader:

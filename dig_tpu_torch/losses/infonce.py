@@ -2,14 +2,21 @@
 
 Counterpart of `dig_tpu/losses/infonce.py` (reference:
 modeling_pretrain_moco_mim_ori.py:444-461, :593-625): the loss is scaled
-by 2T, row i's positive is key i.  One process holds the whole batch in
-this slice, so no keys are gathered across ranks.
+by 2T.  Across data-parallel ranks the keys are gathered from every rank
+in rank order (`parallel.dist.concat_all_gather`, the reference's
+`concat_all_gather`) and this rank's row i takes key rank * N + i as its
+positive (:453), so the mean over the ranks of their losses is the JAX
+package's loss on the global batch; top-1/5 accuracy is over this rank's
+queries against the global keys.  Alone, the keys are this process's and
+row i's positive is key i.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from dig_tpu_torch.parallel.dist import concat_all_gather, get_rank
 
 
 def label_smooth_softmax_ce(logits, labels, smoothing: float = 0.0):
@@ -30,11 +37,14 @@ def topk_accuracy(logits, labels, ks=(1, 5)):
 
 
 def info_nce_loss(q, k, temperature: float, smoothing: float = 0.0, return_acc: bool = False):
-    """q, k: [N, D]; the caller has detached k (the momentum branch)."""
+    """q, k: [N, D], this rank's rows; the caller has detached k (the
+    momentum branch)."""
     q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
     k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
+    k = concat_all_gather(k)
     logits = torch.einsum("nc,mc->nm", q, k) / temperature
-    labels = torch.arange(logits.shape[0], device=logits.device)
+    n = logits.shape[0]
+    labels = torch.arange(n, device=logits.device) + n * get_rank()
     loss = label_smooth_softmax_ce(logits, labels, smoothing) * (2.0 * temperature)
     if return_acc:
         return loss, tuple(topk_accuracy(logits, labels, ks=(1, 5)))

@@ -26,13 +26,21 @@ from dig_tpu_torch.models.layers import CrossBlock, Dense, LayerNorm
 from dig_tpu_torch.models.registry import register_model
 from dig_tpu_torch.models.vit import PretrainViTEncoder
 from dig_tpu_torch.ops.activations import gelu
+from dig_tpu_torch.parallel.dist import all_reduce_sum, get_world_size
 
 
 class BatchStatsNorm(nn.Module):
     """BatchNorm that always normalizes with the current batch's statistics
     over every leading axis, in at least fp32, eps 1e-5; no running
     statistics (the SSL graph never runs BN in eval mode).  `affine=False`
-    drops the scale and shift (the last BN of a head)."""
+    drops the scale and shift (the last BN of a head).
+
+    Across data-parallel ranks the statistics are the global batch's, with
+    gradients (`parallel.dist.all_reduce_sum`): the mean first, as the sum
+    over every rank's rows over their count, then the variance as the mean
+    of (x - mean)^2 (`dig_tpu/models/moco.py:59-61`), never E[x^2] - E[x]^2.
+    The ranks hold equal batches (the training loaders drop the last
+    partial one), so the count is the local count times the world size."""
 
     def __init__(self, dim: int, affine: bool = True, eps: float = 1e-5):
         super().__init__()
@@ -46,8 +54,9 @@ class BatchStatsNorm(nn.Module):
     def forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
-        mean = xf.mean(dim=axes, keepdim=True)
-        var = ((xf - mean) ** 2).mean(dim=axes, keepdim=True)
+        count = xf[..., 0].numel() * get_world_size()
+        mean = all_reduce_sum(xf.sum(dim=axes, keepdim=True)) / count
+        var = all_reduce_sum(((xf - mean) ** 2).sum(dim=axes, keepdim=True)) / count
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight + self.bias

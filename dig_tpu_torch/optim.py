@@ -27,7 +27,13 @@ lr scale) pair:
   JAX package): each call of `step` folds the gradients into a running
   mean, acc + (g - acc) / (n + 1) for the n-th of k; the k-th call clips
   that mean and applies AdamW, and the mean starts again from 0.  `count`,
-  the schedules' index and AdamW's step tensors count applied updates only.
+  the schedules' index and AdamW's step tensors count applied updates only;
+* data parallel (a process group exists when the optimizer is built): the
+  gradients are summed over the ranks and divided once by the world size
+  (`parallel.dist.GradientReducer`) before the global norm and clipping:
+  by the step, through `reduce_gradients`, right after its backward; under
+  `update_freq` > 1, once, on the running mean, at the micro-step that
+  applies it (the mean of the ranks' means is the global mean).
 
 The other optimizers of the JAX factory (AdamP, LAMB, Lookahead, ...) are
 not ported yet.
@@ -39,6 +45,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from dig_tpu_torch.parallel.dist import GradientReducer, is_distributed
 
 NO_DECAY_NAMES = ("pos_embed", "cls_token", "mask_token")
 _EMBED_NAMES = ("cls_token", "mask_token", "pos_embed", "patch_embed")
@@ -105,6 +113,7 @@ class AdamW:
         self.wd = None if wd_schedule is None else np.asarray(wd_schedule, np.float32)
         self.clip_grad = clip_grad
         self.count = 0
+        self.reducer = GradientReducer(self.params) if is_distributed() else None
         scales = (layer_scales([n for n, _ in named], layer_decay, num_layers)
                   if layer_decay < 1.0 else {})
         groups = {}  # (no decay, lr scale) -> params; decaying groups first
@@ -118,6 +127,17 @@ class AdamW:
 
     def zero_grad(self):
         self.inner.zero_grad(set_to_none=True)
+
+    def reduce_gradients(self):
+        """Make every parameter's `.grad` the data-parallel gradient (a
+        parameter without one takes the ranks' sum with zero), when the next
+        `step` applies the gradients as they are (`update_freq` 1).  Does
+        nothing alone, and under accumulation, where `step` reduces the
+        running mean instead."""
+        if self.reducer is None or self.update_freq > 1:
+            return
+        for p, g in zip(self.params, self.reducer.reduce([p.grad for p in self.params])):
+            p.grad = g
 
     def step(self) -> bool:
         """Take the parameters' `.grad`s: an update, or with `update_freq`
@@ -136,6 +156,8 @@ class AdamW:
             self.mini_step = 0
             grads = [a.clone() for a in self.acc]
             torch._foreach_zero_(self.acc)
+            if self.reducer is not None:
+                grads = self.reducer.reduce(grads)
         for p, g in zip(self.params, grads):
             p.grad = g
         if self.clip_grad is not None:

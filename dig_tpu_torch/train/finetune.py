@@ -66,6 +66,7 @@ def make_finetune_step(model, smoothing: float = 0.1):
         opt = state.optimizer
         opt.zero_grad()
         loss.backward()
+        opt.reduce_gradients()  # across data-parallel ranks, before the norm
         grad_norm = global_norm(p.grad for p in opt.params if p.grad is not None)
         opt.step()
         state.step += 1

@@ -115,6 +115,7 @@ def make_pretrain_step(model, momentum_schedule, contrast_weight_schedule,
         opt = state.optimizer
         opt.zero_grad()
         loss.backward()
+        opt.reduce_gradients()  # across data-parallel ranks, before the norm
         metrics["grad_norm"] = global_norm(p.grad for p in opt.params if p.grad is not None)
         # filled on the device: torch.tensor(m, device=...) would copy from
         # pageable host memory, which waits for the card once a step

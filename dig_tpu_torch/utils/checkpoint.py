@@ -24,6 +24,12 @@ utils/utils.py:546-669); the payload is the port's own.
   ones beyond `keep` and never touches other tags (``checkpoint-best``,
   mid-epoch ``checkpoint-3_100``).
 
+Across data-parallel ranks `save_checkpoint` and `prune_checkpoints` are
+collectives: every rank calls them at the same point, rank 0 alone writes
+or deletes, and the others wait at a barrier until it has; so every rank
+that then lists `output_dir` (`--auto_resume`) or reads a path
+(`--resume`) finds the same checkpoint.
+
 Restoring puts back everything a step reads: the parameters, the momentum
 modules, AdamW's moments and step tensors, the optimizer's schedule index
 `count` and `state.step`.  Restore *after* `init_pretrain_state`, which
@@ -54,6 +60,8 @@ from typing import Optional
 
 import torch
 
+from dig_tpu_torch.parallel.dist import barrier, is_main_process
+
 PAYLOAD = "checkpoint.pth"
 
 
@@ -71,9 +79,17 @@ def _replace_into(path: str, name: str, write) -> None:
 
 
 def save_checkpoint(output_dir: str, tag, state, extra: Optional[dict] = None) -> str:
-    """Write ``{output_dir}/checkpoint-{tag}`` from a `TrainState`; returns its path."""
+    """Write ``{output_dir}/checkpoint-{tag}`` from a `TrainState` (rank 0;
+    every rank returns after it has); returns its path."""
     _refuse_remote(output_dir)
     path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{tag}"))
+    if is_main_process():
+        _write_checkpoint(path, state, extra)
+    barrier()
+    return path
+
+
+def _write_checkpoint(path: str, state, extra: Optional[dict]) -> None:
     os.makedirs(path, exist_ok=True)
     opt = state.optimizer
     payload = {"model": state.model.state_dict(),
@@ -91,7 +107,6 @@ def save_checkpoint(output_dir: str, tag, state, extra: Optional[dict] = None) -
             json.dump(meta, f)
 
     _replace_into(path, "meta.json", write_meta)
-    return path
 
 
 def refuse_unreadable(path: str) -> None:
@@ -167,15 +182,17 @@ def latest_checkpoint(output_dir: str) -> Optional[str]:
 def prune_checkpoints(output_dir: str, keep: int) -> list:
     """Delete the oldest numeric ``checkpoint-N`` directories beyond the
     newest `keep` (0 or negative keeps all, the reference's behaviour);
-    returns the names deleted.  Other tags are never touched."""
+    returns the names deleted (rank 0 deletes; every rank returns after it
+    has).  Other tags are never touched."""
     _refuse_remote(output_dir)
     if keep <= 0:
         return []
     numbered = _numbered(output_dir)
-    pruned = []
-    for _, name in numbered[:-keep] if keep < len(numbered) else []:
-        shutil.rmtree(os.path.join(output_dir, name), ignore_errors=True)
-        pruned.append(name)
+    pruned = [name for _, name in (numbered[:-keep] if keep < len(numbered) else [])]
+    if is_main_process():
+        for name in pruned:
+            shutil.rmtree(os.path.join(output_dir, name), ignore_errors=True)
+    barrier()
     return pruned
 
 

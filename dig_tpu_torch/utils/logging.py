@@ -7,8 +7,8 @@ JSON-lines ``log.txt`` (run_mae_pretraining_moco.py:445-449),
 (utils/utils.py:319-331), here a helper rather than a builtins.print
 monkey-patch.
 
-The port runs one process today, so `is_main_process` is true unless
-`torch.distributed` has been initialised with another rank.
+Under data-parallel training only rank 0 writes ``log.txt`` and
+TensorBoard scalars (`parallel.dist.is_main_process`).
 
 Deviation from the JAX package: `ScreenTee` can be taken down again
 (`close`), which puts back the stream it replaced and closes its file.  The JAX CLI installs its tee for the life of the
@@ -18,15 +18,12 @@ whose own output must reach the real stdout afterwards."""
 from __future__ import annotations
 
 import builtins
+import contextlib
 import json
 import os
 import sys
 
-
-def is_main_process() -> bool:
-    import torch.distributed as dist
-
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+from dig_tpu_torch.parallel.dist import is_main_process
 
 
 # the real builtin, captured before any setup_print_for_distributed shim
@@ -53,6 +50,17 @@ def setup_print_for_distributed():
             builtin_print(*args, **kwargs)
 
     builtins.print = printer
+
+
+@contextlib.contextmanager
+def stdout_on_main_process_only():
+    """Within the block, stdout is discarded on every data-parallel rank but
+    rank 0 (the reference's `setup_for_distributed`, scoped); stderr stays."""
+    if is_main_process():
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null):
+        yield
 
 
 class ScreenTee:
@@ -99,6 +107,9 @@ class TensorboardLogger:
 
     def __init__(self, log_dir: str):
         self.step = 0
+        self._writer = self._tf = None
+        if not is_main_process():  # only rank 0 writes (and creates) event files
+            return
         try:
             import tensorflow as tf
 

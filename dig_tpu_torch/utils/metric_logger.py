@@ -3,9 +3,9 @@
 Counterpart of `dig_tpu/utils/metric_logger.py`.  Parity target:
 `SmoothedValue` / `MetricLogger` (reference: utils/utils.py:30-282):
 windowed median/avg meters, a global average, and a `log_every` iterator
-printing throughput/ETA.  The cross-process sums of count and total
-(:51-62) do nothing here: the port runs one process, and data-parallel
-training is not ported yet (ROADMAP.md).
+printing throughput/ETA.  `synchronize_between_processes` sums count and
+total over the data-parallel ranks (:51-62), so a global average is the
+whole global batch's.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import datetime
 import sys
 import time
 from collections import defaultdict, deque
+
+from dig_tpu_torch.parallel.dist import all_reduce_floats
 
 
 class SmoothedValue:
@@ -31,7 +33,10 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        """Sum count and total over the processes: one process, nothing to do."""
+        """Sum count and total over the ranks (a collective: every rank calls
+        it; alone, nothing changes)."""
+        self.count, self.total = all_reduce_floats([self.count, self.total])
+        self.count = int(self.count)
 
     @property
     def median(self):

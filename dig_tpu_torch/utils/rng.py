@@ -9,6 +9,10 @@ draws, at global step N, exactly what an uninterrupted run drew there.
 Streams as the pre-training CLI uses them: 0 = the train step (drop-path),
 1 = the on-device view generator (augmentation and masks).
 
+Data-parallel ranks draw from streams of their own: the rank enters the
+key's high word (`_RANK`), so ranks drop out, drop paths, mask and augment
+differently, and rank 0's key is the single process's, word for word.
+
 torch's Philox and JAX's threefry are different generators: the two
 packages agree on the *key*, not on the numbers drawn from it.
 """
@@ -22,27 +26,32 @@ import torch
 # mixing so (seed, stream) pairs land far apart in key space
 _MULT = np.uint32(2654435761)
 _GOLD = np.uint32(0x9E3779B9)
+_RANK = np.uint32(0x85EBCA6B)  # murmur3's finaliser constant: odd, far from the two above
 
 
-def host_step_key(seed: int, stream: int, step: int) -> np.ndarray:
-    """The two uint32 words for (seed, stream, step), built on the host:
-    [hash of (seed, stream), step].  Word for word the JAX package's key."""
+def host_step_key(seed: int, stream: int, step: int, rank: int = 0) -> np.ndarray:
+    """The two uint32 words for (seed, stream, step) on data-parallel rank
+    `rank`, built on the host: [hash of (seed, stream, rank), step].  At
+    rank 0, word for word the JAX package's key."""
     with np.errstate(over="ignore"):  # the products wrap modulo 2^32 by design
-        hi = (np.uint32(seed & 0xFFFFFFFF) * _MULT) ^ (np.uint32(stream) * _GOLD)
+        hi = (np.uint32(seed & 0xFFFFFFFF) * _MULT) ^ (np.uint32(stream) * _GOLD) \
+            ^ (np.uint32(rank) * _RANK)
     return np.array([hi, np.uint32(step & 0xFFFFFFFF)], dtype=np.uint32)
 
 
-def step_seed(seed: int, stream: int, step: int) -> int:
-    """The 64-bit generator seed for (seed, stream, step): with [hi, lo] =
-    `host_step_key(...)`, (hi << 32) | (lo ^ hi).  Distinct keys give
+def step_seed(seed: int, stream: int, step: int, rank: int = 0) -> int:
+    """The 64-bit generator seed for (seed, stream, step, rank): with
+    [hi, lo] = `host_step_key(...)`, (hi << 32) | (lo ^ hi).  Distinct keys give
     distinct seeds.  The low word carries `hi` too because torch's CPU
     generator (mt19937) keeps only the low 32 bits of its seed: with the
     bare step there, every seed and stream would draw the same numbers at
     the same step on the CPU.  The card's Philox takes all 64 bits."""
-    hi, lo = (int(w) for w in host_step_key(seed, stream, step))
+    hi, lo = (int(w) for w in host_step_key(seed, stream, step, rank))
     return (hi << 32) | (lo ^ hi)
 
 
-def step_generator(seed: int, stream: int, step: int, device="cpu") -> torch.Generator:
-    """A `torch.Generator` on `device` seeded with `step_seed(seed, stream, step)`."""
-    return torch.Generator(device=device).manual_seed(step_seed(seed, stream, step))
+def step_generator(seed: int, stream: int, step: int, device="cpu",
+                   rank: int = 0) -> torch.Generator:
+    """A `torch.Generator` on `device` seeded with
+    `step_seed(seed, stream, step, rank)`."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, stream, step, rank))

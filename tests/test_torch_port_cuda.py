@@ -638,3 +638,69 @@ def test_masked_attention_and_beam_search_do_not_wait_for_the_card(cuda):
                 torch.cuda.set_sync_debug_mode(0)
         counts.append(sum("called a synchronizing" in str(w.message) for w in caught))
     assert counts == [0, 1]
+
+
+def _micro_steps_fp32(seed=0):
+    """One fp32 pre-training step and one fine-tuning step of the micro
+    models on the card: (metrics, gradients, parameters after) of each."""
+    import numpy as np
+
+    from dig_tpu_torch.models.moco import build_pretrain_model
+    from dig_tpu_torch.models.rec_model import build_rec_model
+    from dig_tpu_torch.optim import create_optimizer
+    from dig_tpu_torch.train.finetune import init_finetune_state, make_finetune_step
+    from dig_tpu_torch.train.pretrain import init_pretrain_state, make_pretrain_step
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    model = build_pretrain_model("pretrain_simmim_moco_ori_vit_micro_patch4_32x128", mlp_dim=32,
+                                 dim=16, num_windows=4, device="cuda", seed=seed)
+    state = init_pretrain_state(model, create_optimizer(
+        "adamw", model.named_parameters(), [1e-3], [0.05], clip_grad=0.5))
+    batch = {"images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "aug_images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "mask": np.stack([np.stack([rng.permutation(256) < 179 for _ in range(2)])
+                               for _ in range(4)])}
+    state, metrics = make_pretrain_step(model, [0.99], [0.1])(state, batch)
+    out["pretrain"] = (metrics, {n: p.grad.clone() for n, p in model.named_parameters()
+                                 if p.grad is not None}, model.state_dict())
+    model = build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder", device="cuda",
+                            seed=seed)
+    state = init_finetune_state(model, create_optimizer(
+        "adamw", model.named_parameters(), [1e-3], [0.05], clip_grad=0.5, layer_decay=0.75,
+        num_layers=2))
+    batch = {"images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "targets": rng.integers(0, 94, (4, 25)), "lengths": np.array([5, 25, 1, 9])}
+    state, metrics, _ = make_finetune_step(model)(state, batch,
+                                                  torch.Generator(device="cuda").manual_seed(0))
+    out["finetune"] = (metrics, {n: p.grad.clone() for n, p in model.named_parameters()},
+                       model.state_dict())
+    return out
+
+
+@pytest.mark.cuda
+def test_nccl_world_1_steps_equal_the_one_process_steps_bit_for_bit(cuda):
+    """Both training steps in fp32 with an NCCL group of one rank (the
+    gradient reducer, the keys' gather, the statistics' all-reduces and
+    AdamW on the reduced gradients all run) against the same steps with no
+    group: every metric, gradient and parameter equal (torch.equal)."""
+    import socket
+
+    from dig_tpu_torch.parallel import dist as pdist
+
+    alone = _micro_steps_fp32()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = pdist.init_distributed_mode("cuda", rank=0, world_size=1, local_rank=0,
+                                       init_method=f"tcp://127.0.0.1:{port}")
+    try:
+        assert info["backend"] == "nccl" and pdist.get_world_size() == 1
+        grouped = _micro_steps_fp32()
+    finally:
+        pdist.destroy()
+    for step in ("pretrain", "finetune"):
+        for want, got in zip(alone[step], grouped[step]):
+            assert sorted(want) == sorted(got), step
+            differ = [k for k in want if not torch.equal(want[k], got[k])]
+            assert not differ, f"{step}: {differ[:5]} differ"

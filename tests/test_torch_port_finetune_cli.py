@@ -560,9 +560,18 @@ def test_cli_refuses_what_is_not_ported(what, data, tmp_path):
 
 
 def test_cli_refuses_dist_eval_across_processes(data, tmp_path, monkeypatch):
+    """`--dist_eval` across processes runs (tests/test_torch_port_dist.py);
+    what is refused is a launch across processes without a rendezvous: the
+    launcher's rank and world size with no MASTER_ADDR / MASTER_PORT fail
+    before anything is written, instead of one rank evaluating its share
+    alone."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="(?s)dist_eval.*ROADMAP.md"):
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         tcli.main(_port_cfg(data, tmp_path / "out", "--dist_eval"), device="cpu")
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_cli_refuses_a_native_dig_tpu_directory(both_runs, data, tmp_path):
