@@ -96,7 +96,12 @@
    `--dist_eval`, the launches of every step and eval batch, ms a step
    beside the one-process run's; then item 10's fp32 resume argv
    (`--update_freq 2`), equal bit for bit to its straight run.
-12. Prints one JSON line describing every kernel, then as the last line
+12. `[two ranks one card]`, a separate check: two ranks on the one card
+   over gloo (NCCL refuses two ranks on one device; the port's own card
+   path stays NCCL), each running the full-width fp32 pre-training and
+   fine-tuning steps on its half of a global batch of 8 through the
+   kernels, against one process on the whole batch.
+13. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -134,7 +139,8 @@ PRE_CLI_STEPS = PRE_CLI_RECORDS // PRE_BATCH * PRE_CLI_EPOCHS
 # ulp or two: up to 2e-5 pixels at the image's ends, and up to 4e-5 in a
 # bilinear sample of these records, which are noise (neighbours up to 2 apart)
 WARP_ATOL, VIEW_ATOL = 1e-5, 1e-4
-DDP_CHILD_TIMEOUT = 300  # seconds a torchrun of one CLI may take, its start included
+DDP_CHILD_TIMEOUT = 600  # seconds a torchrun call may take, its start included
+TWO_RANK_BATCH = 8  # the global batch of [two ranks one card]: 2 ranks x 4
 KERNEL_NAMES = ("attention_lse_fwd", "attention_lse_bwd", "attention_fwd", "attention_bwd",
                 "layer_norm_fwd", "layer_norm_bwd", "column_sum")
 
@@ -796,22 +802,23 @@ def phase_pretrain_data(torch, np, paths):
         paths["pretrain_cli_device_aug"] = phase_pretrain_cli(
             torch, np, db, os.path.join(d, "device_aug"), "pretrain cli device_aug",
             ["--device_aug"])
-        resume_ref = phase_pretrain_resume(torch, np, db, d)
-        paths["ddp_pretrain_cli"] = phase_ddp_pretrain_cli(torch, db, d, resume_ref)
+        pre_ref = phase_pretrain_resume(torch, np, db, d)
         phase_finetune_data(torch, np, d, paths,
-                            os.path.join(d, "host_aug", f"checkpoint-{PRE_CLI_EPOCHS - 1}"))
+                            os.path.join(d, "host_aug", f"checkpoint-{PRE_CLI_EPOCHS - 1}"),
+                            db, pre_ref)
 
 
-def phase_finetune_data(torch, np, d, paths, pre_ckpt):
+def phase_finetune_data(torch, np, d, paths, pre_ckpt, db, pre_ref):
     write_labelled_lmdb(np, os.path.join(d, "labelled"), FT_CLI_RECORDS, 7)
     write_labelled_lmdb(np, os.path.join(d, "labelled_eval"), FT_CLI_EVAL_RECORDS, 8)
     phase_device_abi_aug(torch, np, d)
     paths["finetune_cli"], ft_out = phase_finetune_cli(torch, np, d, pre_ckpt, "finetune cli", [])
     paths["finetune_cli_device_abi_aug"], _ = phase_finetune_cli(
         torch, np, d, pre_ckpt, "finetune cli device_abi_aug", ["--device_abi_aug"])
-    paths["finetune_cli_resume"], resume_ref = phase_finetune_resume(torch, d, pre_ckpt)
-    paths["ddp_finetune_cli"] = phase_ddp_finetune_cli(torch, d, pre_ckpt, resume_ref)
+    paths["finetune_cli_resume"], ft_ref = phase_finetune_resume(torch, d, pre_ckpt)
     paths["finetune_eval_sweep"] = phase_finetune_eval_sweep(torch, np, d, ft_out)
+    paths["ddp_pretrain_cli"], paths["ddp_finetune_cli"] = phase_ddp_clis(
+        torch, d, db, pre_ckpt, pre_ref, ft_ref)
 
 
 # ---------------------------------------------------------------------------
@@ -830,12 +837,23 @@ def straight_run(state, log_text, seconds):
             "log": log_text, "seconds": seconds}
 
 
-def ddp_child(kind, out_file, argv):
-    """The child that torchrun starts: `run_<kind>.main(argv)` on the card,
-    its rank and group from torchrun's variables, with every step's (and
-    every eval batch's) launches counted as in the one-process phases; what
-    it finds of the group, the counts and `straight_run` of its state go to
-    `out_file`."""
+def ddp_child(spec_file):
+    """The child that torchrun starts: each run of the JSON list in
+    `spec_file` ({"kind", "argv", "out_file"}) in turn, through `ddp_run`."""
+    with open(spec_file) as f:
+        runs = json.load(f)
+    for run in runs:
+        ddp_run(run["kind"], run["out_file"], run["argv"])
+    return 0
+
+
+def ddp_run(kind, out_file, argv):
+    """`run_<kind>.main(argv)` on the card, its rank and group from
+    torchrun's variables (main makes the group and tears it down), with
+    every step's (and every eval batch's) launches counted as in the
+    one-process phases and the reducer and the collectives timed; what it
+    found of the group, the counts, the timings and `straight_run` of its
+    state go to `out_file`."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -900,31 +918,41 @@ def ddp_child(kind, out_file, argv):
     torch.save({"group": group, "steps": [c for c, _ in steps], "evals": [c for c, _ in evals],
                 "step": state.step, "count": state.optimizer.count, "collectives": collectives,
                 "run": straight_run(state, log, dt)}, out_file)
-    return 0
+    del state
+    torch.cuda.empty_cache()
 
 
-def run_ddp_cli(torch, tag, kind, argv, out_file):
-    """`python -m torch.distributed.run --nproc_per_node 1` of this script's
-    `ddp_child`: the CLI over NCCL at world size 1, the group checked."""
+def run_ddp_clis(torch, d, runs):
+    """One `python -m torch.distributed.run --nproc_per_node 1` of this
+    script's `ddp_child` for `runs` ([(tag, kind, argv)]): each CLI over
+    NCCL at world size 1, in turn in one process; each run's group checked.
+    Returns ({tag: the run's results}, seconds of the whole call)."""
     import socket
 
+    spec = [{"kind": kind, "argv": argv, "out_file": os.path.join(d, f"ddp_{i}.pt")}
+            for i, (_, kind, argv) in enumerate(runs)]
+    with open(os.path.join(d, "ddp_runs.json"), "w") as f:
+        json.dump(spec, f)
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     torch.cuda.empty_cache()  # the child allocates on the same card
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
            "1", "--master_addr", "127.0.0.1", "--master_port", str(port),
-           os.path.abspath(__file__), "--ddp-child", kind, out_file, *argv]
+           os.path.abspath(__file__), "--ddp-child", os.path.join(d, "ddp_runs.json")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=DDP_CHILD_TIMEOUT, cwd=ROOT)
     dt = time.perf_counter() - t0
-    check(proc.returncode == 0, f"[{tag}] torchrun exited {proc.returncode}:\n"
+    check(proc.returncode == 0, f"[ddp] torchrun exited {proc.returncode}:\n"
           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    res = torch.load(out_file, weights_only=False)
-    g = res["group"]
-    check(g["backend"] == "nccl" and g["world"] == 1 and g["rank"] == 0 and g["created"]
-          and g["destroyed"] and g["device"] == "cuda:0", f"[{tag}] process group {g}")
-    return res, dt
+    results = {}
+    for (tag, _, _), run in zip(runs, spec):
+        res = torch.load(run["out_file"], weights_only=False)
+        g = res["group"]
+        check(g["backend"] == "nccl" and g["world"] == 1 and g["rank"] == 0 and g["created"]
+              and g["destroyed"] and g["device"] == "cuda:0", f"[{tag}] process group {g}")
+        results[tag] = res
+    return results, dt
 
 
 def collectives_text(res, steps):
@@ -941,9 +969,9 @@ def collectives_text(res, steps):
             f"({c['all_gather'][1] / steps:.3f} ms card)")
 
 
-def check_bit_equal(tag, got, want):
+def check_bit_equal(torch, tag, got, want):
     """A torchrun run's `straight_run` against the one-process one's."""
-    differ = [k for k in want["model"] if not torch_equal(got["model"][k], want["model"][k])]
+    differ = [k for k in want["model"] if not torch.equal(got["model"][k], want["model"][k])]
     check(not differ, f"[{tag}] {len(differ)} of {len(want['model'])} tensors differ from the "
           f"one-process run, e.g. {differ[:4]}")
     check(sorted(got["adamw"]) == sorted(want["adamw"]) and want["adamw"],
@@ -951,92 +979,218 @@ def check_bit_equal(tag, got, want):
     moments = 0
     for i, st in want["adamw"].items():
         for name in ("exp_avg", "exp_avg_sq", "step"):
-            check(torch_equal(got["adamw"][i][name], st[name]), f"[{tag}] AdamW {name} of {i}")
+            check(torch.equal(got["adamw"][i][name], st[name]), f"[{tag}] AdamW {name} of {i}")
             moments += 1
     if want["acc"] is not None:
         check(len(got["acc"]) == len(want["acc"])
-              and all(torch_equal(x, y) for x, y in zip(got["acc"], want["acc"])),
+              and all(torch.equal(x, y) for x, y in zip(got["acc"], want["acc"])),
               f"[{tag}] accumulators")
     check(got["log"] == want["log"], f"[{tag}] log.txt differs from the one-process run's:\n"
           f"{got['log']}\n{want['log']}")
     return len(want["model"]), moments
 
 
-def torch_equal(a, b):
+def two_rank_steps(torch, np, rows):
+    """One fp32 pre-training step and one fine-tuning step (rates 0) of the
+    full-width models from seed 3, on `rows` of a global batch of
+    TWO_RANK_BATCH, each step's launches asserted: (loss, gradients, the
+    parameters after, the parameters before) of each, on the host."""
+    out = {}
+    for kind in ("pretrain", "finetune"):
+        if kind == "pretrain":
+            model, state, step, batch = pretrain_setup(torch, np, torch.float32, TWO_RANK_BATCH,
+                                                       "cuda", seed=3)
+            want, run = PER_STEP, lambda b: step(state, b)[1]
+        else:
+            model, state, step, batch, _ = finetune_setup(torch, np, torch.float32,
+                                                          TWO_RANK_BATCH, "cuda", rates=False,
+                                                          seed=3)
+            want = FT_PER_STEP_RESUME
+            run = lambda b: step(state, b, torch.Generator(device="cuda").manual_seed(0))[1]
+        # AdamW's eps at 1e-3, as the CPU parity tests take it: at 1e-8 its
+        # first step g / (|g| + eps) turns gradient elements that are zero but
+        # for rounding, which two sums order differently, into full steps
+        for group in state.optimizer.inner.param_groups:
+            group["eps"] = 1e-3
+        before = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        reset_counts()
+        metrics = run({k: v[rows] for k, v in batch.items()})
+        torch.cuda.synchronize()
+        check(read_counts() == want, f"[two ranks one card] {kind}: launches {read_counts()}")
+        out[kind] = (float(metrics["loss"]),
+                     {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                      if p.grad is not None},
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()}, before)
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def gloo_child(root):
+    """One of the two ranks that torchrun starts for `[two ranks one card]`:
+    both on card 0, in a gloo group this process makes itself (NCCL takes
+    one rank a device), so the port joins its caller's group; the rank's
+    rows of the global batch through both steps."""
+    import datetime
+
+    import numpy as np
     import torch
+    import torch.distributed as dist
 
-    return torch.equal(a, b)
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        n = TWO_RANK_BATCH // world
+        out = two_rank_steps(torch, np, slice(rank * n, (rank + 1) * n))
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    return 0
 
 
-def phase_ddp_pretrain_cli(torch, db, d, resume_ref):
-    """`run_pretrain` under torchrun at world size 1 over NCCL: at the
-    PretrainConfig defaults with `--device_aug` (bf16, 2 epochs), the
-    launches of every step asserted and its ms a step beside the
-    one-process run's; then `[pretrain cli resume]`'s fp32 argv, equal bit
-    for bit to that phase's straight run."""
+def phase_two_ranks_one_card(torch, np):
+    """Two ranks on the one card, over gloo (separate from the NCCL path,
+    which the port takes on a card: NCCL refuses two ranks on one device):
+    each runs the full-width fp32 pre-training and fine-tuning steps on its
+    half of a global batch of TWO_RANK_BATCH through the kernels, against
+    one process on the whole batch: the mean loss within 1e-5, both ranks'
+    reduced gradients equal to each other and within 1e-5 of each leaf's
+    max (plus STEP_FLOOR of the largest) of one process's, the parameters
+    after AdamW equal on both ranks and within 1e-3 of each tensor's
+    largest step (plus its last bit) of one process's."""
+    import socket
+    import tempfile
+
+    tag = "two ranks one card"
+    one = two_rank_steps(torch, np, slice(0, TWO_RANK_BATCH))
+    with tempfile.TemporaryDirectory() as root, socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+             "2", "--master_addr", "127.0.0.1", "--master_port", str(port),
+             os.path.abspath(__file__), "--gloo-child", root],
+            capture_output=True, text=True, timeout=DDP_CHILD_TIMEOUT, cwd=ROOT)
+        dt = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[{tag}] torchrun exited {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    worst = {}
+    for kind in ("pretrain", "finetune"):
+        (l0, g0, p0, _), (l1, g1, p1, _) = ranks[0][kind], ranks[1][kind]
+        loss, grads, params, start = one[kind]
+        check(abs((l0 + l1) / 2 - loss) <= 1e-5 * abs(loss),
+              f"[{tag}] {kind}: mean loss {(l0 + l1) / 2} vs {loss}")
+        floor = STEP_FLOOR * max(float(g.abs().max()) for g in grads.values())
+        check(sorted(g0) == sorted(grads), f"[{tag}] {kind}: gradient leaves differ")
+        err_g = 0.0
+        for name, g in grads.items():
+            check(torch.equal(g0[name], g1[name]), f"[{tag}] {kind}: {name}: ranks differ")
+            err = float((g0[name] - g).abs().max())
+            check(err <= 1e-5 * float(g.abs().max()) + floor,
+                  f"[{tag}] {kind}: gradient {name}: max abs err {err}")
+            err_g = max(err_g, err / max(float(g.abs().max()), 1e-30))
+        err_p = 0.0
+        for name, v in params.items():
+            check(torch.equal(p0[name], p1[name]), f"[{tag}] {kind}: parameter {name}: ranks differ")
+            err = float((p0[name] - v).abs().max())
+            check(err <= 1e-3 * float((v - start[name]).abs().max())
+                  + float(np.spacing(np.float32(v.abs().max()))),
+                  f"[{tag}] {kind}: parameter {name}: max abs err {err}")
+            err_p = max(err_p, err)
+        worst[kind] = (err_g, err_p, len(grads))
+    print(f"[{tag}] gloo, 2 ranks on cuda:0 (a group made by the caller; the port's own "
+          f"card path is NCCL), fp32 full width, global batch {TWO_RANK_BATCH} as 2 x "
+          f"{TWO_RANK_BATCH // 2}, the kernels at their per-step counts on each rank, against "
+          f"one process on the whole batch: " + "; ".join(
+              f"{k}: loss within 1e-5, {n} reduced gradients equal on both ranks, worst "
+              f"{eg:.2e} of a leaf's max, parameters after AdamW within {ep:.2e}"
+              for k, (eg, ep, n) in worst.items()) + f"; torchrun call {dt:.1f} s")
+
+
+def phase_ddp_clis(torch, d, db, pre_ckpt, pre_ref, ft_ref):
+    """Both training CLIs under torchrun at world size 1 over NCCL, in one
+    torchrun call: `[ddp pretrain cli]`, PretrainConfig defaults with
+    `--device_aug` (bf16, 2 epochs); `[ddp pretrain cli resume argv]`,
+    `[pretrain cli resume]`'s fp32 argv; `[ddp finetune cli]`, `[finetune
+    cli]`'s argv with `--dist_eval` (bf16, the encoder from the pre-training
+    CLI's checkpoint, 2 epochs, eval after each); `[ddp finetune cli resume
+    argv]`, `[finetune cli resume]`'s fp32 argv with `--update_freq 2`.  The
+    launches of every step and eval batch asserted, the bf16 runs' ms a step
+    beside the one-process runs' of this script, the fp32 runs equal bit
+    for bit to the one-process straight runs.  Returns the launch counts of
+    the two bf16 runs."""
+    ft_data = ["--data_path", os.path.join(d, "labelled"), "--finetune", pre_ckpt,
+               "--epochs", str(FT_CLI_EPOCHS)]
+    runs = [
+        ("ddp pretrain cli", "pretrain", [
+            "--image_alone_path", db, "--output_dir", os.path.join(d, "ddp_device_aug"),
+            "--epochs", str(PRE_CLI_EPOCHS), "--device_aug"]),
+        ("ddp pretrain cli resume argv", "pretrain", [
+            "--image_alone_path", db, "--output_dir", os.path.join(d, "ddp_resume"),
+            "--epochs", str(PRE_CLI_EPOCHS), "--device_aug", "--dtype", "float32"]),
+        ("ddp finetune cli", "finetune", [
+            *ft_data, "--eval_data_path", os.path.join(d, "labelled_eval"), "--output_dir",
+            os.path.join(d, "ddp_finetune"), "--dist_eval"]),
+        ("ddp finetune cli resume argv", "finetune", [
+            *ft_data, "--output_dir", os.path.join(d, "ddp_ft_resume"), "--dtype", "float32",
+            "--attn_drop_rate", "0", "--update_freq", "2", "--device_abi_aug"]),
+    ]
+    res, dt = run_ddp_clis(torch, d, runs)
+    print(f"[ddp] one torchrun --nproc_per_node 1 call ran the four CLI runs below in "
+          f"{dt:.1f} s, its start, imports and CUDA set-up included")
+
     tag = "ddp pretrain cli"
-    out = os.path.join(d, "ddp_device_aug")
-    res, dt = run_ddp_cli(torch, tag, "pretrain", [
-        "--image_alone_path", db, "--output_dir", out, "--epochs", str(PRE_CLI_EPOCHS),
-        "--device_aug"], os.path.join(d, "ddp_pretrain.pt"))
-    check(len(res["steps"]) == PRE_CLI_STEPS and res["step"] == res["count"] == PRE_CLI_STEPS,
-          f"[{tag}] {len(res['steps'])} steps")
-    for i, counts in enumerate(res["steps"]):
+    r = res[tag]
+    check(len(r["steps"]) == PRE_CLI_STEPS and r["step"] == r["count"] == PRE_CLI_STEPS,
+          f"[{tag}] {len(r['steps'])} steps")
+    for i, counts in enumerate(r["steps"]):
         check(counts == PER_STEP, f"[{tag}] step {i}: launches {counts} != {PER_STEP}")
-    log, screen = check_cli_outputs(out, tag)
+    log, screen = check_cli_outputs(os.path.join(d, "ddp_device_aug"), tag)
     check("devices: 1 (cuda:0, nccl)" in screen, f"[{tag}] screen.txt names no NCCL group")
     s_it, s_data = epoch_rate(screen, PRE_CLI_EPOCHS - 1)
     with open(os.path.join(d, "device_aug", "screen.txt")) as f:
         one_it, one_data = epoch_rate(f.read(), PRE_CLI_EPOCHS - 1)
-    print(f"[{tag}] torchrun --nproc_per_node 1 run_pretrain --device_aug, bf16 batch "
-          f"{PRE_BATCH}: NCCL, world size 1; {PRE_CLI_EPOCHS} epochs of "
-          f"{PRE_CLI_STEPS // PRE_CLI_EPOCHS} steps in {dt:.3f} s (torchrun's start, the "
-          f"process's imports and CUDA set-up included); the last epoch {s_it * 1e3:.1f} ms a "
-          f"step ({PRE_BATCH / s_it:.1f} images/s, waiting {s_data * 1e3:.1f} ms for the "
-          f"loader) against {one_it * 1e3:.1f} ms ({one_data * 1e3:.1f} waiting) in one process "
-          f"([pretrain cli device_aug], this script): the reducer, the gathers and the "
-          f"statistics' all-reduces at world 1 cost {(s_it - one_it) * 1e3:+.1f} ms a step by "
-          f"the CLIs' own clocks; launches {launches_text(res['steps'][0])} at every step; "
-          f"epoch losses {[round(line['train_loss'], 5) for line in log]}; "
-          f"{collectives_text(res, PRE_CLI_STEPS)}")
+    print(f"[{tag}] run_pretrain --device_aug under torchrun, NCCL at world size 1, bf16 "
+          f"batch {PRE_BATCH}, {PRE_CLI_EPOCHS} epochs of {PRE_CLI_STEPS // PRE_CLI_EPOCHS} "
+          f"steps in {r['run']['seconds']:.3f} s; the last epoch {s_it * 1e3:.1f} ms a step "
+          f"({PRE_BATCH / s_it:.1f} images/s, waiting {s_data * 1e3:.1f} ms for the loader) "
+          f"against {one_it * 1e3:.1f} ms ({one_data * 1e3:.1f} waiting) in one process "
+          f"([pretrain cli device_aug], this script), {(s_it - one_it) * 1e3:+.1f} ms by the "
+          f"CLIs' own clocks; {collectives_text(r, PRE_CLI_STEPS)}; launches "
+          f"{launches_text(r['steps'][0])} at every step; epoch losses "
+          f"{[round(line['train_loss'], 5) for line in log]}")
+
     tag = "ddp pretrain cli resume argv"
-    out = os.path.join(d, "ddp_resume")
-    res, dt = run_ddp_cli(torch, tag, "pretrain", [
-        "--image_alone_path", db, "--output_dir", out, "--epochs", str(PRE_CLI_EPOCHS),
-        "--device_aug", "--dtype", "float32"], os.path.join(d, "ddp_pretrain_fp32.pt"))
-    for i, counts in enumerate(res["steps"]):
+    r = res[tag]
+    for i, counts in enumerate(r["steps"]):
         check(counts == PER_STEP, f"[{tag}] step {i}: launches {counts} != {PER_STEP}")
-    n, moments = check_bit_equal(tag, res["run"], resume_ref)
+    n, moments = check_bit_equal(torch, tag, r["run"], pre_ref)
     print(f"[{tag}] fp32 --device_aug under torchrun, NCCL at world size 1, against "
           f"[pretrain cli resume]'s straight run in this process: {n} tensors and {moments} "
           f"AdamW moment and step tensors equal bit for bit (torch.equal), log.txt byte for "
-          f"byte; {res['run']['seconds']:.3f} s in the child against "
-          f"{resume_ref['seconds']:.3f} s")
-    return dict(zip(KERNEL_NAMES, (sum(c[k] for c in res["steps"]) for k in KERNEL_NAMES)))
+          f"byte; {r['run']['seconds']:.3f} s against {pre_ref['seconds']:.3f} s")
 
-
-def phase_ddp_finetune_cli(torch, d, pre_ckpt, resume_ref):
-    """`run_finetune` under torchrun at world size 1 over NCCL: `[finetune
-    cli]`'s argv with `--dist_eval` (bf16, the encoder from the pre-training
-    CLI's checkpoint, 2 epochs, eval after each), every step's and eval
-    batch's launches asserted, its ms a step beside the one-process run's;
-    then `[finetune cli resume]`'s fp32 argv, equal bit for bit to that
-    phase's straight run."""
     tag = "ddp finetune cli"
-    out = os.path.join(d, "ddp_finetune")
-    res, dt = run_ddp_cli(torch, tag, "finetune", [
-        "--data_path", os.path.join(d, "labelled"), "--eval_data_path",
-        os.path.join(d, "labelled_eval"), "--finetune", pre_ckpt, "--output_dir", out,
-        "--epochs", str(FT_CLI_EPOCHS), "--dist_eval"], os.path.join(d, "ddp_finetune.pt"))
+    r = res[tag]
     n_steps = FT_CLI_RECORDS // FT_BATCH * FT_CLI_EPOCHS
     n_evals = -(-FT_CLI_EVAL_RECORDS // FT_BATCH) * FT_CLI_EPOCHS
-    check(len(res["steps"]) == n_steps and len(res["evals"]) == n_evals
-          and res["step"] == n_steps, f"[{tag}] {len(res['steps'])} steps, "
-          f"{len(res['evals'])} eval batches")
-    for i, counts in enumerate(res["steps"]):
+    check(len(r["steps"]) == n_steps and len(r["evals"]) == n_evals and r["step"] == n_steps,
+          f"[{tag}] {len(r['steps'])} steps, {len(r['evals'])} eval batches")
+    for i, counts in enumerate(r["steps"]):
         check(counts == FT_PER_STEP, f"[{tag}] step {i}: launches {counts} != {FT_PER_STEP}")
-    for i, counts in enumerate(res["evals"]):
+    for i, counts in enumerate(r["evals"]):
         check(counts == FT_EVAL_BATCH, f"[{tag}] eval batch {i}: launches {counts}")
+    out = os.path.join(d, "ddp_finetune")
     with open(os.path.join(out, "log.txt")) as f:
         log = [json.loads(line) for line in f]
     check([line["epoch"] for line in log] == list(range(FT_CLI_EPOCHS))
@@ -1049,31 +1203,31 @@ def phase_ddp_finetune_cli(torch, d, pre_ckpt, resume_ref):
     s_it, s_data = epoch_rate(screen, FT_CLI_EPOCHS - 1)
     with open(os.path.join(d, "finetune_cli", "screen.txt")) as f:
         one_it, one_data = epoch_rate(f.read(), FT_CLI_EPOCHS - 1)
-    print(f"[{tag}] torchrun --nproc_per_node 1 run_finetune --dist_eval, bf16 batch "
-          f"{FT_BATCH}: NCCL, world size 1; {FT_CLI_EPOCHS} epochs of {n_steps // FT_CLI_EPOCHS} "
-          f"steps + eval of {FT_CLI_EVAL_RECORDS} records after each in {dt:.3f} s; the last "
+    print(f"[{tag}] run_finetune --dist_eval under torchrun, NCCL at world size 1, bf16 batch "
+          f"{FT_BATCH}, {FT_CLI_EPOCHS} epochs of {n_steps // FT_CLI_EPOCHS} steps + eval of "
+          f"{FT_CLI_EVAL_RECORDS} records after each in {r['run']['seconds']:.3f} s; the last "
           f"epoch {s_it * 1e3:.1f} ms a step (waiting {s_data * 1e3:.1f} ms for the loader) "
           f"against {one_it * 1e3:.1f} ms ({one_data * 1e3:.1f} waiting) in one process "
-          f"([finetune cli]); launches {launches_text(res['steps'][0])} at every step, "
-          f"{launches_text(res['evals'][0])} every eval batch; val acc "
-          f"{[line['val_acc'] for line in log]}; {collectives_text(res, n_steps)}")
+          f"([finetune cli]), {(s_it - one_it) * 1e3:+.1f} ms; {collectives_text(r, n_steps)}; "
+          f"launches {launches_text(r['steps'][0])} at every step, "
+          f"{launches_text(r['evals'][0])} every eval batch; val acc "
+          f"{[line['val_acc'] for line in log]}")
+
     tag = "ddp finetune cli resume argv"
-    res, dt = run_ddp_cli(torch, tag, "finetune", [
-        "--data_path", os.path.join(d, "labelled"), "--finetune", pre_ckpt, "--output_dir",
-        os.path.join(d, "ddp_ft_resume"), "--epochs", str(FT_CLI_EPOCHS), "--dtype", "float32",
-        "--attn_drop_rate", "0", "--update_freq", "2", "--device_abi_aug"],
-        os.path.join(d, "ddp_finetune_fp32.pt"))
-    for i, counts in enumerate(res["steps"]):
+    r = res[tag]
+    for i, counts in enumerate(r["steps"]):
         check(counts == FT_PER_STEP_RESUME, f"[{tag}] micro-step {i}: launches {counts}")
-    check(res["step"] == n_steps and res["count"] == n_steps // 2,
-          f"[{tag}] {res['step']} micro-steps, {res['count']} updates")
-    n, moments = check_bit_equal(tag, res["run"], resume_ref)
+    check(r["step"] == n_steps and r["count"] == n_steps // 2,
+          f"[{tag}] {r['step']} micro-steps, {r['count']} updates")
+    n, moments = check_bit_equal(torch, tag, r["run"], ft_ref)
     print(f"[{tag}] fp32 --attn_drop_rate 0 --update_freq 2 --device_abi_aug under torchrun, "
           f"NCCL at world size 1, against [finetune cli resume]'s straight run: {n} tensors, "
-          f"{moments} AdamW moment and step tensors and {len(resume_ref['acc'])} accumulators "
-          f"equal bit for bit, log.txt byte for byte; {res['run']['seconds']:.3f} s in the "
-          f"child against {resume_ref['seconds']:.3f} s")
-    return dict(zip(KERNEL_NAMES, (sum(c[k] for c in res["steps"]) for k in KERNEL_NAMES)))
+          f"{moments} AdamW moment and step tensors and {len(ft_ref['acc'])} accumulators "
+          f"equal bit for bit, log.txt byte for byte; {r['run']['seconds']:.3f} s against "
+          f"{ft_ref['seconds']:.3f} s")
+    return tuple(dict(zip(KERNEL_NAMES, (sum(c[k] for c in res[t]["steps"])
+                                         for k in KERNEL_NAMES)))
+                 for t in ("ddp pretrain cli", "ddp finetune cli"))
 
 
 def phase_to_model_images(torch, np):
@@ -2401,6 +2555,7 @@ def main():
     phase_finetune_cpu_parity(torch, np)
     phase_sync_debug_step(torch, np)
     phase_pretrain_data(torch, np, paths)
+    phase_two_ranks_one_card(torch, np)
 
     def row(name, source, replaces, measured, path):
         return dict(name=name, route="cuda", source=f"dig_tpu_torch/ops/csrc/{source}.cu",
@@ -2437,8 +2592,10 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--ddp-child"]:  # started by run_ddp_cli through torchrun
-        sys.exit(ddp_child(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--ddp-child"]:  # started by run_ddp_clis through torchrun
+        sys.exit(ddp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--gloo-child"]:  # started by phase_two_ranks_one_card
+        sys.exit(gloo_child(sys.argv[2]))
     try:
         sys.exit(main())
     except Exception as e:  # any failed phase: report and exit non-zero, no result line

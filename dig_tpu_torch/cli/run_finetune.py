@@ -96,6 +96,7 @@ from dig_tpu_torch.parallel.dist import (
     get_rank,
     get_world_size,
     init_distributed_mode,
+    mean_over_ranks,
 )
 from dig_tpu_torch.parallel.mesh import check_mesh, host_local_rows, local_batch
 from dig_tpu_torch.train.finetune import init_finetune_state, make_eval_step, make_finetune_step
@@ -113,7 +114,6 @@ from dig_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from dig_tpu_torch.cli.run_pretrain import mean_over_ranks
 from dig_tpu_torch.utils.logging import (
     JsonlLogger,
     ScreenTee,
@@ -304,8 +304,7 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard)
         rng=np.random.default_rng(cfg.seed + rank))
     loader = make_train_loader(
         train_ds, local_batch=local_batch(cfg.batch_size), rank=rank, world=world,
-        seed=cfg.seed,
-        num_workers=cfg.num_workers, worker_type=cfg.worker_type,
+        seed=cfg.seed, num_workers=cfg.num_workers, worker_type=cfg.worker_type,
         batch_wise_shuffle=cfg.batch_wise_shuffle)
     micro_steps = len(loader)  # loader batches an epoch; updates: // update_freq
     steps_per_epoch = micro_steps // cfg.update_freq
@@ -391,7 +390,7 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard)
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
                 class_acc = word_accuracy(
                     pred_ids.cpu().numpy(), batch["targets"].cpu().numpy(), charset)
-                host_metrics = mean_over_ranks(dict(metrics, class_acc=class_acc), world)
+                host_metrics = mean_over_ranks(dict(metrics, class_acc=class_acc))
                 if not math.isfinite(host_metrics["loss"]):
                     print(f"Loss is {host_metrics['loss']}, stopping training")
                     sys.exit(1)

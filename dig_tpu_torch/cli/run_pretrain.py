@@ -68,10 +68,10 @@ from dig_tpu_torch.data.pipeline import device_prefetch, make_train_loader, pinn
 from dig_tpu_torch.models.moco import build_pretrain_model
 from dig_tpu_torch.optim import create_optimizer
 from dig_tpu_torch.parallel.dist import (
-    all_reduce_floats,
     broadcast_module,
     destroy,
     init_distributed_mode,
+    mean_over_ranks,
 )
 from dig_tpu_torch.parallel.mesh import check_mesh, local_batch
 from dig_tpu_torch.train.pretrain import (
@@ -267,7 +267,7 @@ def _run(cfg: PretrainConfig, dist_info: dict, guard):
             # the metrics stay on the device but for these steps: reading a
             # scalar waits for the card, and a wait a step would stall it
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
-                host_metrics = mean_over_ranks(metrics, world)
+                host_metrics = mean_over_ranks(metrics)
                 if not math.isfinite(host_metrics["loss"]):
                     print(f"Loss is {host_metrics['loss']}, stopping training")
                     sys.exit(1)
@@ -292,15 +292,6 @@ def _run(cfg: PretrainConfig, dist_info: dict, guard):
     tracer.close()
     tb.flush()
     return state
-
-
-def mean_over_ranks(metrics: dict, world: int) -> dict:
-    """A step's metrics (device scalars or numbers) on the host, each the mean over the
-    data-parallel ranks of their values: the global batch's loss, as the
-    JAX step logs it, and one value on every rank, so every rank takes the
-    same decision on it (a non-finite loss)."""
-    sums = all_reduce_floats([float(v) for v in metrics.values()])
-    return {k: v / world for k, v in zip(metrics, sums)}
 
 
 if __name__ == "__main__":

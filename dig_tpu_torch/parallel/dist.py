@@ -13,8 +13,8 @@ modeling_pretrain_moco_mim_ori.py:581-593):
   NCCL when the device is a card, gloo only when the caller asks for the
   CPU.  A failed NCCL set-up raises; nothing falls back to another backend.
 * `concat_all_gather` (no gradient), `all_reduce_sum` (an autograd
-  Function whose backward is an all-reduce-sum too), `all_reduce_floats`
-  and `broadcast_floats` on the host, `broadcast_module` (rank 0's weights
+  Function whose backward is an all-reduce-sum too), `all_reduce_floats`,
+  `mean_over_ranks` and `broadcast_floats` on the host, `broadcast_module` (rank 0's weights
   at start-up), and `GradientReducer`.
 
 Every collective is a no-op without a process group, so one process runs
@@ -96,15 +96,14 @@ def init_distributed_mode(device="cuda", rank: Optional[int] = None,
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"data-parallel training runs on cuda or cpu, not {device}")
+    found = _from_launcher()
     if is_distributed():
-        found = _from_launcher()
         local = local_rank if local_rank is not None else (found[2] if found else 0)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
         return {"rank": dist.get_rank(), "world_size": dist.get_world_size(),
                 "local_rank": local, "device": device, "backend": dist.get_backend(),
                 "created": False}
-    found = _from_launcher()
     if world_size is None:
         if found is None:
             return {"rank": 0, "world_size": 1, "local_rank": 0, "device": device,
@@ -204,6 +203,16 @@ def all_reduce_floats(values: Sequence[float], op: str = "sum") -> List[float]:
     return [float(v) for v in t.cpu()]
 
 
+def mean_over_ranks(values: dict) -> dict:
+    """Numbers (or device scalars) by name, each the mean over the ranks of
+    their values, on the host: a step's loss over the global batch, as the
+    JAX step logs it, and one value on every rank, so that every rank takes
+    the same decision on it (a non-finite loss stops all of them)."""
+    sums = all_reduce_floats([float(v) for v in values.values()])
+    world = get_world_size()
+    return {k: v / world for k, v in zip(values, sums)}
+
+
 def broadcast_floats(values: Sequence[float], src: int = 0) -> List[float]:
     """Rank `src`'s numbers on every rank, in float64."""
     if not is_distributed():
@@ -227,13 +236,17 @@ class GradientReducer:
     """The data-parallel gradient: for a fixed list of parameters, the sum
     of every rank's gradients divided once by the world size.  One flat
     buffer and one all-reduce per (dtype, device) group, the parameters in
-    their fixed order, so every rank issues the same collectives.  Each
-    gradient starts at an offset of `ALIGN_BYTES` in its buffer, as a fresh
-    allocation would, so the kernels that read the reduced gradients take
-    the same vectorised paths, and sum in the same order, as on a fresh
-    gradient: at world size 1 the step's bits are the single process's.
-    A gradient that is None counts as zero on that rank (the optimizer
-    steps such a parameter with a zero gradient, as optax does).  The
+    their fixed order, so every rank issues the same collectives.  The
+    buffers and each parameter's view into them are made once and kept:
+    a call copies the gradients in with one fused copy a group, so its
+    host time does not grow with the number of parameters.  Each view
+    starts at a multiple of `ALIGN_BYTES` from its buffer's start, as a
+    fresh allocation would, so the kernels that read the reduced gradients
+    take the same vectorised paths, and sum in the same order, as on a
+    fresh gradient: at world size 1 the step's bits are the single
+    process's.  A gradient that is None counts as zero on that rank (the
+    optimizer steps such a parameter with a zero gradient, as optax does).
+    The returned gradients are views that the next call overwrites.  The
     reduction starts after the whole backward; overlapping it with the
     backward is not done."""
 
@@ -242,16 +255,10 @@ class GradientReducer:
     def __init__(self, params: Sequence[torch.Tensor]):
         self.params = list(params)
         self.world = get_world_size()
-
-    def reduce(self, grads: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
-        """`grads` aligned with the parameters -> the reduced gradients, each
-        a view into its group's buffer."""
-        if len(grads) != len(self.params):
-            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
         groups = {}
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            groups.setdefault((p.dtype if g is None else g.dtype, p.device), []).append(i)
-        out: List[Optional[torch.Tensor]] = [None] * len(self.params)
+        for i, p in enumerate(self.params):
+            groups.setdefault((p.dtype, p.device), []).append(i)
+        self.groups = []  # (flat buffer, parameter indices, their views)
         for (dtype, device), idx in groups.items():
             align = max(1, self.ALIGN_BYTES // torch.empty((), dtype=dtype).element_size())
             offsets, total = [], 0
@@ -261,9 +268,21 @@ class GradientReducer:
             flat = torch.zeros(total, dtype=dtype, device=device)
             views = [flat[o:o + self.params[i].numel()].view_as(self.params[i])
                      for i, o in zip(idx, offsets)]
+            self.groups.append((flat, idx, views))
+
+    def reduce(self, grads: Sequence[Optional[torch.Tensor]]) -> List[torch.Tensor]:
+        """`grads` aligned with the parameters -> the reduced gradients, each
+        a view into its group's buffer."""
+        if len(grads) != len(self.params):
+            raise ValueError(f"{len(grads)} gradients for {len(self.params)} parameters")
+        out: List[Optional[torch.Tensor]] = [None] * len(self.params)
+        for flat, idx, views in self.groups:
             given = [(v, grads[i]) for v, i in zip(views, idx) if grads[i] is not None]
+            missing = [v for v, i in zip(views, idx) if grads[i] is None]
             if given:
                 torch._foreach_copy_([v for v, _ in given], [g for _, g in given])
+            if missing:
+                torch._foreach_zero_(missing)
             if is_distributed():
                 dist.all_reduce(flat)
             flat.div_(self.world)

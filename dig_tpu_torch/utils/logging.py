@@ -4,8 +4,9 @@ Counterpart of `dig_tpu/utils/logging.py`.  Parity targets: stdout tee
 `Logger` to ``screen.txt`` (reference: utils/logging.py:28-67), per-epoch
 JSON-lines ``log.txt`` (run_mae_pretraining_moco.py:445-449),
 `TensorboardLogger` (utils/utils.py:285-306), and process-0-only printing
-(utils/utils.py:319-331), here a helper rather than a builtins.print
-monkey-patch.
+(utils/utils.py:319-331), here `stdout_on_main_process_only`, a scope
+rather than a builtins.print monkey-patch, so that an in-process `main`
+leaves print as it found it.
 
 Under data-parallel training only rank 0 writes ``log.txt`` and
 TensorBoard scalars (`parallel.dist.is_main_process`).
@@ -17,39 +18,12 @@ whose own output must reach the real stdout afterwards."""
 
 from __future__ import annotations
 
-import builtins
 import contextlib
 import json
 import os
 import sys
 
 from dig_tpu_torch.parallel.dist import is_main_process
-
-
-# the real builtin, captured before any setup_print_for_distributed shim
-# replaces it — operational messages (preemption catches, fatal paths)
-# must be visible from EVERY host, not just rank 0
-_BUILTIN_PRINT = builtins.print
-
-
-def print_every_rank(*args, **kwargs):
-    """Print that bypasses the non-zero-rank gate.  Use for per-host
-    operational events where WHICH host matters (e.g. which worker
-    caught SIGTERM), never for metric spam."""
-    kwargs.setdefault("flush", True)
-    _BUILTIN_PRINT(*args, **kwargs)
-
-
-def setup_print_for_distributed():
-    """Silence print on non-zero hosts (force=True overrides)."""
-    builtin_print = builtins.print
-
-    def printer(*args, **kwargs):
-        force = kwargs.pop("force", False)
-        if is_main_process() or force:
-            builtin_print(*args, **kwargs)
-
-    builtins.print = printer
 
 
 @contextlib.contextmanager

@@ -26,7 +26,6 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.modules["tensorflow"] = None  # TensorBoard scalars off: its import alone takes seconds
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from dig_tpu_torch.parallel.dist import destroy, init_distributed_mode  # noqa: E402
