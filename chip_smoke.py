@@ -1748,26 +1748,38 @@ def stop_children(wait_s=10.0):
     return left
 
 
+PROFILE_TRIES = 3  # profiler sessions a profiled call may take (see profile_fn)
+
+
 def profile_fn(torch, fn, n_top=10):
     """Device time by kernel over one call of `fn` (torch.profiler, CUPTI):
-    the top kernels, the device's busy time and the host wall time."""
+    the top kernels, the device's busy time and the host wall time.  A
+    session that records no device event at all is taken again, up to
+    PROFILE_TRIES sessions: on the card's machine one session in a whole
+    run of this script once came back without any device event (my chip
+    run 5, PR 9, the `[device view]` profile, which passed in every other
+    run), a fault of the tracer and not of the call, which runs its
+    kernels either way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: a host op's device time repeats its kernels',
-    # and so does the optimizer's annotation, which the trace mirrors onto
-    # the device's timeline
-    rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("Optimizer.")]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: a host op's device time repeats its
+        # kernels', and so does the optimizer's annotation, which the trace
+        # mirrors onto the device's timeline
+        rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.key.startswith("Optimizer.")]
+        if rows:
+            break
+    check(rows, f"the profiler saw no device time in {PROFILE_TRIES} sessions")
     rows.sort(key=lambda r: -r[1])
-    check(rows, "the profiler saw no device time")
     return rows[:n_top], sum(ms for _, ms in rows), wall_ms
 
 
