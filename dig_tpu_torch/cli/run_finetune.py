@@ -53,8 +53,10 @@ every rank evaluates the whole set and rank 0's figures decide.  Only rank
 SIGTERM / SIGINT checkpoint at the next step boundary and exit 0 (143
 without an `--output_dir`); a non-finite loss exits 1.  Runs on CUDA;
 `main(cfg, device="cpu")` runs the plain versions of the kernels (and,
-across processes, over gloo).  stdout is teed into ``screen.txt``, and the
-signal handlers and the GELU form are set, only while `main` runs.
+across processes, over gloo).  Process workers (`--worker_type process`)
+and their server are stopped when `main` ends, on every rank.  stdout is
+teed into ``screen.txt``, and the signal handlers and the GELU form are
+set, only while `main` runs.
 
 Refused with a message (see ROADMAP.md): `--model_kind` other than rec,
 feature distillation, optimizers other than adamw, `--text_cond_vis`,
@@ -80,6 +82,7 @@ from dig_tpu_torch.data.pipeline import (
     device_prefetch,
     make_train_loader,
     pinned_to_device,
+    stop_worker_processes,
 )
 from dig_tpu_torch.data.samplers import ShardedSampler
 from dig_tpu_torch.metrics.text import accuracy as word_accuracy
@@ -247,6 +250,8 @@ def main(cfg: FinetuneConfig, device="cuda"):
                 if tee is not None:
                     tee.close()
     finally:
+        if cfg.worker_type == "process":  # this rank's loader workers and their server
+            stop_worker_processes()
         if dist_info["created"]:
             destroy()
 

@@ -42,10 +42,11 @@ torchrun's variables (`parallel.dist.init_distributed_mode`), or joins a
 process group its caller made.
 
 Runs on CUDA; `main(cfg, device="cpu")` runs the plain versions of the
-kernels (and, across processes, over gloo).  stdout is teed into
-``screen.txt``, and the signal handlers are installed, only while `main`
-runs: both are put back when it returns or raises (the JAX CLI leaves
-them installed).
+kernels (and, across processes, over gloo).  Process workers
+(`--worker_type process`) and their server are stopped when `main` ends,
+on every rank.  stdout is teed into ``screen.txt``, and the signal
+handlers are installed, only while `main` runs: both are put back when it
+returns or raises (the JAX CLI leaves them installed).
 
 Not ported yet, each refused with a message (see ROADMAP.md): `--n_fsdp` /
 `--n_tensor` above 1, `--remat`, optimizers other than adamw,
@@ -64,7 +65,12 @@ import torch
 
 from dig_tpu_torch.config import PretrainConfig, config_to_json, parse_config
 from dig_tpu_torch.data.dataset import build_pretraining_dataset
-from dig_tpu_torch.data.pipeline import device_prefetch, make_train_loader, pinned_to_device
+from dig_tpu_torch.data.pipeline import (
+    device_prefetch,
+    make_train_loader,
+    pinned_to_device,
+    stop_worker_processes,
+)
 from dig_tpu_torch.models.moco import build_pretrain_model
 from dig_tpu_torch.optim import create_optimizer
 from dig_tpu_torch.parallel.dist import (
@@ -153,6 +159,8 @@ def main(cfg: PretrainConfig, device="cuda"):
                 if tee is not None:
                     tee.close()
     finally:
+        if cfg.worker_type == "process":  # this rank's loader workers and their server
+            stop_worker_processes()
         if dist_info["created"]:
             destroy()
 

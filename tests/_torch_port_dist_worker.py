@@ -19,6 +19,8 @@ Reads ``<dir>/inputs.pt`` (written by the test), joins a process group of
 Imports neither jax nor dig_tpu: the port's side only.
 """
 
+import multiprocessing
+import multiprocessing.forkserver
 import os
 import signal
 import sys
@@ -171,7 +173,11 @@ def _cli(inp, rank, world):
     pre = parse_config(PretrainConfig, inp["pretrain_argv"])
     first = run_pretrain.main(pre, device="cpu")
     out = {"pretrain": {k: v.clone() for k, v in first.model.state_dict().items()},
-           "pretrain_step": first.step}
+           "pretrain_step": first.step,
+           # the run's process workers (--worker_type process) and their
+           # server, which main stops on every rank
+           "left_running": [p.name for p in multiprocessing.active_children()],
+           "forkserver": multiprocessing.forkserver._forkserver._forkserver_pid}
     # again, through the multi-host launcher, which joins this group: it
     # auto-resumes the last checkpoint and trains nothing more
     again = run_pretrain_multihost.main(pre, device="cpu")

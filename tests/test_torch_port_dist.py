@@ -535,7 +535,7 @@ def cli(tmp_path_factory):
     pretrain_argv = ["--model", "pretrain_simmim_moco_ori_vit_micro_patch4_32x128",
                      "--image_alone_path", paths["alone"], "--output_dir", pre_out,
                      "--moco_mlp_dim", "32", "--moco_dim", "16", "--num_windows", "4",
-                     "--warmup_steps", "1", "--device_aug", *common]
+                     "--warmup_steps", "1", "--device_aug", "--worker_type", "process", *common]
     model = ["--model", "vit_micro_patch4_32x128", "--decoder_name", "small_tf_decoder"]
     finetune_argv = [*model, "--data_path", paths["labelled"], "--eval_data_path",
                      paths["labelled"], "--finetune", os.path.join(pre_out, "checkpoint-0"),
@@ -558,7 +558,8 @@ def _log(out):
 
 def test_cli_two_ranks_write_once_from_rank_0(cli):
     """One line an epoch in log.txt, one screen.txt, the checkpoints of
-    each run; the ranks end with the same weights."""
+    each run; the ranks end with the same weights and leave no worker
+    process behind."""
     for out, steps in ((cli["pre_out"], 2), (cli["ft_out"], 2)):
         assert [line["epoch"] for line in _log(out)] == [0]
         with open(os.path.join(out, "checkpoint-0", "meta.json")) as f:
@@ -573,6 +574,9 @@ def test_cli_two_ranks_write_once_from_rank_0(cli):
     assert a["pretrain_step"] == b["pretrain_step"] == 2
     assert a["finetune_step"] == b["finetune_step"] == 2
     assert all(r["info"]["backend"] == "gloo" for r in cli["ranks"])
+    # the pre-training run's loader ran on process workers: every rank's
+    # main stopped them and their forkserver
+    assert all(r["left_running"] == [] and r["forkserver"] is None for r in cli["ranks"])
 
 
 def test_cli_two_ranks_auto_resume_the_same_checkpoint(cli):
