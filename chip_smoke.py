@@ -1755,11 +1755,10 @@ def profile_fn(torch, fn, n_top=10):
     """Device time by kernel over one call of `fn` (torch.profiler, CUPTI):
     the top kernels, the device's busy time and the host wall time.  A
     session that records no device event at all is taken again, up to
-    PROFILE_TRIES sessions: on the card's machine one session in a whole
-    run of this script once came back without any device event (my chip
-    run 5, PR 9, the `[device view]` profile, which passed in every other
-    run), a fault of the tracer and not of the call, which runs its
-    kernels either way."""
+    PROFILE_TRIES sessions: on an NVIDIA H100 one session in a whole run of
+    this script has come back without any device event (the `[device
+    view]` profile, which passes in other runs), a fault of the tracer and
+    not of the call, which runs its kernels either way."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
