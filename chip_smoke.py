@@ -54,7 +54,23 @@
    the eval step (`make_eval_step`, greedy, full length) on one batch of
    256 with each attention pair; asserts their launch counts.
 8. Checks one fp32 fine-tuning step of the full-width recognizer (rates 0,
-   the column sum on) on the card against the CPU.
+   the column sum on) on the card against the CPU.  Then every recognizer
+   kind: `[attention at L=281]` holds #3, #4, #1 and #2 against their plain
+   versions at the seq-cls encoder's shape (B=256, L=281, H=12, D=64; bf16
+   and fp32), each timed beside SDPA; `[kinds step]` runs each kind's step
+   at the FinetuneConfig defaults, full width, bf16, batch 256 (halved until
+   it fits where it does not: the text-conditional decoder), 2 warm-up and
+   5 timed steps (ctc, attn, mim_rec and the decoupled decoder on
+   vit_small; rec with --text_cond_vis; distillation from a second
+   recognizer of the same seed; seq_cls on vit_seq_cls_base as is and with
+   attention dropout 0), asserting its launches a step, a finite loss, a
+   finite gradient on every trainable tensor, that they moved and that the
+   teacher did not, then its eval batch (greedy at full length; beam 3 for
+   attn and the decoupled decoder) with its launches; `[memory bank]` one
+   step of a recognizer whose encoder holds a frozen memory bank (no
+   gradient, bit-equal after the step); `[kinds cpu parity]`
+   one fp32 step and one greedy eval batch of each kind at batch 2, rates
+   0, card against CPU (every gradient leaf, the ids equal).
 9. Drives the pre-training data path and CLI at full width on an LMDB of
    1,024 seeded PNG word images (8 steps an epoch at batch 128): the
    on-device view generator on one batch (exact mask counts, range, and in
@@ -81,7 +97,14 @@
    parameter, AdamW moment, step tensor and accumulator bit for bit,
    log.txt byte for byte); the `--eval` sweep over two LMDBs, greedy and
    beam 3 (eval_results.json), beam width 1 against greedy, a beam batch
-   timed.  `to_model_images` on the card against the CPU for all 256
+   timed; `[kinds cli]`: `run_finetune.main` with `--decoder_type
+   attention`, with `--use_seq_cls_token --model
+   vit_seq_cls_base_patch4_32x128` and with `--use_feat_distill
+   --teacher_ckpt` the fine-tuning CLI's checkpoint directory (1 epoch of 4
+   steps + eval, launches of every step and eval batch asserted), and
+   `run_predict.main` with `--model_kind ctc` and with `--decoder_name
+   decoupled_tf_decoder` on the 1,024-record LMDB (every TSV line checked).
+   `to_model_images` on the card against the CPU for all 256
    values, and `torch.cuda.set_sync_debug_mode("warn")` over one
    fine-tuning step and one beam batch.
 11. Runs both training CLIs data-parallel under torchrun
@@ -817,6 +840,7 @@ def phase_finetune_data(torch, np, d, paths, pre_ckpt, db, pre_ref):
         torch, np, d, pre_ckpt, "finetune cli device_abi_aug", ["--device_abi_aug"])
     paths["finetune_cli_resume"], ft_ref = phase_finetune_resume(torch, d, pre_ckpt)
     paths["finetune_eval_sweep"] = phase_finetune_eval_sweep(torch, np, d, ft_out)
+    paths["kinds_cli"] = phase_kinds_cli(torch, np, d, ft_out)
     paths["ddp_pretrain_cli"], paths["ddp_finetune_cli"] = phase_ddp_clis(
         torch, d, db, pre_ckpt, pre_ref, ft_ref)
 
@@ -1296,6 +1320,12 @@ def counted_calls(module, name, log, sync):
         setattr(module, name, real)
 
 
+# the fine-tuning CLI's step and eval-step factories, one of each per model kind
+STEP_FACTORIES = ("make_finetune_step", "make_distill_finetune_step", "make_ctc_step",
+                  "make_mim_finetune_step")
+EVAL_FACTORIES = ("make_eval_step", "make_ctc_eval_step")
+
+
 def run_finetune_cli(torch, tag, argv, cut_after_epoch=None):
     """`run_finetune.main` on `argv`, every step's and every eval batch's
     launches recorded (the step and eval-step factories wrapped; an eval
@@ -1322,8 +1352,11 @@ def run_finetune_cli(torch, tag, argv, cut_after_epoch=None):
     reset_counts()
     t0 = time.perf_counter()
     out = None
-    with counted_calls(run_finetune, "make_finetune_step", steps, sync=False), \
-            counted_calls(run_finetune, "make_eval_step", evals, sync=True):
+    with contextlib.ExitStack() as stack:
+        for name in STEP_FACTORIES:
+            stack.enter_context(counted_calls(run_finetune, name, steps, sync=False))
+        for name in EVAL_FACTORIES:
+            stack.enter_context(counted_calls(run_finetune, name, evals, sync=True))
         run_finetune.JsonlLogger.write = write
         try:
             out = run_finetune.main(cfg)
@@ -1368,8 +1401,8 @@ def phase_finetune_cli(torch, np, d, pre_ckpt, tag, extra_argv):
     inits = []
     real_init = run_finetune.load_finetune_init
 
-    def init(c, model):
-        n = real_init(c, model)
+    def init(c, model, *path):
+        n = real_init(c, model, *path)
         inits.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()
                       if k.startswith("encoder.")})
         return n
@@ -2053,12 +2086,13 @@ def check_counts(tag, counts, want, steps):
 
 
 def check_trained(torch, model, before, tag):
-    """Every trainable tensor has a finite gradient and moved from `before`."""
+    """Every trainable tensor has a finite gradient, and every tensor of
+    `before` moved from it."""
     missing = [n for n, p in model.named_parameters()
                if p.requires_grad and (p.grad is None or not torch.isfinite(p.grad).all())]
     check(not missing, f"{tag}: parameters without a finite gradient: {missing[:8]}")
-    moved = [n for n, p in model.named_parameters() if p.requires_grad
-             and not torch.equal(p.detach(), before[n])]
+    params = dict(model.named_parameters())
+    moved = [n for n, b in before.items() if not torch.equal(params[n].detach(), b)]
     check(len(moved) == len(before), f"{tag}: {len(before) - len(moved)} parameters did not move")
     return len(moved)
 
@@ -2276,56 +2310,10 @@ def phase_colsum(torch, fd, gen):
 
 
 def finetune_setup(torch, np, dtype, batch, device, rates=True, seed=0):
-    """The port's fine-tuning entry points as a user calls them, at the
-    FinetuneConfig defaults: the recognizer (with the CLI's drop rates, or
-    every rate 0, the decoder's included, for the card-vs-CPU check),
-    AdamW with the schedules built as `dig_tpu/cli/run_finetune.py:311-330`
-    builds them (1000 steps an epoch, so the first lr, in the warm-up, is
-    above 0), the step, and one batch of uint8 images with labels from
-    numpy seed `seed`: random words of 1-24 characters, then EOS, then
-    PADDING."""
-    from dig_tpu_torch.config import FinetuneConfig
-    from dig_tpu_torch.models.rec_model import build_rec_model
-    from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
-    from dig_tpu_torch.train.finetune import init_finetune_state, make_finetune_step
-    from dig_tpu_torch.utils.charset import build_charset
-    from dig_tpu_torch.utils.schedules import cosine_schedule
-
-    cfg = FinetuneConfig(batch_size=batch).finalize(1)
-    steps_per_epoch = 1000
-    lr = cosine_schedule(cfg.absolute_lr, cfg.min_lr, cfg.epochs, steps_per_epoch,
-                         warmup_epochs=cfg.warmup_epochs, start_warmup_value=cfg.warmup_lr,
-                         warmup_steps=cfg.warmup_steps)
-    wd = cosine_schedule(cfg.weight_decay, cfg.weight_decay_end, cfg.epochs, steps_per_epoch)
-    check(lr[0] > 0, "the first step's lr must be above 0")
-    charset = build_charset(cfg.voc_type, cfg.max_len)
-    check(charset.num_classes == cfg.nb_classes, "charset and nb_classes disagree")
-    r = 1.0 if rates else 0.0
-    model = build_rec_model(cfg.model, cfg.decoder_name, cfg.nb_classes, cfg.max_len,
-                            drop_rate=r * cfg.drop, attn_drop_rate=r * cfg.attn_drop_rate,
-                            drop_path_rate=r * cfg.drop_path, use_1d_attdec=cfg.use_1d_attdec,
-                            use_mean_pooling=cfg.use_mean_pooling, dtype=dtype,
-                            model_kind=cfg.model_kind, seed=seed, device=device)
-    if not rates:  # the decoder's dropout too (its modules read the rate at every call)
-        for m in model.decoder.modules():
-            if hasattr(m, "dropout"):
-                m.dropout = 0.0
-    frozen = (frozen_encoder_mask(cfg.fixed_encoder_layers) if cfg.fixed_encoder_layers > 0
-              else None)
-    opt = create_optimizer(cfg.opt, model.named_parameters(), lr, wd, betas=cfg.opt_betas,
-                           eps=cfg.opt_eps, clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
-                           num_layers=model.encoder.depth, frozen=frozen,
-                           update_freq=cfg.update_freq)
-    state = init_finetune_state(model, opt)
-    step = make_finetune_step(model, cfg.smoothing)
-    rng = np.random.default_rng(seed)
-    lengths = rng.integers(2, cfg.max_len + 1, batch)  # characters + EOS
-    targets = np.full((batch, cfg.max_len), charset.padding_id, np.int64)
-    for i, n in enumerate(lengths):
-        targets[i, :n - 1] = rng.integers(0, charset.eos_id, n - 1)
-        targets[i, n - 1] = charset.eos_id
-    batch_np = {"images": rng.integers(0, 256, (batch, 32, 128, 3), dtype=np.uint8),
-                "targets": targets, "lengths": lengths}
+    """`kind_setup` of the recognizer at the FinetuneConfig defaults:
+    (model, state, step, batch, charset)."""
+    _, model, state, step, batch_np, charset, _ = kind_setup(torch, np, {}, dtype, batch, device,
+                                                             rates, seed)
     return model, state, step, batch_np, charset
 
 
@@ -2422,6 +2410,440 @@ def phase_finetune_cpu_parity(torch, np):
           f"{l_cpu:.7f} (cpu); {len(g_cpu)} gradient leaves within {STEP_RTOL} of their max "
           f"|g|; worst {worst:.2e} ({worst_name}); kernels launched "
           f"{ {k: v for k, v in FT_PER_STEP_RATES0.items() if v} }")
+
+
+# ---------------------------------------------------------------------------
+# every recognizer kind
+# ---------------------------------------------------------------------------
+
+KINDS_WARMUP, KINDS_STEPS = 2, 5
+SEQ_CLS_MODEL = "vit_seq_cls_base_patch4_32x128"
+# vit_seq_cls_base: 25 class queries + 256 patches.  Its LayerNorms see
+# B x 281 rows, a multiple of the LayerNorm kernel's 512-row blocks only at
+# B = 512k (281 is prime), so they take the plain version, as the JAX
+# package's gate (rows % 512) sends them; its attention takes #3 / #4
+SEQ_CLS_L = 281
+# launches a step at FinetuneConfig defaults (attention dropout 0.1: the
+# student's attention is unfused) and an eval batch, per kind
+KIND_STEP_DISTILL = per_step(attention_lse_fwd=12, layer_norm_fwd=48, layer_norm_bwd=24)
+SEQ_CLS_STEP = per_step()
+SEQ_CLS_STEP_ATTN0 = per_step(attention_lse_fwd=12, attention_lse_bwd=12)
+SEQ_CLS_EVAL = per_step(attention_lse_fwd=12)
+# rates 0 (the card-vs-CPU check): the encoder's attention on the stored-statistics pair
+KIND_STEP_RATES0 = FT_PER_STEP_RESUME
+# name -> (FinetuneConfig fields, beam widths of its eval, launches a step, an eval batch;
+# at rates 0 a step)
+KINDS = {
+    "ctc": (dict(model_kind="ctc"), (0,), FT_PER_STEP, FT_EVAL_BATCH, KIND_STEP_RATES0),
+    "attn": (dict(model_kind="attn"), (0, 3), FT_PER_STEP, FT_EVAL_BATCH, KIND_STEP_RATES0),
+    "mim_rec": (dict(model_kind="mim_rec"), (0,), FT_PER_STEP, FT_EVAL_BATCH, KIND_STEP_RATES0),
+    "decoupled": (dict(decoder_name="decoupled_tf_decoder"), (0, 3), FT_PER_STEP, FT_EVAL_BATCH,
+                  KIND_STEP_RATES0),
+    "text_cond": (dict(text_cond_vis=True), (0,), FT_PER_STEP, FT_EVAL_BATCH, KIND_STEP_RATES0),
+    "distill": (dict(use_feat_distill=True), (0,), KIND_STEP_DISTILL, FT_EVAL_BATCH,
+                dict(KIND_STEP_DISTILL, attention_lse_fwd=24, attention_lse_bwd=12)),
+    "seq_cls": (dict(model=SEQ_CLS_MODEL, model_kind="seq_cls"), (0,), SEQ_CLS_STEP,
+                SEQ_CLS_EVAL, SEQ_CLS_STEP_ATTN0),
+    "seq_cls attn_drop 0": (dict(model=SEQ_CLS_MODEL, model_kind="seq_cls", attn_drop_rate=0.0),
+                            (0,), SEQ_CLS_STEP_ATTN0, SEQ_CLS_EVAL, SEQ_CLS_STEP_ATTN0),
+}
+# trainable tensors a kind's training loss does not reach, in both packages:
+# the multi-label head's presence layer (the reference trains the recognition
+# CE only; its logits serve the eval's F-measure); its weight still decays
+KIND_IDLE = {"decoupled": {"multi_label.presence.bias"}}
+# the distillation projector's gradients pass three batch-statistics norms
+# over B x L rows, whose backward cancels the gradient's part along the
+# normalized features: fp32 puts them up to 1.1e-2 of a leaf's max from the
+# fp64 value (tests/test_torch_port_kinds_steps.py), so card and CPU are
+# held at 2e-2 there
+FEAT_PROJ_RTOL = 2e-2
+
+
+def labelled_batch(np, charset, max_len, batch, seed):
+    """Random words of 1-24 characters, then EOS, then PADDING, over uint8 noise."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(2, max_len + 1, batch)  # characters + EOS
+    targets = np.full((batch, max_len), charset.padding_id, np.int64)
+    for i, n in enumerate(lengths):
+        targets[i, :n - 1] = rng.integers(0, charset.eos_id, n - 1)
+        targets[i, n - 1] = charset.eos_id
+    return {"images": rng.integers(0, 256, (batch, 32, 128, 3), dtype=np.uint8),
+            "targets": targets, "lengths": lengths}
+
+
+def kind_setup(torch, np, fields, dtype, batch, device, rates=True, seed=0):
+    """The port's fine-tuning entry points as a user calls them: the
+    recognizer, step and eval of the FinetuneConfig defaults with `fields`
+    (a kind's), built as the fine-tuning CLI builds them
+    (`run_finetune.build_model` / `make_step`); AdamW with the schedules
+    built as `dig_tpu/cli/run_finetune.py:311-330` builds them (1000 steps an
+    epoch, so the first lr, in the warm-up, is above 0); one batch of uint8
+    images with labels from numpy seed `seed` (`labelled_batch`).  The
+    distillation teacher is a second recognizer from the same seed, frozen.
+    `rates=False`: every rate 0, the decoders' too (the card-vs-CPU checks).
+    Returns (cfg, model, state, step, batch, charset, teacher or None)."""
+    from dig_tpu_torch.cli import run_finetune
+    from dig_tpu_torch.config import FinetuneConfig
+    from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
+    from dig_tpu_torch.train.finetune import init_finetune_state, make_distill_finetune_step
+    from dig_tpu_torch.utils.charset import build_charset
+    from dig_tpu_torch.utils.schedules import cosine_schedule
+
+    fields = dict(fields, batch_size=batch, seed=seed,
+                  dtype="bfloat16" if dtype == torch.bfloat16 else "float32")
+    if not rates:
+        fields.update(drop=0.0, attn_drop_rate=0.0, drop_path=0.0)
+    cfg = FinetuneConfig(**fields).finalize(1)
+    lr = cosine_schedule(cfg.absolute_lr, cfg.min_lr, cfg.epochs, 1000,
+                         warmup_epochs=cfg.warmup_epochs, start_warmup_value=cfg.warmup_lr,
+                         warmup_steps=cfg.warmup_steps)
+    wd = cosine_schedule(cfg.weight_decay, cfg.weight_decay_end, cfg.epochs, 1000)
+    check(lr[0] > 0, "the first step's lr must be above 0")
+    charset = build_charset(cfg.voc_type, cfg.max_len)
+    check(charset.num_classes == cfg.nb_classes, "charset and nb_classes disagree")
+
+    def build(**kw):
+        model = run_finetune.build_model(cfg, device, **kw)
+        if not rates:  # the modules read their rate at every call
+            for m in model.modules():
+                if hasattr(m, "dropout") and isinstance(m.dropout, float):
+                    m.dropout = 0.0
+        return model
+
+    model = build()
+    frozen = (frozen_encoder_mask(cfg.fixed_encoder_layers) if cfg.fixed_encoder_layers > 0
+              else None)
+    opt = create_optimizer(cfg.opt, model.named_parameters(), lr, wd, betas=cfg.opt_betas,
+                           eps=cfg.opt_eps, clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
+                           num_layers=model.encoder.depth, frozen=frozen,
+                           update_freq=cfg.update_freq)
+    state = init_finetune_state(model, opt)
+    teacher = None
+    if cfg.use_feat_distill:
+        teacher = build(use_feat_distill=False).requires_grad_(False)
+        step = make_distill_finetune_step(model, teacher, cfg.smoothing,
+                                          cfg.loss_weight_feat_distill)
+    else:
+        step = run_finetune.make_step(cfg, model, device)
+    return cfg, model, state, step, labelled_batch(np, charset, cfg.max_len, batch, seed), \
+        charset, teacher
+
+
+def kind_eval(torch, cfg, model, charset, beam):
+    """The CLI's eval step for the kind, at beam width `beam`."""
+    import dataclasses
+
+    from dig_tpu_torch.cli import run_finetune
+
+    return run_finetune.make_eval(dataclasses.replace(cfg, beam_width=beam), model, charset)[0]
+
+
+def run_kind_step(torch, np, name, batch_size):
+    """`name`'s step at `batch_size`: warm-up, timed steps, checks; then its
+    eval batches.  Returns (launch counts of the timed steps, the text)."""
+    tag = f"kinds step {name}"
+    _, beams, want, want_eval, _ = KINDS[name]
+    cfg, model, state, step, batch_np, charset, teacher = kind_setup(
+        torch, np, KINDS[name][0], torch.bfloat16, batch_size, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(KINDS_WARMUP):
+        state, metrics, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    idle = KIND_IDLE.get(name, set())
+    before = {n: p.detach().clone() for n, p in model.named_parameters()
+              if p.requires_grad and n not in idle}
+    t_before = None if teacher is None else {k: v.clone() for k, v in teacher.state_dict().items()}
+    reset_counts()
+    results, dt, step_times = timed_steps(torch, lambda: step(state, batch, gen), KINDS_STEPS)
+    counts = read_counts()
+    check_counts(f"[{tag}]", counts, want, KINDS_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = torch.stack([m["loss"] for _, m, _ in results]).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"[{tag}] non-finite loss: {losses.tolist()}")
+    moved = check_trained(torch, model, before, f"[{tag}]")
+    if teacher is not None:
+        changed = [k for k, v in teacher.state_dict().items() if not torch.equal(v, t_before[k])]
+        check(not changed, f"[{tag}] the teacher moved: {changed[:4]}")
+    evals = []
+    for beam in beams:
+        eval_fn = kind_eval(torch, cfg, model, charset, beam)
+        eval_fn(batch)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = eval_fn(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ev = read_counts()
+        check(ev == want_eval, f"[{tag}] eval beam {beam} launches {ev} != {want_eval}")
+        ids, loss = out[0], out[1]
+        check(ids.shape[0] == batch_size and loss.shape == (batch_size,)
+              and bool(torch.isfinite(loss).all()), f"[{tag}] eval beam {beam} outputs")
+        evals.append(f"{'greedy' if beam == 0 else f'beam {beam}'} {ms:.1f} ms")
+    srt = sorted(step_times)
+    text = (f"bf16 batch {batch_size}: {srt[len(srt) // 2]:.2f} ms a step (median of "
+            f"{KINDS_STEPS} on the card's clock; {dt / KINDS_STEPS * 1e3:.2f} ms by the host's), "
+            f"eval batch {', '.join(evals)}; peak memory {peak:.2f} GiB; launches a step "
+            f"{launches_text({k: v // KINDS_STEPS for k, v in counts.items()})}, an eval batch "
+            f"{launches_text(want_eval)}; losses {[round(x, 4) for x in losses.tolist()]}; "
+            f"{moved} tensors moved"
+            + (f", {sorted(idle)} outside the loss" if idle else "")
+            + (", the teacher unchanged" if teacher is not None else ""))
+    return counts, text
+
+
+def phase_kinds_step(torch, np, paths):
+    """Each kind's fine-tuning step at full width and the FinetuneConfig
+    defaults, bf16, batch 256 (the largest half of it that fits in the
+    card's memory where 256 does not), and its eval batches."""
+    import gc
+
+    for name in KINDS:
+        batch_size = FT_BATCH
+        while True:
+            try:
+                counts, text = run_kind_step(torch, np, name, batch_size)
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                msg = str(e).splitlines()[0]
+            gc.collect()
+            torch.cuda.empty_cache()
+            check(batch_size > 32, f"[kinds step {name}] does not fit even at batch {batch_size}")
+            print(f"[kinds step {name}] batch {batch_size} does not fit in the card's memory "
+                  f"({msg[:160]}); trying {batch_size // 2}")
+            batch_size //= 2
+        print(f"[kinds step {name}] {text}")
+        paths["kinds_step_" + name.replace(" ", "_")] = counts
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_memory_bank(torch, np):
+    """The encoder's frozen memory bank (`num_mem_slots`, which no CLI flag
+    sets): the recognizer at the FinetuneConfig defaults with 8 bank tokens
+    in its encoder (264 tokens a row through the blocks), one bf16 step at
+    batch 256; the bank takes no gradient and does not move, the rest does."""
+    from dig_tpu_torch.models.rec_model import init_weights
+    from dig_tpu_torch.models.registry import create_model
+    from dig_tpu_torch.optim import create_optimizer
+
+    cfg, model, state, step, batch_np, _, _ = kind_setup(torch, np, {}, torch.bfloat16, FT_BATCH,
+                                                         "cuda")
+    encoder = create_model(cfg.model, num_mem_slots=8, drop_rate=cfg.drop,
+                           attn_drop_rate=cfg.attn_drop_rate, drop_path_rate=cfg.drop_path,
+                           dtype=torch.bfloat16)
+    init_weights(encoder, torch.Generator().manual_seed(3))
+    model.encoder = encoder.cuda()
+    state.optimizer = create_optimizer("adamw", model.named_parameters(), [1e-4], [0.05])
+    bank = model.encoder.mem_bank.detach().clone()
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    reset_counts()
+    state, metrics, _ = step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts == FT_PER_STEP, f"[memory bank] launches {counts} != {FT_PER_STEP}")
+    check(math.isfinite(float(metrics["loss"])), f"[memory bank] loss {metrics['loss']}")
+    check(model.encoder.mem_bank.grad is None and torch.equal(model.encoder.mem_bank, bank),
+          "[memory bank] the bank took a gradient or moved")
+    moved = check_trained(torch, model, before, "[memory bank]")
+    print(f"[memory bank] vit_small with 8 bank tokens + tf_decoder, bf16 batch {FT_BATCH}: one "
+          f"step, the bank without a gradient and bit-equal after it, {moved} tensors moved; "
+          f"launches {launches_text(counts)}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+
+def phase_kinds_cpu_parity(torch, np):
+    """One fp32 step and one greedy eval batch of each kind at full width,
+    batch 2, every rate 0, on the card against the same on the CPU: the
+    loss and every gradient leaf within STEP_RTOL of its max |g| (plus the
+    floor; the distillation projector at FEAT_PROJ_RTOL), the ids equal.
+    The MIM step's masks are one set on both devices (its generator's
+    draws differ between them)."""
+    from dig_tpu_torch.data import masking
+
+    mask = np.zeros((1, 1, 256), bool)
+    mask[0, 0, np.random.default_rng(11).permutation(256)[:179]] = True
+    real_mask = masking.random_mask_batch
+    masking.random_mask_batch = lambda gen, b, n, k, v=1: torch.from_numpy(mask[:b]).to(gen.device)
+    lines = []
+    try:
+        for name in KINDS:
+            if name == "seq_cls attn_drop 0":  # at rates 0 the same model as seq_cls
+                continue
+            runs = {}
+            for device in ("cpu", "cuda"):
+                cfg, model, state, step, batch_np, charset, _ = kind_setup(
+                    torch, np, KINDS[name][0], torch.float32, 2, device, rates=False, seed=1)
+                reset_counts()
+                state, metrics, _ = step(state, batch_np, torch.Generator(device=device).manual_seed(0))
+                counts = read_counts()
+                ids = kind_eval(torch, cfg, model, charset, 0)(batch_np)[0]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    want = KINDS[name][4]
+                    check(counts == want, f"[kinds cpu parity {name}] launches {counts} != {want}")
+                grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                         for n, p in model.named_parameters() if p.requires_grad}
+                runs[device] = (float(metrics["loss"]), grads, ids.cpu().numpy())
+            (l_cpu, g_cpu, i_cpu), (l_gpu, g_gpu, i_gpu) = runs["cpu"], runs["cuda"]
+            proj = {k for k in g_cpu if k.startswith("feat_proj.")}
+            worst, worst_name = leaf_parity(f"[kinds cpu parity {name}]", l_cpu, l_gpu,
+                                            {k: v for k, v in g_cpu.items() if k not in proj},
+                                            g_gpu)
+            for k in sorted(proj):
+                err, scale = float((g_gpu[k] - g_cpu[k]).abs().max()), float(g_cpu[k].abs().max())
+                check(err <= FEAT_PROJ_RTOL * scale + 1e-12,
+                      f"[kinds cpu parity {name}] {k}: {err} of max |g| {scale}")
+            check(np.array_equal(i_cpu, i_gpu), f"[kinds cpu parity {name}] greedy ids differ: "
+                                                f"{int((i_cpu != i_gpu).sum())} of {i_cpu.size}")
+            lines.append(f"{name}: loss {l_gpu:.6f} vs {l_cpu:.6f}, {len(g_cpu)} leaves, worst "
+                         f"{worst:.1e} ({worst_name}), ids equal")
+    finally:
+        masking.random_mask_batch = real_mask
+    print(f"[kinds cpu parity] fp32 batch 2, full width, rates 0, card vs CPU: "
+          + "; ".join(lines))
+
+
+def phase_attention_l281(torch, attn, gen):
+    """#3, #4, #1 and #2 at the seq-cls encoder's shape (B = 256, L = 281:
+    25 class queries + 256 patches, not a multiple of the 64-row blocks;
+    H = 12, D = 64) against their plain versions, bf16 and fp32, at the
+    tolerances of the pre-training shapes; each timed beside SDPA's."""
+    b, l, h, d = FT_BATCH, SEQ_CLS_L, 12, 64
+    c = h * d
+    scale = d**-0.5
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        qkv = torch.randn(b, l, 3 * c, generator=gen, device="cuda").to(dt)
+        q, k, v = (qkv[..., i * c:(i + 1) * c].view(b, l, h, d) for i in range(3))
+        do = torch.randn(b, l, h, d, generator=gen, device="cuda").to(dt)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+        sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+                          iters=5)
+        o_lib = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do.transpose(1, 2),
+                                                          retain_graph=True), iters=5)
+        del o_lib, qt, kt, vt
+        io = 4 * b * l * c * qkv.element_size()
+        fwd_bound, fwd_by = bound(io + 2 * b * l * h * 4, 4 * b * h * l * l * d, dn)
+        bwd_bound, bwd_by = bound(7 * b * l * c * qkv.element_size() + 2 * b * l * h * 4,
+                                  10 * b * h * l * l * d, dn)
+        # #3 stored-statistics forward
+        o, m, s = attn.attention_lse_fwd(q, k, v, scale)
+        ro, rm, rs = attn.attention_lse_fwd_ref(q, k, v, scale)
+        err3, flips = check_fwd_o(f"attention_lse_fwd L={l} {dn} o", o, ro, dn)
+        check_close(f"attention_lse_fwd L={l} {dn} m", m, rm, STAT_TOL)
+        check_close(f"attention_lse_fwd L={l} {dn} s", s, rs, STAT_TOL)
+        ms3 = time_ms(lambda: attn.attention_lse_fwd(q, k, v, scale), iters=5)
+        plain3 = time_ms(lambda: attn.attention_lse_fwd_ref(q, k, v, scale), iters=2, warmup=1)
+        del ro, rm, rs
+        # #4 backward from m, s; #2 recompute backward, equal to #4 bit for bit
+        dqkv = torch.empty_like(qkv)
+        out = tuple(dqkv[..., i * c:(i + 1) * c].view(b, l, h, d) for i in range(3))
+        attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out)
+        ref = attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale)
+        rel4 = max(rel_err(g, r) for g, r in zip(out, ref))
+        check(all(bool(torch.isfinite(g.float()).all()) for g in out) and rel4 <= BWD_RTOL[dn],
+              f"attention_lse_bwd L={l} {dn}: {rel4:.2e} of max |ref| > {BWD_RTOL[dn]}")
+        del ref
+        ms4 = time_ms(lambda: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out), iters=5)
+        plain4 = time_ms(lambda: attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale),
+                         iters=2, warmup=1)
+        rec = attn.attention_bwd(q, k, v, do, scale)
+        check(all(bool(torch.equal(a, r)) for a, r in zip(out, rec)),
+              f"attention_bwd L={l} {dn}: not bitwise equal to attention_lse_bwd")
+        ms2 = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale), iters=5)
+        # #1 recompute forward: o equal to #3's bit for bit
+        with switches(store_lse=False):
+            o1 = attn.attention_fwd(q, k, v, scale)
+            ms1 = time_ms(lambda: attn.attention_fwd(q, k, v, scale), iters=5)
+        check(bool(torch.equal(o1, o)), f"attention_fwd L={l} {dn}: o differs from #3's")
+        torch.cuda.synchronize()
+        print(f"[attention at L={l}] {dn} B={b} H={h} D={d}: #3 attention_lse_fwd max_abs_err "
+              f"o={err3:.3e}{flips}, {ms3:.4f} ms (plain {plain3:.4f}, sdpa {sdpa_ms:.4f}, bound "
+              f"{fwd_bound:.4f} ({fwd_by}), {fwd_bound / ms3:.3f} of it); #4 attention_lse_bwd "
+              f"{rel4:.2e} of max |ref|, {ms4:.4f} ms (plain {plain4:.4f}, sdpa backward "
+              f"{sdpa_bwd_ms:.4f}, bound {bwd_bound:.4f} ({bwd_by}), {bwd_bound / ms4:.3f} of it); "
+              f"#1 attention_fwd {ms1:.4f} ms, o equal to #3's; #2 attention_bwd {ms2:.4f} ms, "
+              f"equal to #4 bit for bit")
+        del qkv, q, k, v, do, o, m, s, dqkv, out, rec, o1
+        torch.cuda.empty_cache()
+
+
+def phase_kinds_cli(torch, np, d, ft_out):
+    """The fine-tuning CLI for three of the kinds on [finetune cli]'s LMDBs
+    (1 epoch of 4 steps + eval, launches of every step and eval batch
+    asserted, log.txt finite), then the predict CLI for two more on the
+    1,024-record LMDB (every TSV line checked)."""
+    from dig_tpu_torch.cli.run_predict import main as predict_main
+    from dig_tpu_torch.config import PredictConfig, parse_config
+
+    teacher = os.path.join(ft_out, f"checkpoint-{FT_CLI_EPOCHS - 1}")
+    runs = {
+        "--decoder_type attention": (["--decoder_type", "attention"], FT_PER_STEP,
+                                     FT_EVAL_BATCH),
+        "--use_seq_cls_token": (["--use_seq_cls_token", "--model", SEQ_CLS_MODEL], SEQ_CLS_STEP,
+                                SEQ_CLS_EVAL),
+        "--use_feat_distill": (["--use_feat_distill", "--teacher_ckpt", teacher],
+                               KIND_STEP_DISTILL, FT_EVAL_BATCH),
+    }
+    counts_all = per_step()
+    for label, (extra, want, want_eval) in runs.items():
+        tag = f"kinds cli {label}"
+        out = os.path.join(d, "kinds_" + extra[0].strip("-"))
+        argv = ["--data_path", os.path.join(d, "labelled"), "--eval_data_path",
+                os.path.join(d, "labelled_eval"), "--output_dir", out, "--epochs", "1", *extra]
+        state, steps, evals, counts, dt = run_finetune_cli(torch, tag, argv)
+        n_steps = FT_CLI_RECORDS // FT_BATCH
+        check(len(steps) == n_steps and len(evals) == -(-FT_CLI_EVAL_RECORDS // FT_BATCH),
+              f"[{tag}] {len(steps)} steps, {len(evals)} eval batches")
+        check_each(tag, "step", steps, want)
+        check_each(tag, "eval batch", evals, want_eval)
+        with open(os.path.join(out, "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        check(len(log) == 1 and all(math.isfinite(v) for k, v in log[0].items()
+                                    if k.startswith("train_")) and log[0]["val_acc"] is not None,
+              f"[{tag}] log.txt {log}")
+        counts_all = {k: counts_all[k] + counts[k] for k in counts}
+        print(f"[{tag}] run_finetune.main at FinetuneConfig defaults, bf16 batch {FT_BATCH}, 1 "
+              f"epoch of {n_steps} steps + eval of {FT_CLI_EVAL_RECORDS} records in {dt:.3f} s "
+              f"(model build included); launches {launches_text(steps[0][0])} at every step, "
+              f"{launches_text(evals[0][0])} every eval batch; log "
+              f"{ {k: round(v, 4) if isinstance(v, float) else v for k, v in log[0].items()} }")
+        del state
+        torch.cuda.empty_cache()
+    db = os.path.join(d, "labelled")
+    for label, extra, want in (
+            ("--model_kind ctc", ["--model_kind", "ctc"], FT_EVAL_BATCH),
+            ("--decoder_name decoupled_tf_decoder", ["--decoder_name", "decoupled_tf_decoder"],
+             FT_EVAL_BATCH)):
+        tsv = os.path.join(d, "kinds_" + extra[1] + ".tsv")
+        cfg = parse_config(PredictConfig, ["--data_path", db, "--output", tsv, *extra])
+        reset_counts()
+        t0 = time.perf_counter()
+        n = predict_main(cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        batches = -(-FT_CLI_RECORDS // cfg.batch_size)
+        check(counts == {k: v * batches for k, v in want.items()},
+              f"[kinds cli predict {label}] launches {counts}")
+        with open(tsv) as f:
+            lines = f.read().splitlines()
+        check(n == len(lines) == FT_CLI_RECORDS, f"{n} recognized, {len(lines)} lines")
+        for i, line in enumerate(lines, start=1):
+            fields = line.split("\t")
+            check(len(fields) == 3 and fields[0] == f"{db}#{i}"
+                  and 0.0 < float(fields[2]) <= 1.0, f"TSV line {line!r}")
+        print(f"[kinds cli predict {label}] run_predict.main, bf16 batch {cfg.batch_size}: "
+              f"{n} lines in {dt:.3f} s (model build included); launches "
+              f"{launches_text(counts)}; first line {lines[0]!r}")
+        counts_all = {k: counts_all[k] + counts[k] for k in counts}
+    return counts_all
 
 
 FWD_MODES = ("kStats", "kPlain", "kBf16Exp")
@@ -2564,6 +2986,10 @@ def main():
         paths["eval_switch"] = phase_eval(torch, np, "eval switch",
                                           per_step(attention_fwd=12, layer_norm_fwd=24))
     phase_finetune_cpu_parity(torch, np)
+    phase_attention_l281(torch, attn, gen)
+    phase_kinds_step(torch, np, paths)
+    phase_memory_bank(torch, np)
+    phase_kinds_cpu_parity(torch, np)
     phase_sync_debug_step(torch, np)
     phase_pretrain_data(torch, np, paths)
     phase_two_ranks_one_card(torch, np)

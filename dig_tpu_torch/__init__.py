@@ -1,8 +1,9 @@
 """PyTorch + CUDA port of dig_tpu for NVIDIA Hopper (H100).
 
 The JAX package `dig_tpu` is the reference; this package imports none of
-it.  Slice 1 covers the batch-inference path (`dig_tpu_torch.cli.run_predict`),
-slice 2 one pre-training step (`dig_tpu_torch.train.pretrain.make_pretrain_step`),
-slice 3 the JAX package's opt-in kernels and the recognizer's fine-tuning
-and eval steps (`dig_tpu_torch.train.finetune`).
+it.  Its entry points are the CLIs `dig_tpu_torch.cli.run_predict`,
+`run_pretrain` and `run_finetune` (every recognizer kind of `dig_tpu`, one
+card a process, data-parallel under torchrun); the hand-written CUDA
+kernels that replace the JAX package's Pallas kernels live in
+`dig_tpu_torch/ops/csrc/`.
 """

@@ -19,7 +19,21 @@ Outputs under `--output_dir` as in `run_pretrain`: checkpoints,
 ``log.txt`` (one JSON line an epoch), ``screen.txt``, ``tb/`` and, with
 `--profile_steps`, ``profile/trace.json``.
 
-`--finetune` takes (`load_finetune_init`):
+Every model kind of `dig_tpu` (`--model_kind rec | ctc | attn | seq_cls |
+mim_rec`; the reference spellings `--decoder_type attention` and
+`--use_seq_cls_token`), `--decoder_name decoupled_tf_decoder`,
+`--text_cond_vis` and feature distillation (`--use_feat_distill
+--teacher_ckpt`) train here, each with its step (`train/finetune.py`) and
+its eval: word accuracy of the decoded ids, or for CTC of the collapsed
+per-frame ids (`ctc_accuracy`, at every eval: the JAX CLI scores its
+end-of-epoch eval of a CTC model with word accuracy of the raw frames);
+with the decoupled decoder, also the multi-label F-measure of the
+presence logits against the presence of every target id, padding
+included (engine_for_finetuning.py:262-269).  `dig_tpu` asks for those
+logits under `--model_kind seq_cls`, whose model has none (its eval
+raises); here they come from the model that has them.
+
+`--finetune` and `--teacher_ckpt` take (`load_finetune_init`):
 * a reference recognizer `.pth` (decoder keys present): the whole model;
 * an encoder-only `.pth`: a reference SSL checkpoint, or the port's own
   pre-training ``checkpoint-N/checkpoint.pth``; the encoder is found under
@@ -27,9 +41,14 @@ Outputs under `--output_dir` as in `run_pretrain`: checkpoints,
 * a port checkpoint directory ``checkpoint-N/``: its ``encoder.*``
   tensors (``momentum_encoder.*`` is never taken).
 A native `dig_tpu` directory is refused (`tools/export_pth.py` converts
-it).  A `.pth` switches GELU to the erf form unless `--exact_gelu` says
-otherwise, as in `dig_tpu` (weights trained under torch's erf GELU); a
-directory keeps tanh, the form the port pre-trains with.
+it): `dig_tpu` reads its teacher from such a directory, which only JAX
+can unpickle, so the port's teacher is a recognizer `.pth` or a port
+checkpoint directory, read as `--finetune` reads its input into a second
+recognizer of the student's configuration.  A learnable ``pos_embed`` of
+another grid is refitted bicubically.  A `.pth` switches GELU to the erf
+form unless `--exact_gelu` says otherwise, as in `dig_tpu` (weights trained
+under torch's erf GELU); a directory keeps tanh, the form the port
+pre-trains with.
 
 Every random draw of a step comes from a generator seeded with (seed,
 stream, micro-step, rank) (`utils/rng.py`): stream 0 the step's dropout,
@@ -58,10 +77,10 @@ and their server are stopped when `main` ends, on every rank.  stdout is
 teed into ``screen.txt``, and the signal handlers and the GELU form are
 set, only while `main` runs.
 
-Refused with a message (see ROADMAP.md): `--model_kind` other than rec,
-feature distillation, optimizers other than adamw, `--text_cond_vis`,
+Refused with a message (see ROADMAP.md): optimizers other than adamw,
 `--n_fsdp` / `--n_tensor` above 1, remote checkpoint URIs and native
-`dig_tpu` checkpoint directories.
+`dig_tpu` checkpoint directories; and, as in `dig_tpu`, distillation with
+a kind other than rec or without `--teacher_ckpt`.
 """
 
 from __future__ import annotations
@@ -86,8 +105,12 @@ from dig_tpu_torch.data.pipeline import (
 )
 from dig_tpu_torch.data.samplers import ShardedSampler
 from dig_tpu_torch.metrics.text import accuracy as word_accuracy
-from dig_tpu_torch.metrics.text import recognition_f_measure
-from dig_tpu_torch.models.rec_model import build_rec_model
+from dig_tpu_torch.metrics.text import (
+    ctc_accuracy,
+    multi_label_f_measure,
+    recognition_f_measure,
+)
+from dig_tpu_torch.models.rec_model import SeqClsRecModel, build_rec_model
 from dig_tpu_torch.ops import activations
 from dig_tpu_torch.ops.images import to_model_images
 from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
@@ -102,7 +125,15 @@ from dig_tpu_torch.parallel.dist import (
     mean_over_ranks,
 )
 from dig_tpu_torch.parallel.mesh import check_mesh, host_local_rows, local_batch
-from dig_tpu_torch.train.finetune import init_finetune_state, make_eval_step, make_finetune_step
+from dig_tpu_torch.train.finetune import (
+    init_finetune_state,
+    make_ctc_eval_step,
+    make_ctc_step,
+    make_distill_finetune_step,
+    make_eval_step,
+    make_finetune_step,
+    make_mim_finetune_step,
+)
 from dig_tpu_torch.utils.charset import build_charset
 from dig_tpu_torch.utils.checkpoint import (
     auto_resume,
@@ -131,46 +162,52 @@ from dig_tpu_torch.utils.rng import step_generator
 from dig_tpu_torch.utils.schedules import cosine_schedule
 
 PRINT_FREQ = 100  # steps between reads of the metrics to the host
+MODEL_KINDS = ("rec", "ctc", "attn", "seq_cls", "mim_rec")
 
 
-def build_model(cfg: FinetuneConfig, device):
+def build_model(cfg: FinetuneConfig, device, use_feat_distill=None):
+    """The recognizer the flags describe; `use_feat_distill` overrides the
+    flag (False for the distillation teacher)."""
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if use_feat_distill is None:
+        use_feat_distill = cfg.use_feat_distill
     return build_rec_model(
         cfg.model, cfg.decoder_name, cfg.nb_classes, cfg.max_len, drop_rate=cfg.drop,
         attn_drop_rate=cfg.attn_drop_rate, drop_path_rate=cfg.drop_path,
-        use_1d_attdec=cfg.use_1d_attdec, use_mean_pooling=cfg.use_mean_pooling, dtype=dtype,
-        model_kind=cfg.model_kind, seed=cfg.seed, device=device)
+        use_1d_attdec=cfg.use_1d_attdec, use_mean_pooling=cfg.use_mean_pooling,
+        use_feat_distill=use_feat_distill, text_cond_vis=cfg.text_cond_vis,
+        use_mim_proj=cfg.use_mim_proj, dtype=dtype, model_kind=cfg.model_kind, seed=cfg.seed,
+        device=device)
 
 
 def _refuse_unported(cfg: FinetuneConfig) -> None:
-    """Raise for every flag whose code is not ported, before anything is
-    built or written."""
-    if cfg.model_kind != "rec":
-        raise NotImplementedError(f"--model_kind {cfg.model_kind!r} is not ported yet (rec only; "
-                                  f"see ROADMAP.md)")
-    if cfg.use_feat_distill or cfg.teacher_ckpt:
-        raise NotImplementedError("feature distillation (--use_feat_distill, --teacher_ckpt) is "
-                                  "not ported yet; see ROADMAP.md")
+    """Raise for every flag whose code is not ported, and for the
+    combinations `dig_tpu` refuses, before anything is built or written."""
     if cfg.opt.lower() != "adamw":
         raise NotImplementedError(f"--opt {cfg.opt!r} is not ported yet (adamw only; "
                                   f"see ROADMAP.md)")
-    if cfg.text_cond_vis:
-        raise NotImplementedError("--text_cond_vis (the text-conditional decoder) is not ported "
-                                  "yet; see ROADMAP.md")
     check_mesh(cfg.n_fsdp, cfg.n_tensor)
     if cfg.resume.endswith((".pth", ".pt")):
         raise ValueError("--resume expects a checkpoint directory; to initialize from a torch "
                          f".pth use --finetune (got --resume {cfg.resume})")
-    for path in (cfg.resume, cfg.finetune):
+    if cfg.model_kind not in MODEL_KINDS:
+        raise ValueError(f"--model_kind {cfg.model_kind!r}: not one of {', '.join(MODEL_KINDS)}")
+    if cfg.use_feat_distill and cfg.model_kind != "rec":
+        raise ValueError(f"--use_feat_distill requires --model_kind rec (got {cfg.model_kind})")
+    if cfg.use_feat_distill and not cfg.teacher_ckpt and not cfg.eval:
+        raise ValueError("--use_feat_distill requires --teacher_ckpt "
+                         "(the frozen encoder to distill from)")
+    for path in (cfg.resume, cfg.finetune, cfg.teacher_ckpt):
         if path:
             refuse_unreadable(path)
 
 
-def load_finetune_init(cfg: FinetuneConfig, model) -> int:
-    """`--finetune` surgery onto `model`, in place (`dig_tpu/cli/run_finetune.py:74-102`):
-    a recognizer `.pth` gives the whole model; an encoder-only `.pth` or a
+def load_finetune_init(cfg: FinetuneConfig, model, path: str = "") -> int:
+    """`--finetune` surgery onto `model`, in place (`dig_tpu/cli/run_finetune.py:74-102`),
+    from `path` (the distillation teacher's) or else `--finetune`: a
+    recognizer `.pth` gives the whole model; an encoder-only `.pth` or a
     port checkpoint directory its encoder.  Returns the tensors copied."""
-    path = cfg.finetune
+    path = path or cfg.finetune
     if path.endswith((".pth", ".pt")):
         sd = load_torch_checkpoint(path, model_key=cfg.model_key)
         if has_decoder_keys(sd):
@@ -180,13 +217,14 @@ def load_finetune_init(cfg: FinetuneConfig, model) -> int:
     else:
         payload = restore_checkpoint(path)
         tree = {"encoder": convert_torch_encoder(payload["model"], prefix="encoder.")}
-    n = merge_pretrained_tree(model, tree)
+    n = merge_pretrained_tree(model, tree, pos_embed_grid=model.encoder.patch_shape)
     print(f"[finetune] {n} tensors initialized from {path} "
           f"({', '.join(f'{k}: {len(v)}' for k, v in tree.items())} in the file)")
     return n
 
 
-def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, device) -> dict:
+def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, device,
+                       accuracy_fn=word_accuracy) -> dict:
     """Greedy or beam decoding over one benchmark LMDB
     (`dig_tpu/cli/run_finetune.py:105-188`): the last partial batch padded
     to the batch size (zero images and targets, length 1), per-row losses
@@ -194,14 +232,18 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
     scores its share of the set (`ShardedSampler`, which repeats a few
     records to give every rank as many) and the sums are added up over the
     ranks; without it every rank scores the whole set and takes rank 0's
-    sums.  Prints the JAX CLI's line; returns {"acc", "n", "fmeasure"}."""
+    sums.  Prints the JAX CLI's line; returns {"acc", "n", "fmeasure"}, and
+    "multi_label_fmeasure" when `eval_fn` returns presence logits third
+    (the F-measure of each batch against the presence of every target id,
+    averaged over the rows)."""
     ds = build_dataset(data_path, is_train=False, voc_type=cfg.voc_type, max_len=cfg.max_len,
                        img_height=cfg.input_h, img_width=cfg.input_w)
     bs = local_batch(cfg.batch_size)
     rank, world = (get_rank(), get_world_size()) if cfg.dist_eval else (0, 1)
     loader = DataLoader(ds, ShardedSampler(len(ds), rank=rank, world=world, shuffle=False),
                         batch_size=bs, num_workers=cfg.num_workers, drop_last=False)
-    n_correct, n_total, f_sum, loss_sum = 0.0, 0, 0.0, 0.0
+    n_correct, n_total, f_sum, loss_sum, ml_sum = 0.0, 0, 0.0, 0.0, 0.0
+    has_cls = False
     for images, targets, lens in loader:
         n = images.shape[0]
         if n < bs:
@@ -209,25 +251,34 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
             images = np.concatenate([images, np.zeros((pad, *images.shape[1:]), images.dtype)])
             targets = np.concatenate([targets, np.zeros((pad, targets.shape[1]), targets.dtype)])
             lens = np.concatenate([lens, np.ones((pad,), lens.dtype)])
-        ids, loss = eval_fn(pinned_to_device({"images": images, "targets": targets,
-                                              "lengths": lens}, device))
-        ids = host_local_rows(ids)[:n].cpu().numpy()
-        acc = word_accuracy(ids, targets[:n], charset)
-        n_correct += acc * n
+        out = eval_fn(pinned_to_device({"images": images, "targets": targets,
+                                        "lengths": lens}, device))
+        ids = host_local_rows(out[0])[:n].cpu().numpy()
+        n_correct += accuracy_fn(ids, targets[:n], charset) * n
         n_total += n
         f_sum += recognition_f_measure(ids, targets[:n], charset) * n
-        loss_sum += float(host_local_rows(loss)[:n].sum())
-    sums = [n_correct, n_total, f_sum, loss_sum]
+        loss_sum += float(host_local_rows(out[1])[:n].sum())
+        if len(out) == 3:
+            has_cls = True
+            cls_logit = host_local_rows(out[2])[:n].float().cpu().numpy()
+            presence = np.zeros((n, cls_logit.shape[-1]), np.float32)
+            presence[np.arange(n)[:, None], targets[:n]] = 1.0
+            ml_sum += multi_label_f_measure(cls_logit, presence) * n
+    sums = [n_correct, n_total, f_sum, loss_sum, ml_sum]
     # one figure on every rank: the ranks decide on it together (checkpoint-best)
-    n_correct, n_total, f_sum, loss_sum = (all_reduce_floats(sums) if cfg.dist_eval
-                                           else broadcast_floats(sums))
+    n_correct, n_total, f_sum, loss_sum, ml_sum = (all_reduce_floats(sums) if cfg.dist_eval
+                                                   else broadcast_floats(sums))
     n_total = int(n_total)
     acc = n_correct / max(n_total, 1)
     # beam computes no teacher-forced loss (0 by convention in the step)
     loss_str = "n/a" if cfg.beam_width > 0 else f"{loss_sum / max(n_total, 1):.4f}"
     print(f"* {data_path}: {int(n_total)} images, Acc {acc:.4f} loss {loss_str} "
           f"Rec_fmeasure {f_sum / max(n_total, 1):.4f}")
-    return {"acc": acc, "n": int(n_total), "fmeasure": f_sum / max(n_total, 1)}
+    result = {"acc": acc, "n": int(n_total), "fmeasure": f_sum / max(n_total, 1)}
+    if has_cls:
+        result["multi_label_fmeasure"] = ml_sum / max(n_total, 1)
+        print(f"F_measure: {result['multi_label_fmeasure']:.4f}")
+    return result
 
 
 def main(cfg: FinetuneConfig, device="cuda"):
@@ -274,7 +325,7 @@ def _run(cfg: FinetuneConfig, dist_info: dict):
         raise ValueError(f"--voc_type {cfg.voc_type} has {charset.num_classes} classes, "
                          f"--nb_classes is {cfg.nb_classes}")
     model = build_model(cfg, device)
-    eval_fn = make_eval_step(model, beam_width=cfg.beam_width, eos=charset.eos_id)
+    eval_fn, accuracy_fn = make_eval(cfg, model, charset)
 
     if cfg.eval:
         if cfg.finetune:
@@ -282,8 +333,8 @@ def _run(cfg: FinetuneConfig, dist_info: dict):
         elif cfg.resume:
             model.load_state_dict(restore_checkpoint(cfg.resume)["model"])
         paths = [p for p in [cfg.eval_data_path] + list(cfg.other_test_data_folders) if p]
-        results = [dict(path=p, **evaluate_benchmark(cfg, p, eval_fn, charset, device))
-                   for p in paths]
+        results = [dict(path=p, **evaluate_benchmark(cfg, p, eval_fn, charset, device,
+                                                     accuracy_fn)) for p in paths]
         total = sum(r["n"] for r in results)
         avg = sum(r["acc"] * r["n"] for r in results) / max(total, 1)
         print(f"average word accuracy over {len(results)} benchmarks: {avg:.4f}")
@@ -294,12 +345,42 @@ def _run(cfg: FinetuneConfig, dist_info: dict):
         return results
     guard = PreemptionGuard.install()
     try:
-        return _train(cfg, dist_info, model, eval_fn, charset, guard)
+        return _train(cfg, dist_info, model, (eval_fn, accuracy_fn), charset, guard)
     finally:
         guard.uninstall()
 
 
-def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard):
+def make_eval(cfg: FinetuneConfig, model, charset):
+    """(eval step, accuracy function) of the model's kind: CTC scores the
+    collapsed per-frame ids; the decoupled decoder's model also returns
+    its presence logits."""
+    if cfg.model_kind == "ctc":
+        return make_ctc_eval_step(model), ctc_accuracy
+    return make_eval_step(model, beam_width=cfg.beam_width, eos=charset.eos_id,
+                          with_cls=isinstance(model, SeqClsRecModel)), word_accuracy
+
+
+def make_step(cfg: FinetuneConfig, model, device):
+    """The training step of the model's kind (`dig_tpu/cli/run_finetune.py:348-370`);
+    distillation builds and loads its frozen teacher here."""
+    if cfg.use_feat_distill:
+        teacher = build_model(cfg, device, use_feat_distill=False)
+        load_finetune_init(cfg, teacher, cfg.teacher_ckpt)
+        teacher.requires_grad_(False)
+        return make_distill_finetune_step(model, teacher, smoothing=cfg.smoothing,
+                                          loss_weight_feat_distill=cfg.loss_weight_feat_distill)
+    if cfg.model_kind == "ctc":
+        return make_ctc_step(model, blank_id=cfg.nb_classes)
+    if cfg.model_kind == "mim_rec":
+        return make_mim_finetune_step(
+            model, smoothing=cfg.smoothing, mask_ratio=cfg.mask_ratio,
+            mim_sample_ratio=cfg.mim_sample_ratio, loss_weight_pixel=cfg.loss_weight_pixel,
+            normalize_target=cfg.normlize_target)
+    return make_finetune_step(model, smoothing=cfg.smoothing)
+
+
+def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, guard):
+    eval_fn, accuracy_fn = evaluation
     device, rank, world = dist_info["device"], dist_info["rank"], dist_info["world_size"]
     device_abi = cfg.device_abi_aug and cfg.use_abi_aug
     train_ds = build_dataset(
@@ -345,7 +426,7 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard)
             start_epoch = int(extra.get("epoch", -1)) + 1
     broadcast_module(model)  # every rank starts from rank 0's weights
 
-    step_fn = make_finetune_step(model, smoothing=cfg.smoothing)
+    step_fn = make_step(cfg, model, device)
     aug_fn = None
     if device_abi:
         def aug_fn(generator, images):  # uint8 transport: normalize before the [-1, 1] ops
@@ -363,7 +444,8 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard)
 
     def eval_and_keep_best(epoch):
         nonlocal max_accuracy
-        stats = evaluate_benchmark(cfg, cfg.eval_data_path, eval_fn, charset, device)
+        stats = evaluate_benchmark(cfg, cfg.eval_data_path, eval_fn, charset, device,
+                                   accuracy_fn)
         if stats["acc"] > max_accuracy:
             max_accuracy = stats["acc"]
             if cfg.output_dir and cfg.save_ckpt and cfg.save_best:
@@ -393,7 +475,7 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, eval_fn, charset, guard)
                     f"epoch {epoch} step {it}")
             # the metrics stay on the device but for these steps
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
-                class_acc = word_accuracy(
+                class_acc = accuracy_fn(
                     pred_ids.cpu().numpy(), batch["targets"].cpu().numpy(), charset)
                 host_metrics = mean_over_ranks(dict(metrics, class_acc=class_acc))
                 if not math.isfinite(host_metrics["loss"]):

@@ -8,16 +8,20 @@ Counterpart of `dig_tpu.cli.run_predict` with the same flags and TSV
 output, ``name<TAB>text<TAB>confidence``.  Inputs are image files,
 directories (recursed), globs, and-or LMDBs in the reference schema
 (``image-%09d`` / ``num-samples``; labels ignored), files first.
-Confidence is the geometric mean of the chosen-token probabilities up to
-the first EOS; under `--beam_width` the beam's ids are rescored by one
-teacher-forced pass, as the JAX CLI rescores them.  Runs on CUDA;
-`main(cfg, device="cpu")` runs the plain versions of the kernels.
+Every model kind of `dig_tpu` serves here (`--model_kind rec | ctc | attn |
+seq_cls | mim_rec`, the reference spellings `--decoder_type attention`
+and `--use_seq_cls_token`, `--decoder_name decoupled_tf_decoder`,
+`--text_cond_vis`).  Confidence is the geometric mean of the chosen-token
+probabilities up to the first EOS; under `--beam_width` the beam's ids are
+rescored by one teacher-forced pass, as the JAX CLI rescores them.  A CTC
+model's text is its collapsed per-frame argmax, its confidence the
+geometric mean over the frames of each frame's largest probability.
+Runs on CUDA; `main(cfg, device="cpu")` runs the plain versions of the
+kernels.
 
-Not yet ported (each refused with a message): `--resume` of a native
-`dig_tpu` checkpoint (its `treedef.pkl` needs JAX to unpickle: convert it
-with `tools/export_pth.py` and pass the `.pth` to `--finetune`),
-`--text_cond_vis`, and model kinds other than ``rec``
-(`--decoder_type attention`, `--use_seq_cls_token`).
+Refused with a message: `--resume` of a native `dig_tpu` checkpoint (its
+`treedef.pkl` needs JAX to unpickle: convert it with `tools/export_pth.py`
+and pass the `.pth` to `--finetune`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 
 from dig_tpu_torch.config import PredictConfig, config_to_json, parse_config
 from dig_tpu_torch.data.images import decode_image, resize_uint8
+from dig_tpu_torch.metrics.text import ctc_decode_batch
 from dig_tpu_torch.ops import activations
 from dig_tpu_torch.ops.images import to_model_images
 from dig_tpu_torch.utils.charset import build_charset
@@ -149,13 +154,20 @@ def iter_lmdb_batches(data_paths, batch_size, cfg, num_workers: int = 4):
             reader.close()
 
 
-def make_predict_fn(model, eos: int, beam_width: int = 0):
+def make_predict_fn(model, eos: int, beam_width: int = 0, ctc: bool = False):
     """uint8 images [B,H,W,3] (on the model's device) -> (ids [B,T],
     confidence [B]).  Confidence is exp(mean log p) of the chosen tokens up
     to and including the first EOS (all T steps when there is none).  Beam
     search (`beam_width` > 0) returns ids only; their probabilities come
     from one teacher-forced pass over them, the sequence's exact softmax
-    chain (`dig_tpu/cli/run_predict.py:174-185`)."""
+    chain (`dig_tpu/cli/run_predict.py:174-185`).  `ctc`: the per-frame
+    argmax and exp(mean log) of each frame's largest probability (:158-170)."""
+
+    @torch.no_grad()
+    def predict_ctc(images):
+        logits = model(to_model_images(images), deterministic=True).float()
+        top = torch.softmax(logits, dim=-1).max(dim=-1)
+        return top.indices, torch.exp(torch.log(top.values + 1e-9).mean(dim=-1))
 
     @torch.no_grad()
     def predict(images):
@@ -163,7 +175,12 @@ def make_predict_fn(model, eos: int, beam_width: int = 0):
         probs, ids = model.recognize(x, beam_width, eos)
         if probs is None:
             lens = torch.full((ids.shape[0],), ids.shape[1], dtype=torch.long, device=ids.device)
-            probs = torch.softmax(model(x, ids, lens, deterministic=True).float(), dim=-1)
+            logits = model(x, ids, lens, deterministic=True)
+            if isinstance(logits, dict):  # MimRecModel
+                logits = logits["rec_pred"]
+            elif isinstance(logits, tuple):  # SeqClsRecModel
+                logits = logits[0]
+            probs = torch.softmax(logits.float(), dim=-1)
         step_p = torch.gather(probs, -1, ids[..., None])[..., 0]
         t = ids.shape[1]
         is_eos = ids == eos
@@ -172,7 +189,7 @@ def make_predict_fn(model, eos: int, beam_width: int = 0):
         logp = (torch.log(step_p + 1e-9) * mask).sum(dim=1) / eff_len
         return ids, torch.exp(logp)
 
-    return predict
+    return predict_ctc if ctc else predict
 
 
 def predict_batches(predict_fn, batches, batch_size: int, device):
@@ -206,7 +223,9 @@ def load_model(cfg: PredictConfig, device):
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     model = build_rec_model(cfg.model, cfg.decoder_name, cfg.nb_classes, cfg.max_len,
                             use_1d_attdec=cfg.use_1d_attdec,
-                            use_mean_pooling=cfg.use_mean_pooling, dtype=dtype,
+                            use_mean_pooling=cfg.use_mean_pooling,
+                            use_feat_distill=cfg.use_feat_distill,
+                            text_cond_vis=cfg.text_cond_vis, dtype=dtype,
                             model_kind=cfg.model_kind, seed=cfg.seed, device=device)
     if cfg.finetune:
         sd = load_pth(cfg.finetune, cfg.model_key, cfg.model_prefix)
@@ -231,13 +250,6 @@ def main(cfg: PredictConfig, device="cuda"):
             "--resume of a native dig_tpu checkpoint directory is not supported "
             "here: its treedef.pkl unpickles only with JAX. Convert it with "
             "`python tools/export_pth.py <ckpt_dir> out.pth` and pass --finetune out.pth")
-    if cfg.model_kind != "rec":
-        raise NotImplementedError(
-            f"--model_kind {cfg.model_kind!r} (--decoder_type attention, --use_seq_cls_token "
-            f"in the reference's spelling) is not ported yet: only 'rec' "
-            f"(--decoder_type tf_decoder) runs here")
-    if cfg.text_cond_vis:
-        raise NotImplementedError("--text_cond_vis is not ported yet")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_predict runs on CUDA and no card is visible; "
@@ -250,7 +262,12 @@ def main(cfg: PredictConfig, device="cuda"):
         raise ValueError(f"--voc_type {cfg.voc_type} has {charset.num_classes} "
                          f"classes, --nb_classes is {cfg.nb_classes}")
     model = load_model(cfg, device)
-    predict_fn = make_predict_fn(model, charset.eos_id, cfg.beam_width)
+    ctc = cfg.model_kind == "ctc"
+    predict_fn = make_predict_fn(model, charset.eos_id, cfg.beam_width, ctc)
+    if ctc:
+        decode = lambda ids: ctc_decode_batch(ids, charset)  # noqa: E731
+    else:
+        decode = lambda ids: [charset.decode(row) for row in ids]  # noqa: E731
 
     def batches():  # files first, then the LMDBs, as the JAX CLI orders them
         if cfg.images:
@@ -263,8 +280,8 @@ def main(cfg: PredictConfig, device="cuda"):
     n = 0
     try:
         for names, ids, conf in predict_batches(predict_fn, batches(), cfg.batch_size, device):
-            for name, row, c in zip(names, ids, conf):
-                sink.write(f"{name}\t{charset.decode(row)}\t{c:.4f}\n")
+            for name, text, c in zip(names, decode(ids), conf):
+                sink.write(f"{name}\t{text}\t{c:.4f}\n")
             n += len(names)
     finally:
         if cfg.output:

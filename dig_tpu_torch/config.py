@@ -7,9 +7,8 @@ so that a command line written for `dig_tpu.cli.run_predict` parses the
 same here, the reference CLIs' own spellings included (`--use_cls`,
 `--decoder_type`, `--use_seq_cls_token`, `--moco_m_cos`: see
 `_REF_FLAG_ALIASES`).  Options the port does not run yet (`--resume` of a
-native checkpoint, beam search, `--text_cond_vis`, model kinds other than
-``rec``) parse as in the JAX package and are refused by the CLI or by
-`build_rec_model` with a message.
+native checkpoint, optimizers other than adamw, FSDP / tensor sharding)
+parse as in the JAX package and are refused by the CLI with a message.
 """
 
 from __future__ import annotations
@@ -281,10 +280,8 @@ class PretrainConfig:
 
 @dataclasses.dataclass
 class FinetuneConfig:
-    """`dig_tpu.config.FinetuneConfig`: the same fields and defaults.  The
-    port runs its `rec` fine-tuning step (`train/finetune.py`); the
-    fine-tuning CLI, the other model kinds and `update_freq` > 1 are not
-    ported yet."""
+    """`dig_tpu.config.FinetuneConfig`: the same fields and defaults, read by
+    `cli/run_finetune.py` for every model kind."""
 
     # model
     model: str = "vit_small_patch4_32x128"

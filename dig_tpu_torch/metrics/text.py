@@ -5,7 +5,8 @@ a recognizer's predictions (reference: evaluation_metric/metrics.py:14-202):
 decode to text stopping at EOS, case-insensitive alphanumeric
 normalization, word accuracy, the character-set F-measure, the summed
 edit distance, lexicon-constrained accuracy and the per-word confidence of
-`rec_post_process`.  The CTC and multi-label metrics wait for their models.
+`rec_post_process`; the CTC collapse decode and accuracy (:205-251) and
+the multi-label F-measure (evaluation_metric/multi_label_metrics.py:24-65).
 """
 
 from __future__ import annotations
@@ -93,3 +94,38 @@ def rec_post_process(pred_ids, target_ids, scores, charset: Charset):
     max_len = scores.shape[1]
     conf = [float(np.prod(scores[i, :min(len(p) + 1, max_len)])) for i, p in enumerate(preds)]
     return preds, targs, conf
+
+
+def ctc_decode_batch(ids, charset: Charset):
+    """Per-frame ids [N, T] -> normalized strings: repeats collapsed, then
+    blanks (id ``num_classes``, one past the vocabulary) dropped; EOS,
+    UNKNOWN and PADDING emit nothing but still break a repeat."""
+    blank = charset.num_classes
+    skip = (charset.eos_id, charset.unknown_id, charset.padding_id)
+    out = []
+    for row in np.asarray(ids):
+        chars, prev = [], -1
+        for i in (int(v) for v in row):
+            if i != blank and i != prev and i not in skip and i < charset.num_classes:
+                chars.append(charset.classes[i])
+            prev = i
+        out.append(normalize_text("".join(chars)))
+    return out
+
+
+def ctc_accuracy(pred_ids, target_ids, charset: Charset) -> float:
+    preds = ctc_decode_batch(pred_ids, charset)
+    targs = decode_batch(target_ids, charset)
+    return float(sum(p == t for p, t in zip(preds, targs))) / max(len(preds), 1)
+
+
+def multi_label_f_measure(logits, targets, threshold: float = 0.5) -> float:
+    """Character-presence F1 over the whole batch from sigmoid logits
+    [N, C] (fp64) against 0/1 presence targets [N, C]."""
+    probs = 1.0 / (1.0 + np.exp(-np.asarray(logits, dtype=np.float64)))
+    pred = probs > threshold
+    targ = np.asarray(targets) > 0.5
+    tp = float((pred & targ).sum())
+    p = tp / (pred.sum() + 1e-5)
+    r = tp / (targ.sum() + 1e-5)
+    return 2 * p * r / (p + r + 1e-5)

@@ -29,7 +29,19 @@ cross-attention and FFN.  Inference paths, as in the JAX package:
   its writes, after one copy of the stored steps per batch (the only wait
   for the card in a beam batch).
 
-The decoupled and the text-conditional decoders wait for a later slice.
+Two variants (`dig_tpu/models/decoder.py:573-783`):
+
+* ``text_cond_vis``: every layer's cross-attention is `TextConditionalMHA`,
+  whose keys and values are FiLM-modulated by each query
+  ([B, Lq, Lk, C] per layer).  Nothing of the cross K/V can be cached, so
+  greedy and beam decoding run the full layers over the whole prefix at
+  every step (the dense loops), as the JAX package does.
+* `DecoupledTFDecoder`: a learned order embedding queries the encoder
+  through each layer's cross-attention; its attention map is mixed with
+  the multi-label head's class-query maps and applied to a re-projected
+  value stream.  That vision branch does not depend on the tokens, so it
+  is computed once per image (`_vision_branch`) and the decode loops run
+  the token branch alone.
 
 None of this reaches a kernel: the self-attention is masked and the
 cross-attention has Lq <= 25 < 128, so both take `_ref_attention`, as on
@@ -61,6 +73,7 @@ from dig_tpu_torch.models.layers import (
 )
 from dig_tpu_torch.ops.activations import gelu
 from dig_tpu_torch.ops.attention import multi_head_attention
+
 
 
 class DecoderMHA(nn.Module):
@@ -115,18 +128,61 @@ class PositionwiseFeedForward(nn.Module):
         return dropout(self.w_2(x), self.dropout, generator)
 
 
+class TextConditionalMHA(nn.Module):
+    """FiLM-modulated cross-attention (reference `TextConditionalMultiHeadAttention`,
+    models/transformer_layer.py:284-383; `dig_tpu/models/decoder.py:573-620`):
+    each query makes a tanh gamma and beta that modulate the normalized
+    projection of the visual keys, so every query attends over keys and
+    values of its own, [B, Lq, Lk, C].  The keys' width must equal
+    n_head * d_k (the residual adds them)."""
+
+    def __init__(self, n_head: int = 8, d_k: int = 64, d_v: int = 64, d_model: int = 512,
+                 dropout: float = 0.1, dtype=torch.float32):
+        super().__init__()
+        self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
+        self.dropout = dropout
+        dim_k, dim_v = n_head * d_k, n_head * d_v
+        self.gamma_decode = Dense(d_model, 2 * dim_k, dtype=dtype)
+        self.vis_proj = Dense(d_model, dim_k, dtype=dtype)
+        self.vis_norm = LayerNorm(dim_k, 1e-6, dtype)
+        self.vis_cond_norm = LayerNorm(dim_k, 1e-6, dtype)
+        self.linear_q = Dense(d_model, dim_k, bias=False, dtype=dtype)
+        self.linear_k = Dense(dim_k, dim_k, bias=False, dtype=dtype)
+        self.linear_v = Dense(dim_k, dim_v, bias=False, dtype=dtype)
+        self.fc = Dense(dim_v, d_model, bias=False, dtype=dtype)
+
+    def forward(self, q, k, v, mask=None, generator=None):
+        b, lq, _ = q.shape
+        lk = k.shape[1]
+        gammas, betas = torch.tanh(self.gamma_decode(q)[:, :, None, :]).chunk(2, dim=-1)
+        cond = gammas * self.vis_norm(self.vis_proj(k))[:, None] + betas  # [B, Lq, Lk, dk]
+        cond = k[:, None] + self.vis_cond_norm(cond)
+        qh = self.linear_q(q).reshape(b, lq, self.n_head, self.d_k)
+        kh = self.linear_k(cond).reshape(b, lq, lk, self.n_head, self.d_k)
+        vh = self.linear_v(cond).reshape(b, lq, lk, self.n_head, self.d_v)
+        logits = torch.einsum("bqhd,bqkhd->bhqk", qh * self.d_k**-0.5, kh).float()
+        if mask is not None:
+            logits = logits.masked_fill(~mask, -1e30)
+        weights = dropout(torch.softmax(logits, dim=-1).to(vh.dtype), self.dropout, generator)
+        out = torch.einsum("bhqk,bqkhd->bqhd", weights, vh).reshape(b, lq, self.n_head * self.d_v)
+        return dropout(self.fc(out), self.dropout, generator)
+
+
 class TransformerDecoderLayer(nn.Module):
-    """Pre-LN: self-attn -> cross-attn -> FFN, each with a residual."""
+    """Pre-LN: self-attn -> cross-attn -> FFN, each with a residual; under
+    `text_cond_vis` the cross-attention is `TextConditionalMHA`."""
 
     def __init__(self, d_model: int = 512, d_inner: int = 256, n_head: int = 8,
-                 d_k: int = 64, d_v: int = 64, dropout: float = 0.1, dtype=torch.float32):
+                 d_k: int = 64, d_v: int = 64, dropout: float = 0.1,
+                 text_cond_vis: bool = False, dtype=torch.float32):
         super().__init__()
         # flax nn.LayerNorm defaults: eps 1e-6
         self.norm1 = LayerNorm(d_model, 1e-6, dtype)
         self.norm2 = LayerNorm(d_model, 1e-6, dtype)
         self.norm3 = LayerNorm(d_model, 1e-6, dtype)
         self.self_attn = DecoderMHA(n_head, d_k, d_v, d_model, dropout, dtype)
-        self.enc_attn = DecoderMHA(n_head, d_k, d_v, d_model, dropout, dtype)
+        cross = TextConditionalMHA if text_cond_vis else DecoderMHA
+        self.enc_attn = cross(n_head, d_k, d_v, d_model, dropout, dtype)
         self.mlp = PositionwiseFeedForward(d_model, d_inner, dropout, dtype)
 
     def forward(self, x, enc_output, self_attn_mask=None, generator=None):
@@ -216,27 +272,53 @@ def beam_backtrack(st_scores, st_preds, st_syms, b: int, k: int, eos: int) -> np
     return syms[:, best_flat].T
 
 
+def beam_start(n: int, k: int, device):
+    """The scores of n = b * k rows at step 0: only beam 0 of each sample is live."""
+    live = torch.arange(n, device=device) % k == 0
+    return torch.where(live, 0.0, -torch.inf).to(torch.float32)
+
+
+def beam_finish(stored, b: int, k: int, eos: int, device):
+    """`beam_backtrack` on the host after one copy of the stored steps
+    [(top scores, predecessors, symbols)] (in one float64 tensor: exact for
+    all three); returns ids [b, T] on `device`."""
+    t, n = len(stored), b * k
+    scores, preds, syms = (torch.stack(x) for x in zip(*stored))
+    host = torch.cat([scores.reshape(t, n).double(), preds.double(), syms.double()],
+                     dim=1).cpu().numpy()
+    ids = beam_backtrack(host[:, :n].astype(np.float32).reshape(t, b, k),
+                         host[:, n:2 * n].astype(np.int64), host[:, 2 * n:].astype(np.int64),
+                         b, k, eos)
+    ids = torch.from_numpy(ids)
+    if torch.device(device).type == "cuda":
+        ids = ids.pin_memory()
+    return ids.to(device, non_blocking=True)
+
+
 class TFDecoder(nn.Module):
     def __init__(self, num_classes: int = 97, n_layers: int = 6, d_embedding: int = 512,
                  n_head: int = 8, d_k: int = 64, d_v: int = 64, d_model: int = 512,
                  d_inner: int = 256, n_position: int = 200, max_seq_len: int = 25,
-                 dropout: float = 0.1, dtype=torch.float32):
+                 dropout: float = 0.1, text_cond_vis: bool = False, dtype=torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.dropout = dropout
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
         self.d_embedding = d_embedding
         self.max_seq_len = max_seq_len
+        self.text_cond_vis = text_cond_vis
         self.compute_dtype = dtype
         self.trg_word_emb = nn.Embedding(num_classes + 1, d_embedding)
         self.register_buffer("position_table",
                              torch.from_numpy(sinusoid_position_table(n_position, d_embedding)),
                              persistent=False)
         self.layer_stack = nn.ModuleList(
-            TransformerDecoderLayer(d_model, d_inner, n_head, d_k, d_v, dropout, dtype)
+            self._make_layer(d_model, d_inner, n_head, d_k, d_v, dropout, text_cond_vis, dtype)
             for _ in range(n_layers))
         self.layer_norm = LayerNorm(d_model, 1e-6, dtype)
         self.classifier = Dense(d_model, num_classes, dtype=dtype)
+
+    _make_layer = TransformerDecoderLayer
 
     @property
     def start_idx(self) -> int:
@@ -246,20 +328,28 @@ class TFDecoder(nn.Module):
         emb = embedding(self.trg_word_emb.weight, trg_seq).to(self.compute_dtype)
         return emb + self.position_table[:, : trg_seq.shape[1]].to(emb.dtype)
 
+    def _teacher_query(self, targets, tgt_lens, generator):
+        """[BOS] + targets shifted right, embedded (with dropout), and the
+        pad-and-causal mask [B, 1, T, T]."""
+        b, t = targets.shape
+        bos = torch.full((b, 1), self.start_idx, dtype=targets.dtype, device=targets.device)
+        query = torch.cat([bos, targets], dim=-1)[:, :-1]
+        mask = (make_pad_mask(tgt_lens, t) & make_causal_mask(t, targets.device))[:, None]
+        return dropout(self._embed(query), self.dropout, generator), mask
+
+    def _run_layers(self, x, enc_output, self_attn_mask, generator=None):
+        for layer in self.layer_stack:
+            x = layer(x, enc_output, self_attn_mask, generator)
+        return self.layer_norm(x)
+
     def forward(self, enc_output, targets, tgt_lens, deterministic: bool = False,
                 generator=None):
         """Teacher-forced pass: queries are [BOS] + targets shifted right;
         returns [B, T, num_classes] logits.  A training pass
         (`deterministic=False`) draws its dropout masks from `generator`."""
         generator = training_generator(deterministic, generator)
-        b, t = targets.shape
-        bos = torch.full((b, 1), self.start_idx, dtype=targets.dtype, device=targets.device)
-        query = torch.cat([bos, targets], dim=-1)[:, :-1]
-        mask = (make_pad_mask(tgt_lens, t) & make_causal_mask(t, targets.device))[:, None]
-        x = dropout(self._embed(query), self.dropout, generator)
-        for layer in self.layer_stack:
-            x = layer(x, enc_output, mask, generator)
-        return self.classifier(self.layer_norm(x))
+        x, mask = self._teacher_query(targets, tgt_lens, generator)
+        return self.classifier(self._run_layers(x, enc_output, mask, generator))
 
     def prepare_cross(self, enc_output):
         return [layer.prepare_cross_kv(enc_output) for layer in self.layer_stack]
@@ -276,7 +366,10 @@ class TFDecoder(nn.Module):
     def greedy_decode(self, enc_output):
         """[B, N, C] encoder map -> per-step softmax [B, T, num_classes]
         (fp32) and greedy ids [B, T], taken as the argmax of the fp32
-        probabilities."""
+        probabilities.  Under `text_cond_vis` nothing can be cached: the
+        dense loop at full length."""
+        if self.text_cond_vis:
+            return self.greedy_decode_dense(enc_output)
         b = enc_output.shape[0]
         t_max = self.max_seq_len
         cross_kvs = self.prepare_cross(enc_output)
@@ -305,33 +398,29 @@ class TFDecoder(nn.Module):
             x = x + layer.mlp(layer.norm3(x))
         return self.layer_norm(x)
 
-    def _dense_logits(self, tokens, t: int, cross_kvs, causal):
-        """The step-t logits of a full-prefix pass over tokens[:, :-1]."""
-        out = self._run_layers_cached_cross(self._embed(tokens[:, :-1]), cross_kvs, causal)
-        return self.classifier(out[:, t])
-
-    def greedy_decode_dense(self, enc_output, eos: Optional[int] = None):
-        """Greedy decode that runs the decoder over the whole prefix at
-        every step (the reference's inference structure), with the cross
-        K/V computed once.  Returns (per-step softmax [B, T, num_classes]
-        fp32, ids [B, T]), the ids those of `greedy_decode`.
-
-        With `eos`, the loop ends once every row has emitted EOS (a read of
-        one flag a step from the device); the probabilities and ids past
-        that step stay 0, so only positions up to each row's first EOS may
-        be read (word accuracy, confidence).  Without it, `max_seq_len`
-        steps (what a loss over the whole target needs)."""
-        b = enc_output.shape[0]
-        t_max = self.max_seq_len
-        dev = enc_output.device
-        causal = make_causal_mask(t_max, dev)[:, None]
+    def _prefix_runner(self, enc_output, causal):
+        """embedded prefix [N, T, C] -> the deterministic decoder output: the
+        full layers under `text_cond_vis`, else with the cross K/V computed
+        once here."""
+        if self.text_cond_vis:
+            return lambda tgt: self._run_layers(tgt, enc_output, causal)
         cross_kvs = self.prepare_cross(enc_output)
-        tokens = torch.zeros((b, t_max + 1), dtype=torch.long, device=dev)
+        return lambda tgt: self._run_layers_cached_cross(tgt, cross_kvs, causal)
+
+    def _dense_greedy_loop(self, run, b: int, device, eos: Optional[int]):
+        """The dense greedy loop: at step t, `run` over the embedded prefix
+        tokens[:, :-1], the classifier at position t, the argmax of the fp32
+        softmax written to position t + 1.  With `eos` the loop ends once
+        every row has emitted EOS (a read of one flag a step from the
+        device); probabilities and ids past that step stay 0."""
+        t_max = self.max_seq_len
+        tokens = torch.zeros((b, t_max + 1), dtype=torch.long, device=device)
         tokens[:, 0] = self.start_idx
-        probs = torch.zeros((b, t_max, self.num_classes), dtype=torch.float32, device=dev)
-        has_eos = torch.zeros((b,), dtype=torch.bool, device=dev)
+        probs = torch.zeros((b, t_max, self.num_classes), dtype=torch.float32, device=device)
+        has_eos = torch.zeros((b,), dtype=torch.bool, device=device)
         for t in range(t_max):
-            p = torch.softmax(self._dense_logits(tokens, t, cross_kvs, causal).float(), dim=-1)
+            logits = self.classifier(run(self._embed(tokens[:, :-1]))[:, t])
+            p = torch.softmax(logits.float(), dim=-1)
             nxt = torch.argmax(p, dim=-1)
             tokens[:, t + 1] = nxt
             probs[:, t] = p
@@ -341,29 +430,26 @@ class TFDecoder(nn.Module):
                     break
         return probs, tokens[:, 1:]
 
-    def _beam_start(self, n: int, k: int, device):
-        """Only beam 0 of each sample is live at step 0."""
-        live = torch.arange(n, device=device) % k == 0
-        return torch.where(live, 0.0, -torch.inf).to(torch.float32)
+    def greedy_decode_dense(self, enc_output, eos: Optional[int] = None):
+        """Greedy decode that runs the decoder over the whole prefix at
+        every step (the reference's inference structure), with the cross
+        K/V computed once.  Returns (per-step softmax [B, T, num_classes]
+        fp32, ids [B, T]), the ids those of `greedy_decode`.
 
-    def _beam_finish(self, stored, b: int, k: int, eos: int, device):
-        """Backtrack on the host after one copy of the stored steps (scores,
-        predecessors and symbols in one float64 tensor: exact for all three)."""
-        t, n = len(stored), b * k
-        scores, preds, syms = (torch.stack(x) for x in zip(*stored))
-        host = torch.cat([scores.reshape(t, n).double(), preds.double(), syms.double()],
-                         dim=1).cpu().numpy()
-        ids = beam_backtrack(host[:, :n].astype(np.float32).reshape(t, b, k),
-                             host[:, n:2 * n].astype(np.int64), host[:, 2 * n:].astype(np.int64),
-                             b, k, eos)
-        ids = torch.from_numpy(ids)
-        if torch.device(device).type == "cuda":
-            ids = ids.pin_memory()
-        return ids.to(device, non_blocking=True)
+        With `eos`, the loop ends once every row has emitted EOS, so only
+        positions up to each row's first EOS may be read (word accuracy,
+        confidence).  Without it, `max_seq_len` steps (what a loss over the
+        whole target needs)."""
+        dev = enc_output.device
+        run = self._prefix_runner(enc_output, make_causal_mask(self.max_seq_len, dev)[:, None])
+        return self._dense_greedy_loop(run, enc_output.shape[0], dev, eos)
 
     def beam_search(self, enc_output, beam_width: int, eos: int = 94):
         """KV-cached beam search with the reference's semantics (module
-        docstring).  enc_output [B, N, C] -> ids [B, T]."""
+        docstring).  enc_output [B, N, C] -> ids [B, T].  Under
+        `text_cond_vis`, `beam_search_dense`."""
+        if self.text_cond_vis:
+            return self.beam_search_dense(enc_output, beam_width, eos)
         b = enc_output.shape[0]
         k = beam_width
         t_max = self.max_seq_len
@@ -372,7 +458,7 @@ class TFDecoder(nn.Module):
         caches = [(enc.new_zeros((b * k, t_max, self.n_head, self.d_k)),
                    enc.new_zeros((b * k, t_max, self.n_head, self.d_v)))
                   for _ in self.layer_stack]
-        scores = self._beam_start(b * k, k, enc.device)
+        scores = beam_start(b * k, k, enc.device)
         tokens = torch.full((b * k,), self.start_idx, dtype=torch.long, device=enc.device)
         stored = []
         for t in range(t_max):
@@ -380,36 +466,159 @@ class TFDecoder(nn.Module):
             logp = torch.log_softmax(logits.float(), dim=-1)
             top_scores, pred, tokens, scores = beam_select(scores, logp, b, self.num_classes, eos)
             stored.append((top_scores, pred, tokens))
-        return self._beam_finish(stored, b, k, eos, enc.device)
+        return beam_finish(stored, b, k, eos, enc.device)
+
+    def _dense_beam_loop(self, run, b: int, k: int, device, eos: int):
+        """The full-prefix beam loop: the reference's selection (kill on
+        EOS, no reorder of the token rows) and backtracking; `run` maps the
+        embedded prefixes [b * k, T, C] to the decoder output."""
+        t_max = self.max_seq_len
+        scores = beam_start(b * k, k, device)
+        tokens = torch.zeros((b * k, t_max + 1), dtype=torch.long, device=device)
+        tokens[:, 0] = self.start_idx
+        stored = []
+        for t in range(t_max):
+            logits = self.classifier(run(self._embed(tokens[:, :-1]))[:, t])
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            top_scores, pred, sym, scores = beam_select(scores, logp, b, self.num_classes, eos)
+            tokens[:, t + 1] = sym
+            stored.append((top_scores, pred, sym))
+        return beam_finish(stored, b, k, eos, device)
 
     def beam_search_dense(self, enc_output, beam_width: int, eos: int = 94):
         """Beam search over the whole prefix at every step; the ids of
         `beam_search`."""
-        b = enc_output.shape[0]
-        k = beam_width
-        t_max = self.max_seq_len
-        enc = enc_output.repeat_interleave(k, dim=0)
+        enc = enc_output.repeat_interleave(beam_width, dim=0)
         dev = enc.device
-        causal = make_causal_mask(t_max, dev)[:, None]
-        cross_kvs = self.prepare_cross(enc)
-        scores = self._beam_start(b * k, k, dev)
-        tokens = torch.zeros((b * k, t_max + 1), dtype=torch.long, device=dev)
-        tokens[:, 0] = self.start_idx
-        stored = []
-        for t in range(t_max):
-            logp = torch.log_softmax(self._dense_logits(tokens, t, cross_kvs, causal).float(),
-                                     dim=-1)
-            top_scores, pred, sym, scores = beam_select(scores, logp, b, self.num_classes, eos)
-            tokens[:, t + 1] = sym
-            stored.append((top_scores, pred, sym))
-        return self._beam_finish(stored, b, k, eos, dev)
+        run = self._prefix_runner(enc, make_causal_mask(self.max_seq_len, dev)[:, None])
+        return self._dense_beam_loop(run, enc_output.shape[0], beam_width, dev, eos)
 
 
-def create_decoder(decoder_name: str, num_classes: int, max_len: int,
-                   dtype=torch.float32) -> TFDecoder:
+class Order2Cls(nn.Sequential):
+    """The decoupled layer's `mlp_order2cls_attn` (reference
+    models/transformer_layer.py:157-163): Dense, GELU, dropout, Dense to
+    `num_classes`, dropout; the Dense layers at the reference's Sequential
+    indices 0 and 3."""
+
+    def __init__(self, d_model: int, d_inner: int, num_classes: int, dropout: float = 0.1,
+                 dtype=torch.float32):
+        super().__init__(Dense(d_model, d_inner, dtype=dtype), nn.Identity(), nn.Identity(),
+                         Dense(d_inner, num_classes, dtype=dtype), nn.Identity())
+        self.dropout = dropout
+
+    def forward(self, x, generator=None):
+        x = dropout(gelu(self[0](x)), self.dropout, generator)
+        return dropout(self[3](x), self.dropout, generator)
+
+
+class DecoupledDecoderLayer(TransformerDecoderLayer):
+    """A decoder layer with the decoupled extras the reference keeps on
+    the layer (models/transformer_layer.py:121-201): `mlp_order2cls_attn`
+    and `new_linear_v`."""
+
+    def __init__(self, d_model: int = 512, d_inner: int = 256, n_head: int = 8,
+                 d_k: int = 64, d_v: int = 64, dropout: float = 0.1,
+                 text_cond_vis: bool = False, dtype=torch.float32, num_classes: int = 97):
+        super().__init__(d_model, d_inner, n_head, d_k, d_v, dropout, False, dtype)
+        self.mlp_order2cls_attn = Order2Cls(d_model, d_inner, num_classes, dropout, dtype)
+        self.new_linear_v = Dense(d_model, n_head * d_v, bias=False, dtype=dtype)
+
+
+class DecoupledTFDecoder(TFDecoder):
+    """The position-query decoder (reference models/decoder.py:373-436 +
+    models/transformer_layer.py:121-201; `dig_tpu/models/decoder.py:648-783`).
+    The vision branch reads only the order embedding, the encoder map and
+    the class-query maps, never the tokens, so it is computed once per
+    image and every decode step reuses it."""
+
+    def __init__(self, num_classes: int = 97, max_seq_len: int = 25, dropout: float = 0.1,
+                 dtype=torch.float32, **kw):
+        self._num_classes = num_classes
+        super().__init__(num_classes=num_classes, max_seq_len=max_seq_len, dropout=dropout,
+                         dtype=dtype, **kw)
+        self.order_enc = nn.Embedding(max_seq_len + 1, self.d_embedding)
+
+    def _make_layer(self, *args):
+        return DecoupledDecoderLayer(*args, num_classes=self._num_classes)
+
+    def _vision_branch(self, enc_output, cls_query_attn_maps, t_len: int, generator=None):
+        """Each layer's token-independent output [B, T, C]; every layer reads
+        the same order embedding."""
+        b = enc_output.shape[0]
+        orders = torch.arange(t_len, device=enc_output.device)[None].expand(b, -1)
+        order_embed = embedding(self.order_enc.weight, orders).to(self.compute_dtype)
+        order_embed = dropout(order_embed, self.dropout, generator)
+        cls_maps = cls_query_attn_maps.reshape(b, cls_query_attn_maps.shape[1], -1)
+        outs = []
+        for layer in self.layer_stack:
+            attn = layer.enc_attn
+            qp = attn.project_q(layer.norm2(order_embed))
+            kp, vp = attn.project_kv(enc_output, enc_output)
+            order_attn_out = attn.attend(qp, kp, vp, None, generator) + order_embed
+            order2cls = torch.softmax(
+                layer.mlp_order2cls_attn(order_attn_out, generator).float(), dim=-1
+            ).to(enc_output.dtype)
+            # the order query's attention map, mean over the heads
+            logits = torch.einsum("bqhd,bkhd->bhqk", qp * attn.d_k**-0.5, kp).float()
+            attn_maps = torch.softmax(logits, dim=-1).mean(dim=1).to(enc_output.dtype)
+            order_attn = torch.einsum("btc,bck->btk", order2cls, cls_maps) + attn_maps
+            outs.append(torch.einsum("btk,bkc->btc", order_attn,
+                                     layer.new_linear_v(enc_output)))
+        return outs
+
+    def _decoupled_run(self, x, vision_outs, self_attn_mask, generator=None):
+        """The token branch (self-attention) plus the precomputed vision outputs."""
+        for layer, v_out in zip(self.layer_stack, vision_outs):
+            sa_in = layer.norm1(x)
+            x = x + layer.self_attn(sa_in, sa_in, sa_in, self_attn_mask, generator)
+            x = x + v_out
+            x = x + layer.mlp(layer.norm3(x), generator)
+        return self.layer_norm(x)
+
+    def decoupled_forward(self, enc_output, targets, tgt_lens, cls_query_attn_maps,
+                          deterministic: bool = False, generator=None):
+        """Teacher-forced pass -> [B, T, num_classes] logits."""
+        generator = training_generator(deterministic, generator)
+        x, mask = self._teacher_query(targets, tgt_lens, generator)
+        vision_outs = self._vision_branch(enc_output, cls_query_attn_maps, targets.shape[1],
+                                          generator)
+        return self.classifier(self._decoupled_run(x, vision_outs, mask, generator))
+
+    def _vision_runner(self, enc_output, cls_query_attn_maps):
+        dev = enc_output.device
+        causal = make_causal_mask(self.max_seq_len, dev)[:, None]
+        vision_outs = self._vision_branch(enc_output, cls_query_attn_maps, self.max_seq_len)
+        return lambda tgt: self._decoupled_run(tgt, vision_outs, causal)
+
+    def decoupled_greedy_decode(self, enc_output, cls_query_attn_maps,
+                                eos: Optional[int] = None):
+        """Dense greedy decode through the decoupled graph; (per-step
+        softmax [B, T, num_classes], ids [B, T]); `eos` as in
+        `greedy_decode_dense`."""
+        run = self._vision_runner(enc_output, cls_query_attn_maps)
+        return self._dense_greedy_loop(run, enc_output.shape[0], enc_output.device, eos)
+
+    def decoupled_beam_search(self, enc_output, cls_query_attn_maps, beam_width: int,
+                              eos: int = 94):
+        """Beam search through the decoupled graph, with the transformer
+        decoder's selection and backtracking.  Returns ids [B, T]."""
+        k = beam_width
+        run = self._vision_runner(enc_output.repeat_interleave(k, dim=0),
+                                  cls_query_attn_maps.repeat_interleave(k, dim=0))
+        return self._dense_beam_loop(run, enc_output.shape[0], k, enc_output.device, eos)
+
+
+def create_decoder(decoder_name: str, num_classes: int, max_len: int, dtype=torch.float32,
+                   text_cond_vis: bool = False) -> TFDecoder:
     """Decoder factory by name (reference: models/decoder.py:13-73), at
-    the decoders' dropout of 0.1, as the JAX package builds them."""
+    the decoders' dropout of 0.1, as the JAX package builds them.
+    `text_cond_vis` swaps every layer's cross-attention for the
+    FiLM-conditioned one; the decoupled decoder ignores it, as the
+    reference's decoupled layer stack does (models/decoder.py:409-412)."""
     common = dict(num_classes=num_classes, max_seq_len=max_len, dtype=dtype)
+    if decoder_name == "decoupled_tf_decoder":
+        return DecoupledTFDecoder(**common)
+    common["text_cond_vis"] = text_cond_vis
     if decoder_name == "tf_decoder":
         return TFDecoder(**common)
     if decoder_name == "small_tf_decoder":
@@ -421,6 +630,4 @@ def create_decoder(decoder_name: str, num_classes: int, max_len: int,
                "corres_base_tf_decoder": 512}[decoder_name]
         return TFDecoder(n_layers=6, d_embedding=dim, n_head=8, d_model=dim,
                          d_inner=dim * 4, d_k=dim // 8, d_v=dim // 8, **common)
-    if decoder_name == "decoupled_tf_decoder":
-        raise NotImplementedError("decoupled_tf_decoder is not ported yet")
     raise KeyError(f"unknown decoder '{decoder_name}'")

@@ -1,19 +1,20 @@
 """ViT encoders (PyTorch), counterparts of `dig_tpu/models/vit.py`:
 
-* `VisionTransformer` on its feature-map path: [B, 32, 128, 3] images ->
+* `VisionTransformer`, the fine-tuning encoder: [B, 32, 128, 3] images ->
   [B, 256, C] token map (modeling_finetune.py:213-366), with the
   fine-tuning recipe's dropout after the position table, per-block
   projection / Mlp dropout and attention dropout, and drop-path rates
-  rising linearly over the depth.  Sequence cls tokens and memory slots
-  wait for a later slice.
-* `PretrainViTEncoder`, the SimMIM encoder of the pre-training step: all
-  tokens kept, masked positions replaced by a learned mask token *before*
-  the position table is added (modeling_pretrain_vit.py:27-111), with the
-  `simmim_vit_*` registry names and drop-path rates rising linearly over
-  the depth (`--drop_path` of the pre-training CLI).
+  rising linearly over the depth; or the sequence class queries
+  [B, max_seq_len, C], or the pooled feature (see the class).
+* `PretrainViTEncoder`, the SimMIM encoder of the pre-training step and of
+  MIM fine-tuning: all tokens kept, masked positions replaced by a learned
+  mask token *before* the position table is added
+  (modeling_pretrain_vit.py:27-111), with the `simmim_vit_*` registry
+  names and drop-path rates rising linearly over the depth.
 
 Width table (reference registry): micro=64/2h (2 layers, tests only),
-tiny=192/3h, small=384/6h, base=512/8h, depth 12, patch 4.
+tiny=192/3h, small=384/6h, base=512/8h, depth 12, patch 4; the satrn
+names are base-wide, `vit_seq_cls_base_patch4_32x128` 768/12h.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 
 from dig_tpu_torch.models.layers import (
     Block,
+    Dense,
     LayerNorm,
     PatchEmbed,
     dropout,
@@ -35,20 +37,59 @@ from dig_tpu_torch.models.registry import register_model
 
 
 class VisionTransformer(nn.Module):
+    """The fine-tuning encoder (`dig_tpu/models/vit.py:36-161`).
+
+    * `use_seq_cls_token`: `max_seq_len` learned class queries, with their
+      own sinusoid table and `cls_type_emb`, go before the visual tokens,
+      which get `vis_type_emb`; only the queries are returned
+      [B, max_seq_len, C] (modeling_finetune.py:249-255, :335-352).
+    * `num_mem_slots`: a frozen memory bank appended to the tokens before
+      the position table (no gradient, no update: `requires_grad=False`),
+      dropped after the blocks unless `use_mem_in_decoder`.
+    * `use_learnable_pos_emb`: a learned `pos_embed` instead of the table.
+    * `return_feat_map=False`: the pooled path, `fc_norm` of the token mean
+      (mean pooling) or `norm` of token 0, then `head` when `num_classes`.
+    Parameters that the JAX package creates only on the path a flag takes
+    exist here only under that flag, so the two trees hold the same names."""
+
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: int = 4,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 init_values: float = 0.0, use_mean_pooling: bool = True, dtype=torch.float32):
+                 init_values: float = 0.0, use_learnable_pos_emb: bool = False,
+                 use_mean_pooling: bool = True, return_feat_map: bool = True,
+                 num_classes: int = 0, use_seq_cls_token: bool = False, max_seq_len: int = 25,
+                 num_mem_slots: int = 0, use_mem_in_decoder: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.drop_rate = drop_rate
+        self.return_feat_map = return_feat_map
+        self.use_mean_pooling = use_mean_pooling
+        self.use_seq_cls_token = use_seq_cls_token
+        self.max_seq_len = max_seq_len
+        self.num_mem_slots = num_mem_slots
+        self.use_mem_in_decoder = use_mem_in_decoder
         self.patch_embed = PatchEmbed(img_size, patch_size, 3, embed_dim, dtype)
-        self.register_buffer(
-            "pos_table",
-            torch.from_numpy(sinusoid_position_table(self.patch_embed.num_patches, embed_dim)),
-            persistent=False)
+        n = self.patch_embed.num_patches + num_mem_slots
+        if num_mem_slots > 0:
+            self.mem_bank = nn.Parameter(torch.zeros(1, num_mem_slots, embed_dim),
+                                         requires_grad=False)
+        if use_learnable_pos_emb:
+            self.pos_embed = nn.Parameter(torch.zeros(1, n, embed_dim))
+        else:
+            self.register_buffer("pos_table",
+                                 torch.from_numpy(sinusoid_position_table(n, embed_dim)),
+                                 persistent=False)
+        if use_seq_cls_token:
+            self.cls_token = nn.Parameter(torch.zeros(1, max_seq_len, embed_dim))
+            self.cls_type_emb = nn.Parameter(torch.zeros(1, 1, embed_dim))
+            self.vis_type_emb = nn.Parameter(torch.zeros(1, 1, embed_dim))
+            self.register_buffer(
+                "cls_pos_table",
+                torch.from_numpy(sinusoid_position_table(max_seq_len, embed_dim)),
+                persistent=False)
         # drop-path rising linearly over the depth (dig_tpu/models/vit.py:123)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
@@ -56,12 +97,23 @@ class VisionTransformer(nn.Module):
                   drop=drop_rate, attn_drop=attn_drop_rate, drop_path_rate=dpr[i], dtype=dtype)
             for i in range(depth))
         # the feature-map path has no final norm under mean pooling
-        # (modeling_finetune.py:280, :354-355)
-        self.norm = None if use_mean_pooling else LayerNorm(embed_dim, 1e-6, dtype)
+        # (modeling_finetune.py:280, :354-355); the seq-cls path has none
+        self.norm = self.fc_norm = self.head = None
+        if not use_seq_cls_token:
+            if not use_mean_pooling:
+                self.norm = LayerNorm(embed_dim, 1e-6, dtype)
+            elif not return_feat_map:
+                self.fc_norm = LayerNorm(embed_dim, 1e-6, dtype)
+            if not return_feat_map and num_classes > 0:
+                self.head = Dense(embed_dim, num_classes, dtype=dtype)
 
     @property
     def patch_shape(self):
         return self.patch_embed.patch_shape
+
+    @property
+    def num_patches(self):
+        return self.patch_embed.num_patches
 
     @property
     def depth(self):
@@ -71,12 +123,30 @@ class VisionTransformer(nn.Module):
         """`generator` draws the dropout and drop-path masks of a training
         pass; None is the deterministic pass."""
         x = self.patch_embed(x)
-        x = dropout(x + self.pos_table.to(x.dtype), self.drop_rate, generator)
+        b, _, c = x.shape
+        if self.num_mem_slots > 0:
+            mem = self.mem_bank.detach().to(x.dtype).expand(b, -1, -1)
+            x = torch.cat([x, mem], dim=1)
+        pos = self.pos_embed if hasattr(self, "pos_embed") else self.pos_table
+        x = dropout(x + pos.to(x.dtype), self.drop_rate, generator)
+        if self.use_seq_cls_token:
+            cls = (self.cls_token.to(x.dtype) + self.cls_pos_table.to(x.dtype)
+                   + self.cls_type_emb.to(x.dtype))
+            cls = dropout(cls.expand(b, -1, -1), self.drop_rate, generator)
+            x = torch.cat([cls, x + self.vis_type_emb.to(x.dtype)], dim=1)
         for blk in self.blocks:
             x = blk(x, generator)
-        if self.norm is not None:
-            x = self.norm(x)
-        return x
+        if self.num_mem_slots > 0 and not self.use_mem_in_decoder:
+            x = x[:, : x.shape[1] - self.num_mem_slots]
+        if self.use_seq_cls_token:
+            return x[:, : self.max_seq_len]
+        if self.return_feat_map:
+            return x if self.norm is None else self.norm(x)
+        if self.use_mean_pooling:
+            x = self.fc_norm(x.mean(dim=1))
+        else:
+            x = self.norm(x)[:, 0]
+        return x if self.head is None else self.head(x)
 
 
 class PretrainViTEncoder(nn.Module):
@@ -91,21 +161,25 @@ class PretrainViTEncoder(nn.Module):
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, init_values: float = 0.0,
-                 use_final_norm: bool = True, drop_path_rate: float = 0.0,
-                 dtype=torch.float32):
+                 use_final_norm: bool = True, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
+                 use_learnable_pos_emb: bool = False, dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
         self.patch_embed = PatchEmbed(img_size, patch_size, 3, embed_dim, dtype)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
-        self.register_buffer(
-            "pos_table",
-            torch.from_numpy(sinusoid_position_table(self.patch_embed.num_patches, embed_dim)),
-            persistent=False)
+        n = self.patch_embed.num_patches
+        if use_learnable_pos_emb:
+            self.pos_embed = nn.Parameter(torch.zeros(1, n, embed_dim))
+        else:
+            self.register_buffer("pos_table",
+                                 torch.from_numpy(sinusoid_position_table(n, embed_dim)),
+                                 persistent=False)
         # drop-path rising linearly over the depth (dig_tpu/models/vit.py:221)
         dpr = [float(r) for r in np.linspace(0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale, init_values,
-                  drop_path_rate=dpr[i], dtype=dtype)
+                  drop=drop_rate, attn_drop=attn_drop_rate, drop_path_rate=dpr[i], dtype=dtype)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, 1e-6, dtype) if use_final_norm else None
 
@@ -117,12 +191,17 @@ class PretrainViTEncoder(nn.Module):
     def num_patches(self):
         return self.patch_embed.num_patches
 
+    @property
+    def depth(self):
+        return len(self.blocks)
+
     def forward(self, x, mask=None, generator=None):
         x = self.patch_embed(x)
         if mask is not None:
             m = mask.to(x.dtype)[..., None]
             x = x * (1.0 - m) + self.mask_token.to(x.dtype) * m
-        x = x + self.pos_table.to(x.dtype)
+        pos = self.pos_embed if hasattr(self, "pos_embed") else self.pos_table
+        x = x + pos.to(x.dtype)
         for blk in self.blocks:
             x = blk(x, generator)
         if self.norm is not None:
@@ -162,6 +241,31 @@ def vit_small_patch4_32x128(**kw):
 @register_model(name="vit_base_patch4_32x128")
 def vit_base_patch4_32x128(**kw):
     return _vit("base", **kw)
+
+
+@register_model(name="vit_satrn_patch4_32x128")
+def vit_satrn_patch4_32x128(**kw):
+    # reference: modeling_finetune.py:429-435 (512-wide, 8 heads)
+    return _vit("base", **kw)
+
+
+@register_model(name="vit_seq_cls_satrn_patch4_32x128")
+def vit_seq_cls_satrn_patch4_32x128(**kw):
+    # reference: modeling_finetune.py:437-443
+    kw.setdefault("use_seq_cls_token", True)
+    kw.setdefault("max_seq_len", 25)
+    return _vit("base", **kw)
+
+
+@register_model(name="vit_seq_cls_base_patch4_32x128")
+def vit_seq_cls_base_patch4_32x128(**kw):
+    # reference: modeling_finetune.py:445-451 (768-wide, 12 heads)
+    kw.setdefault("use_seq_cls_token", True)
+    kw.setdefault("max_seq_len", 25)
+    defaults = dict(img_size=(32, 128), patch_size=4, embed_dim=768, depth=12, num_heads=12,
+                    mlp_ratio=4.0, qkv_bias=True)
+    defaults.update(kw)
+    return VisionTransformer(**defaults)
 
 
 def _simmim_vit(size, **kwargs):

@@ -35,18 +35,17 @@ modules, AdamW's moments and step tensors, the optimizer's schedule index
 `count` and `state.step`.  Restore *after* `init_pretrain_state`, which
 resets the momentum branch to the student.
 
-Weights from elsewhere (`dig_tpu/utils/checkpoint.py:375-414, 766-906`),
+Weights from elsewhere (`dig_tpu/utils/checkpoint.py:375-414, 542-906`),
 as state-dict operations on the reference key layout that the port's
 models use: `load_torch_checkpoint` (the ``--model_key`` order),
-`convert_torch_encoder` (the prefix order), `convert_torch_recognizer`,
-`has_decoder_keys`, and `merge_pretrained_tree`, which grafts what fits
-onto a model.
+`convert_torch_encoder` (the prefix order), `convert_torch_attn_head` (the
+GRU head), `convert_torch_recognizer`, `has_decoder_keys`, and
+`merge_pretrained_tree`, which grafts what fits onto a model and fits a
+learnable ``pos_embed`` of another grid with `interpolate_pos_embed`.
 
-Not ported yet (see ROADMAP.md): remote URIs (``gs://...`` through fsspec),
-reading the JAX package's native directories (``arrays.npz`` +
-``treedef.pkl``), both refused with a message, and `interpolate_pos_embed`,
-which waits for the learnable position table: the ported encoders hold a
-fixed sinusoid table, so a checkpoint's ``pos_embed`` is reported unused.
+Not ported yet (see ROADMAP.md): remote URIs (``gs://...`` through fsspec)
+and reading the JAX package's native directories (``arrays.npz`` +
+``treedef.pkl``), both refused with a message.
 """
 
 from __future__ import annotations
@@ -58,6 +57,7 @@ import re
 import shutil
 from typing import Optional
 
+import numpy as np
 import torch
 
 from dig_tpu_torch.parallel.dist import barrier, is_main_process
@@ -257,14 +257,31 @@ def convert_torch_encoder(state_dict: dict, prefix: str = "encoder.") -> dict:
     return {k: v for k, v in sd.items() if _ENCODER_KEY.fullmatch(k)}
 
 
+def convert_torch_attn_head(state_dict: dict, prefix: str = "decoder.") -> dict:
+    """The reference GRU head's tensors (models/attn_decoder.py:203-279:
+    ``decoder.attention_unit.{sEmbed,xEmbed,wEmbed}``, ``decoder.tgt_embedding``,
+    ``decoder.gru.*``, ``decoder.fc``), keyed below `prefix`.  The port's
+    head keeps torch's layout, biases included, so the tensors pass as
+    they are."""
+    head = ("decoder.attention_unit.", "decoder.tgt_embedding.", "decoder.gru.", "decoder.fc.")
+    sub = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    return {k: v for k, v in sub.items() if k.startswith(head)}
+
+
 def convert_torch_recognizer(state_dict: dict) -> dict:
     """A fine-tuned reference recognizer's state dict -> {"encoder": ...,
-    "linear_norm": ..., "decoder": ...}, each keyed below its module."""
+    "linear_norm": ..., "decoder": ...}, each keyed below its module: the
+    GRU head's tensors when it has them (`convert_torch_attn_head`), else
+    the transformer decoder's.  A subtree the file lacks is left out."""
     tree = {"encoder": convert_torch_encoder(state_dict, prefix="encoder.")}
-    for top in ("linear_norm", "decoder"):
-        tree[top] = {k[len(top) + 1:]: v for k, v in state_dict.items()
-                     if k.startswith(top + ".")}
-    return tree
+    tree["linear_norm"] = {k[len("linear_norm."):]: v for k, v in state_dict.items()
+                           if k.startswith("linear_norm.")}
+    if any(k.startswith("decoder.decoder.gru.") for k in state_dict):
+        tree["decoder"] = convert_torch_attn_head(state_dict)
+    else:
+        tree["decoder"] = {k[len("decoder."):]: v for k, v in state_dict.items()
+                           if k.startswith("decoder.")}
+    return {top: sub for top, sub in tree.items() if sub}
 
 
 def has_decoder_keys(state_dict: dict) -> bool:
@@ -276,14 +293,85 @@ def has_decoder_keys(state_dict: dict) -> bool:
                for k in state_dict)
 
 
-def merge_pretrained_tree(model, tree: dict) -> int:
+def _cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_in, n_out] weights of JAX's cubic image resize along one axis:
+    Keys' cubic (a = -0.5), half-pixel centres, the kernel widened by the
+    scale when shrinking (antialiasing), each column normalized, and zero
+    where the sample falls outside the input."""
+    inv_scale = n_in / n_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv_scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None]) / kernel_scale
+    w = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, ((1.5 * x - 2.5) * x) * x + 1.0)
+    w = np.where(x >= 2.0, 0.0, w)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0.0)
+    return np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+
+
+def interpolate_pos_embed(pos, new_grid, old_grid=None, num_extra_tokens: int = 0):
+    """Bicubic re-interpolation of a learnable position embedding
+    [1, extra + gh * gw, D] onto `new_grid` (reference
+    run_class_finetuning.py:403-424; `dig_tpu/utils/checkpoint.py:779-813`).
+    The reference assumes a square grid, which DiG's 8 x 32 is not: the old
+    grid is inferred with the new grid's aspect ratio, else square.  The
+    resize is JAX's cubic image resize (`_cubic_weights`), computed in
+    float64 here; the extra tokens are kept."""
+    pos = np.asarray(pos, dtype=np.float32)
+    d = pos.shape[-1]
+    extra, tok = pos[:, :num_extra_tokens], pos[:, num_extra_tokens:]
+    n_old = tok.shape[1]
+    if old_grid is None:
+        h = int(round((n_old * new_grid[0] / new_grid[1]) ** 0.5)) or 1
+        old_grid = (h, n_old // h)
+        if old_grid[0] * old_grid[1] != n_old:
+            s = int(round(n_old**0.5))
+            if s * s != n_old:
+                raise ValueError(f"cannot infer a {new_grid[0]}:{new_grid[1]} grid from "
+                                 f"{n_old} position tokens")
+            old_grid = (s, s)
+    print(f"Position interpolate from {old_grid[0]}x{old_grid[1]} "
+          f"to {new_grid[0]}x{new_grid[1]}")
+    grid = tok.reshape(*old_grid, d).astype(np.float64)
+    if tuple(old_grid) != tuple(new_grid):
+        grid = np.einsum("hwd,hH,wW->HWd", grid, _cubic_weights(old_grid[0], new_grid[0]),
+                         _cubic_weights(old_grid[1], new_grid[1]))
+    out = grid.reshape(1, new_grid[0] * new_grid[1], d).astype(np.float32)
+    return np.concatenate([extra, out], axis=1) if num_extra_tokens else out
+
+
+def _fit_pos_embed(src, dst, grid):
+    """A source pos_embed refitted onto the destination's grid, or None.  The
+    extra (non-grid) tokens are counted per side (`dig_tpu/utils/checkpoint.py:816-846`):
+    the destination's from its shape, the source's by the split whose grid
+    can be inferred (the destination's count first, then 0); rows the
+    source lacks keep the destination's own values."""
+    n_grid = grid[0] * grid[1]
+    extra_dst = dst.shape[1] - n_grid
+    for extra_src in dict.fromkeys((max(extra_dst, 0), 0)):
+        if src.shape[1] - extra_src <= 0:
+            continue
+        try:
+            fitted = interpolate_pos_embed(src, grid, num_extra_tokens=extra_src)
+        except ValueError:
+            continue
+        if extra_src < extra_dst:
+            fitted = np.concatenate([dst.numpy()[:, : extra_dst - extra_src], fitted], axis=1)
+        return torch.from_numpy(fitted)
+    return None
+
+
+def merge_pretrained_tree(model, tree: dict, pos_embed_grid=None) -> int:
     """Graft {top module: {key below it: tensor}} onto `model` in place,
     with the JAX package's rules (`merge_pretrained_tree`): a tensor of the
-    model's shape is copied; one the model lacks, or has in another shape,
-    is skipped with a note; a subtree of several tensors that matches
-    nothing means another architecture and raises `ValueError`.  A
-    ``pos_embed`` is reported unused: the ported encoders hold a fixed
-    sinusoid table (`interpolate_pos_embed` waits for the learnable one).
+    model's shape is copied; a ``pos_embed`` of another shape is refitted
+    onto `pos_embed_grid` (the model's (gh, gw)) by `interpolate_pos_embed`;
+    one the model lacks, or has in another shape, is skipped with a note (a
+    ``pos_embed`` the encoder has no place for is reported unused: its
+    position table is a fixed sinusoid); a subtree of several tensors that
+    matches nothing means another architecture (a transformer decoder's
+    `.pth` into ``--model_kind attn``, say) and raises `ValueError`.
     Returns the number of tensors copied."""
     own = model.state_dict()
     total = 0
@@ -293,14 +381,24 @@ def merge_pretrained_tree(model, tree: dict) -> int:
             name = f"{top}.{key}"
             if key == "pos_embed" and name not in own:
                 print(f"skip {name}: unused, the encoder's position table is a fixed sinusoid")
-            elif name not in own:
+                continue
+            if name not in own:
                 print(f"skip missing {name}")
-            elif tuple(own[name].shape) != tuple(value.shape):
-                print(f"skip {name}: shape {tuple(value.shape)} vs {tuple(own[name].shape)}")
-            else:
-                with torch.no_grad():
-                    own[name].copy_(value.to(own[name].dtype))
-                grafted += 1
+                continue
+            if tuple(own[name].shape) != tuple(value.shape):
+                fitted = None
+                if (key == "pos_embed" and pos_embed_grid is not None and value.dim() == 3
+                        and value.shape[-1] == own[name].shape[-1]):
+                    fitted = _fit_pos_embed(value.float(), own[name].cpu().float(),
+                                            pos_embed_grid)
+                if fitted is None:
+                    print(f"skip {name}: shape {tuple(value.shape)} vs "
+                          f"{tuple(own[name].shape)}")
+                    continue
+                value = fitted
+            with torch.no_grad():
+                own[name].copy_(value.to(own[name].dtype))
+            grafted += 1
         if len(sub) > 1 and grafted == 0:
             raise ValueError(
                 f"checkpoint subtree '{top}' ({len(sub)} tensors) matched nothing in the model: "

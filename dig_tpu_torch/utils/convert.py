@@ -1,10 +1,14 @@
 """Weights across packages, in the reference torch `state_dict` layout.
 
-* `params_from_jax(tree)`: the JAX package's `RecModel` parameter tree
-  (nested dicts of numpy arrays: ``encoder`` / ``linear_norm`` /
-  ``decoder``) -> this package's `RecModel.state_dict()`.  The key layout
-  is the one `dig_tpu/utils/export_torch.py:211-243` writes, so this is
-  that exporter's mapping, kept here as its own copy.
+* `params_from_jax(tree)`: the parameter tree of any of the JAX package's
+  recognizers (nested dicts of numpy arrays: ``encoder``, ``linear_norm``,
+  ``decoder`` and the heads of the other kinds) -> this package's
+  `state_dict()` of the same kind.  Where the reference has a layout
+  (encoder, linear_norm, the transformer decoders, the GRU head) it is the
+  one `dig_tpu/utils/export_torch.py` writes, that exporter's mapping kept
+  here as its own copy; flax's GRU keeps one bias for each of the r and z
+  gates (the sum of torch's two), which goes to ``bias_ih`` beside a zero
+  ``bias_hh``: the same function.
 * `moco_params_from_jax(student, ema)`: the JAX package's pre-training
   parameter trees (the student's and the momentum branch's) -> this
   package's `DiGPretrainModel.state_dict()`, in the reference `MoCo_ViT`
@@ -57,20 +61,28 @@ def _encoder(tree: dict, patch_size: int) -> dict:
     out["patch_embed.proj.weight"] = _t(
         kernel.reshape(p, p, kernel.shape[0] // (p * p), -1).transpose(3, 2, 0, 1))
     out["patch_embed.proj.bias"] = _t(pe["bias"])
-    if "mask_token" in tree:
-        out["mask_token"] = _t(tree["mask_token"])
+    for token in ("mask_token", "pos_embed", "cls_token", "cls_type_emb", "vis_type_emb",
+                  "mem_bank"):
+        if token in tree:
+            out[token] = _t(tree[token])
     for name, blk in tree.items():
         if name.startswith("blocks_"):
             b = f"blocks.{name[len('blocks_'):]}."
             out.update({b + k: v for k, v in block_from_jax(blk).items()})
-    if "norm" in tree:
-        out["norm.weight"] = _t(tree["norm"]["scale"])
-        out["norm.bias"] = _t(tree["norm"]["bias"])
+    for norm in ("norm", "fc_norm"):
+        if norm in tree:
+            out.update(_norm(tree[norm], norm))
+    if "head" in tree:
+        out.update(_dense(tree["head"], "head"))
     return out
 
 
 def decoder_from_jax(tree: dict) -> dict:
-    """`TFDecoder` tree -> its state dict (keys relative to the decoder)."""
+    """`TFDecoder` / `DecoupledTFDecoder` tree (text-conditional
+    cross-attention included) -> its state dict (keys relative to the
+    decoder).  The decoupled extras sit on the decoder in the JAX tree
+    (``order2cls_i``, ``new_linear_v_i``) and on each layer here, as in the
+    reference (models/transformer_layer.py:157-165)."""
     out = {
         "trg_word_emb.weight": _t(tree["trg_word_emb"]["embedding"]),
         "layer_norm.weight": _t(tree["layer_norm"]["scale"]),
@@ -78,32 +90,47 @@ def decoder_from_jax(tree: dict) -> dict:
         "classifier.weight": _t(np.asarray(tree["classifier"]["kernel"]).T),
         "classifier.bias": _t(tree["classifier"]["bias"]),
     }
+    if "order_enc" in tree:
+        out["order_enc.weight"] = _t(tree["order_enc"]["embedding"])
     for name, blk in tree.items():
+        if name.startswith("order2cls_"):
+            b = f"layer_stack.{name[len('order2cls_'):]}.mlp_order2cls_attn."
+            out.update({**_dense(blk["Dense_0"], b + "0"), **_dense(blk["Dense_1"], b + "3")})
+        elif name.startswith("new_linear_v_"):
+            out.update(_dense(blk, f"layer_stack.{name[len('new_linear_v_'):]}.new_linear_v"))
         if not name.startswith("layers_"):
             continue
         b = f"layer_stack.{name[len('layers_'):]}."
         for attn in ("self_attn", "enc_attn"):
-            for mod in ("linear_q", "linear_k", "linear_v", "fc"):
-                out[b + f"{attn}.{mod}.weight"] = _t(np.asarray(blk[attn][mod]["kernel"]).T)
+            for mod, sub in blk[attn].items():
+                key = f"{b}{attn}.{mod}"
+                out.update(_norm(sub, key) if "scale" in sub else _dense(sub, key))
         for norm in ("norm1", "norm2", "norm3"):
-            out[b + norm + ".weight"] = _t(blk[norm]["scale"])
-            out[b + norm + ".bias"] = _t(blk[norm]["bias"])
+            out.update(_norm(blk[norm], b + norm))
         for w in ("w_1", "w_2"):
-            out[b + f"mlp.{w}.weight"] = _t(np.asarray(blk["mlp"][w]["kernel"]).T)
-            out[b + f"mlp.{w}.bias"] = _t(blk["mlp"][w]["bias"])
+            out.update(_dense(blk["mlp"][w], f"{b}mlp.{w}"))
     return out
 
 
-def params_from_jax(tree: dict, patch_size: int = 4) -> dict:
-    """JAX `RecModel` params -> this package's `RecModel` state dict."""
-    sd = {"encoder." + k: v for k, v in _encoder(tree["encoder"], patch_size).items()}
-    ln = tree["linear_norm"]
-    sd["linear_norm.0.weight"] = _t(np.asarray(ln["dense"]["kernel"]).T)
-    sd["linear_norm.0.bias"] = _t(ln["dense"]["bias"])
-    sd["linear_norm.1.weight"] = _t(ln["norm"]["scale"])
-    sd["linear_norm.1.bias"] = _t(ln["norm"]["bias"])
-    sd.update({"decoder." + k: v for k, v in decoder_from_jax(tree["decoder"]).items()})
-    return sd
+def attn_head_from_jax(tree: dict) -> dict:
+    """`AttentionRecognitionHead` tree -> the reference GRU head's keys
+    below `AttnRecModel.decoder` (``decoder.attention_unit.sEmbed``, ...)."""
+    out = {}
+    for src, dst in (("s_embed", "attention_unit.sEmbed"), ("x_embed", "attention_unit.xEmbed"),
+                     ("w_embed", "attention_unit.wEmbed"), ("fc", "fc")):
+        out.update(_dense(tree[src], "decoder." + dst))
+    out["decoder.tgt_embedding.weight"] = _t(tree["tgt_embedding"]["embedding"])
+    gru = tree["gru"]
+    h = np.asarray(gru["hr"]["kernel"]).shape[0]
+    zeros = np.zeros(h, np.float32)
+    out["decoder.gru.weight_ih_l0"] = _t(np.concatenate(
+        [np.asarray(gru["i" + g]["kernel"]).T for g in "rzn"]))
+    out["decoder.gru.weight_hh_l0"] = _t(np.concatenate(
+        [np.asarray(gru["h" + g]["kernel"]).T for g in "rzn"]))
+    out["decoder.gru.bias_ih_l0"] = _t(np.concatenate([np.asarray(gru["i" + g]["bias"])
+                                                       for g in "rzn"]))
+    out["decoder.gru.bias_hh_l0"] = _t(np.concatenate([zeros, zeros, gru["hn"]["bias"]]))
+    return out
 
 
 def _dense(tree: dict, key: str) -> dict:
@@ -115,6 +142,43 @@ def _dense(tree: dict, key: str) -> dict:
 
 def _norm(tree: dict, key: str) -> dict:
     return {key + ".weight": _t(tree["scale"]), key + ".bias": _t(tree["bias"])}
+
+
+def _sequential(tree: dict) -> dict:
+    """A flax `nn.Sequential` (``layers_i``: Dense or LayerNorm) -> torch's
+    `nn.Sequential` keys (``i``)."""
+    out = {}
+    for name, sub in tree.items():
+        i = name[len("layers_"):]
+        out.update(_norm(sub, i) if "scale" in sub else _dense(sub, i))
+    return out
+
+
+def params_from_jax(tree: dict, patch_size: int = 4) -> dict:
+    """The JAX params of any recognizer kind -> this package's state dict
+    of that kind (`RecModel`, `CTCRecModel`, `AttnRecModel`, `MimRecModel`,
+    `SeqClsTokenRecModel`, `SeqClsRecModel`)."""
+    sd = {}
+    for top, sub in tree.items():
+        if "kernel" in sub or "scale" in sub:  # a Dense or a LayerNorm: fc0, norm, fc1, head, ...
+            sd.update(_norm(sub, top) if "scale" in sub else _dense(sub, top))
+            continue
+        if top == "encoder":
+            conv = _encoder(sub, patch_size)
+        elif top == "linear_norm":
+            conv = {**_dense(sub["dense"], "0"), **_norm(sub["norm"], "1")}
+        elif top == "decoder":
+            conv = attn_head_from_jax(sub) if "gru" in sub else decoder_from_jax(sub)
+        elif top in ("pix_head", "mim_proj"):
+            conv = _sequential(sub)
+        elif top == "feat_proj":
+            conv = _mlp_head(sub)
+        elif top == "multi_label":
+            conv = {"cls_queries": _t(sub["cls_queries"]), **_dense(sub["presence"], "presence")}
+        else:
+            raise KeyError(f"no port counterpart for the JAX subtree {top!r}")
+        sd.update({f"{top}.{k}": v for k, v in conv.items()})
+    return sd
 
 
 def _mlp_head(tree: dict) -> dict:

@@ -122,8 +122,11 @@ def test_use_cls_state_dict_loads_with_its_final_norm():
 
 @pytest.mark.parametrize("kind", ["attn", "seq_cls", "ctc"])
 def test_build_rec_model_refuses_model_kinds_it_cannot_run(kind):
+    """Every kind builds; what a kind cannot run is feature distillation,
+    whose projector lives on the `rec` model only (as `dig_tpu` refuses it)."""
     from dig_tpu_torch.models.rec_model import build_rec_model
 
-    with pytest.raises(NotImplementedError, match=kind):
+    build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder", model_kind=kind, device="cpu")
+    with pytest.raises(ValueError, match=kind):
         build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder", model_kind=kind,
-                        device="cpu")
+                        use_feat_distill=True, device="cpu")

@@ -273,23 +273,28 @@ def test_finetune_config_matches_jax():
 
 
 STILL_REFUSED = {
-    "opt": (lambda m: toptim.create_optimizer("lamb", m.named_parameters(), [1e-3]), "lamb"),
+    "opt": (lambda m: toptim.create_optimizer("lamb", m.named_parameters(), [1e-3]),
+            NotImplementedError, "lamb"),
+    # every model kind and decoder runs; distillation needs the
+    # rec model's projector, which the CTC and the decoupled models lack
     "model_kind": (lambda m: t_build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder",
-                                               model_kind="ctc", device="cpu"), "ctc"),
+                                               model_kind="ctc", use_feat_distill=True,
+                                               device="cpu"), ValueError, "ctc"),
     "decoupled_decoder": (lambda m: t_build_rec_model("vit_micro_patch4_32x128",
-                                                      "decoupled_tf_decoder", device="cpu"),
-                          "decoupled"),
+                                                      "decoupled_tf_decoder",
+                                                      use_feat_distill=True, device="cpu"),
+                          ValueError, "decoupled"),
 }
 
 
 @pytest.mark.parametrize("what", sorted(STILL_REFUSED))
 def test_unported_options_are_refused(what):
-    """What slice 6 leaves unported is refused by name; gradient
-    accumulation and beam search, refused until it, now run
+    """What the port does not run is refused by name; gradient
+    accumulation and beam search, once refused, now run
     (test_torch_port_finetune_cli.py, test_torch_port_decode.py)."""
     model = t_build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder", device="cpu")
-    call, word = STILL_REFUSED[what]
-    with pytest.raises(NotImplementedError, match=word):
+    call, exc, word = STILL_REFUSED[what]
+    with pytest.raises(exc, match=word):
         call(model)
     toptim.create_optimizer("adamw", model.named_parameters(), [1e-3], update_freq=2)
     make_eval_step(model, beam_width=3)

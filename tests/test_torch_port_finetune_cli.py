@@ -538,11 +538,17 @@ def test_device_abi_aug_resume_equals_the_straight_run(data, tmp_path):
     assert all(np.isfinite(l["train_loss"]) for l in _log(tmp_path / "a"))
 
 
+# every model kind, distillation and --text_cond_vis train
+# (test_torch_port_kinds_*cli.py); what stays refused about them is what
+# dig_tpu refuses too, or a name it does not have
 REFUSALS = {
-    "model_kind": (["--model_kind", "ctc"], NotImplementedError, "ctc"),
-    "distill": (["--use_feat_distill", "--teacher_ckpt", "t"], NotImplementedError, "distill"),
+    "model_kind": (["--model_kind", "ctc_beam"], ValueError, "ctc_beam"),
+    "distill": (["--use_feat_distill"], ValueError, "teacher_ckpt"),
+    "distill_kind": (["--use_feat_distill", "--teacher_ckpt", "t", "--model_kind", "ctc"],
+                     ValueError, "requires --model_kind rec"),
     "opt": (["--opt", "lamb"], NotImplementedError, "lamb"),
-    "text_cond_vis": (["--text_cond_vis"], NotImplementedError, "text_cond_vis"),
+    "teacher_remote": (["--use_feat_distill", "--teacher_ckpt", "gs://bucket/teacher"],
+                       NotImplementedError, "remote"),
     "n_fsdp": (["--n_fsdp", "2"], NotImplementedError, "n_fsdp"),
     "n_tensor": (["--n_tensor", "2"], NotImplementedError, "n_tensor"),
     "resume_pth": (["--resume", "x.pth"], ValueError, "--finetune"),

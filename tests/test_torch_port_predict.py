@@ -149,15 +149,21 @@ def test_cli_auto_erf_for_pth(tmp_path, micro_pair):
 
 @pytest.mark.parametrize("field,value,exc,words", [
     ("resume", "out/checkpoint-best", ValueError, "tools/export_pth.py"),
-    ("text_cond_vis", True, NotImplementedError, "text_cond_vis"),
-    ("model_kind", "attn", NotImplementedError, "decoder_type attention"),
-    ("model_kind", "seq_cls", NotImplementedError, "use_seq_cls_token"),
+    ("model_kind", "ctc_beam", ValueError, "unknown model_kind"),
+    ("decoder_name", "rnn_decoder", KeyError, "unknown decoder"),
+    ("use_feat_distill", True, ValueError, "requires model_kind 'rec'"),
 ])
 def test_cli_refuses_unported_options(field, value, exc, words):
+    """Every model kind, decoder and `--text_cond_vis` serves
+    (test_torch_port_kinds_aux_cli.py); what is refused is a native
+    checkpoint, a kind or decoder `dig_tpu` does not have, and a
+    distillation projector on a kind that has none."""
     from dig_tpu_torch.cli.run_predict import main
     from dig_tpu_torch.config import PredictConfig
 
-    cfg = PredictConfig(images=["x.png"])
+    cfg = PredictConfig(images=["x.png"], model="vit_micro_patch4_32x128")
+    if field == "use_feat_distill":
+        cfg.model_kind = "attn"
     setattr(cfg, field, value)
     with pytest.raises(exc, match=words):
         main(cfg, device="cpu")
