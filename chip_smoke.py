@@ -119,12 +119,33 @@
    `--dist_eval`, the launches of every step and eval batch, ms a step
    beside the one-process run's; then item 10's fp32 resume argv
    (`--update_freq 2`), equal bit for bit to its straight run.
-12. `[two ranks one card]`, a separate check: two ranks on the one card
+12. The training options the port once refused, and the steps'
+   reproducibility.  `[determinism]`: each fine-tuning kind (rec, ctc,
+   attn, mim_rec, decoupled, seq_cls, distill) at the FinetuneConfig
+   defaults, two steps from one state and one batch of repeated ids, every
+   gradient and parameter `torch.equal`, then one step under
+   `torch.use_deterministic_algorithms(True, warn_only=True)` to name the
+   ops without a reproducible CUDA path.  `[pretrain remat]`: the
+   pre-training step with `remat` (36 / 12 / 72 / 24 launches, derived in
+   `REMAT_PER_STEP`), ms and peak memory with it off and on, and one fp32
+   step with drop-path 0.1 and one generator equal bit for bit to the
+   plain step (bf16 reported).  `[pretrain conv patchnet]`: the step with
+   `patchnet_name conv` (the encoder's launches), and fp32 card against
+   CPU at depth 2.  `[optimizers]`: every `--opt` name fp32 card against
+   CPU (7 updates: clipping, layer decay, a frozen block, no-decay
+   parameters; LAMB also at `update_freq` 2), then 3 bf16 pre-training
+   steps each at full width (AdaHessian raises, as in `dig_tpu`).  In
+   item 9's directory, `[pretrain cli options]`: `run_pretrain.main` with
+   `--remat --patchnet_name conv --opt lamb --drop_path 0.1`, 2 epochs, and
+   its fp32 `--device_aug` resume bit for bit (LAMB's state included); in
+   item 10's, a CTC fp32 resume (`[finetune cli resume --model_kind ctc]`)
+   and `[finetune cli opt]`: `run_finetune.main --opt adamp`, 1 epoch + eval.
+13. `[two ranks one card]`, a separate check: two ranks on the one card
    over gloo (NCCL refuses two ranks on one device; the port's own card
    path stays NCCL), each running the full-width fp32 pre-training and
    fine-tuning steps on its half of a global batch of 8 through the
    kernels, against one process on the whole batch.
-13. Prints one JSON line describing every kernel, then as the last line
+14. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -673,7 +694,7 @@ def epoch_rate(screen, epoch):
     return float(total.group(1)), float(last[-1][1])
 
 
-def run_pretrain_cli(torch, tag, argv, steps, cut_after_epoch=None):
+def run_pretrain_cli(torch, tag, argv, steps, cut_after_epoch=None, want=None):
     """`run_pretrain.main` on `argv`; checks the step count, the launch
     counts of every step, and that stdout came back.  With
     `cut_after_epoch`, the run is stopped by an exception from that epoch's
@@ -716,7 +737,7 @@ def run_pretrain_cli(torch, tag, argv, steps, cut_after_epoch=None):
     if state is not None:
         check(state.step == state.optimizer.count == PRE_CLI_STEPS,
               f"[{tag}] {state.step} steps, want {PRE_CLI_STEPS}")
-    check_counts(f"[{tag}]", counts, PER_STEP, steps)
+    check_counts(f"[{tag}]", counts, want or PER_STEP, steps)
     return state, counts, dt
 
 
@@ -826,6 +847,7 @@ def phase_pretrain_data(torch, np, paths):
             torch, np, db, os.path.join(d, "device_aug"), "pretrain cli device_aug",
             ["--device_aug"])
         pre_ref = phase_pretrain_resume(torch, np, db, d)
+        phase_pretrain_cli_options(torch, np, db, d)
         phase_finetune_data(torch, np, d, paths,
                             os.path.join(d, "host_aug", f"checkpoint-{PRE_CLI_EPOCHS - 1}"),
                             db, pre_ref)
@@ -839,6 +861,8 @@ def phase_finetune_data(torch, np, d, paths, pre_ckpt, db, pre_ref):
     paths["finetune_cli_device_abi_aug"], _ = phase_finetune_cli(
         torch, np, d, pre_ckpt, "finetune cli device_abi_aug", ["--device_abi_aug"])
     paths["finetune_cli_resume"], ft_ref = phase_finetune_resume(torch, d, pre_ckpt)
+    phase_finetune_resume(torch, d, pre_ckpt, ("--model_kind", "ctc"))
+    phase_finetune_cli_opt(torch, d, pre_ckpt)
     paths["finetune_eval_sweep"] = phase_finetune_eval_sweep(torch, np, d, ft_out)
     paths["kinds_cli"] = phase_kinds_cli(torch, np, d, ft_out)
     paths["ddp_pretrain_cli"], paths["ddp_finetune_cli"] = phase_ddp_clis(
@@ -1514,21 +1538,23 @@ def phase_device_abi_aug(torch, np, d):
     return ms
 
 
-def phase_finetune_resume(torch, d, pre_ckpt):
+def phase_finetune_resume(torch, d, pre_ckpt, kind=()):
     """Resume equivalence of the fine-tuning CLI on the card: fp32,
     attention dropout 0 (the encoder's attention on the kernel pair #3 /
     #4), `--update_freq 2`, `--device_abi_aug`: two epochs straight (A)
     against one epoch, a fresh `main` that auto-resumes checkpoint-0, and
-    the second epoch (B)."""
-    tag = "finetune cli resume"
+    the second epoch (B).  `kind`: more argv, a model kind's (`--model_kind
+    ctc`, whose loss must repeat its bits too)."""
+    tag = " ".join(["finetune cli resume", *kind])
+    run_name = "_".join(["ft_resume", *(k.strip("-") for k in kind)])
     argv = lambda out: ["--data_path", os.path.join(d, "labelled"), "--finetune", pre_ckpt,
                         "--output_dir", os.path.join(d, out), "--epochs", str(FT_CLI_EPOCHS),
                         "--dtype", "float32", "--attn_drop_rate", "0", "--update_freq", "2",
-                        "--device_abi_aug"]
-    a, steps_a, _, counts, dt_a = run_finetune_cli(torch, tag + " A", argv("ft_resume_a"))
-    _, steps_b1, _, _, _ = run_finetune_cli(torch, tag + " B", argv("ft_resume_b"),
+                        "--device_abi_aug", *kind]
+    a, steps_a, _, counts, dt_a = run_finetune_cli(torch, tag + " A", argv(run_name + "_a"))
+    _, steps_b1, _, _, _ = run_finetune_cli(torch, tag + " B", argv(run_name + "_b"),
                                             cut_after_epoch=0)
-    b, steps_b2, _, _, _ = run_finetune_cli(torch, tag + " B resumed", argv("ft_resume_b"))
+    b, steps_b2, _, _, _ = run_finetune_cli(torch, tag + " B resumed", argv(run_name + "_b"))
     n_micro = FT_CLI_RECORDS // FT_BATCH * FT_CLI_EPOCHS
     check(len(steps_a) == len(steps_b1) + len(steps_b2) == n_micro,
           f"[{tag}] {len(steps_a)} / {len(steps_b1)} + {len(steps_b2)} micro-steps")
@@ -1536,7 +1562,7 @@ def phase_finetune_resume(torch, d, pre_ckpt):
         check_each(tag, "micro-step", log, FT_PER_STEP_RESUME)
     check(a.step == b.step == n_micro and a.optimizer.count == b.optimizer.count == n_micro // 2,
           f"[{tag}] steps {a.step} / {b.step}, updates {a.optimizer.count} / {b.optimizer.count}")
-    with open(os.path.join(d, "ft_resume_b", "screen.txt")) as f:
+    with open(os.path.join(d, run_name + "_b", "screen.txt")) as f:
         check("auto-resumed from" in f.read(), f"[{tag}] B did not auto-resume")
     sa, sb = a.model.state_dict(), b.model.state_dict()
     differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
@@ -1551,16 +1577,17 @@ def phase_finetune_resume(torch, d, pre_ckpt):
             moments += 1
     check(all(torch.equal(x, y) for x, y in zip(a.optimizer.acc, b.optimizer.acc))
           and a.optimizer.mini_step == b.optimizer.mini_step == 0, f"[{tag}] accumulators")
-    with open(os.path.join(d, "ft_resume_a", "log.txt")) as fa, \
-            open(os.path.join(d, "ft_resume_b", "log.txt")) as fb:
+    with open(os.path.join(d, run_name + "_a", "log.txt")) as fa, \
+            open(os.path.join(d, run_name + "_b", "log.txt")) as fb:
         check(fa.read() == fb.read(), f"[{tag}] the two runs' log.txt differ")
-    print(f"[{tag}] fp32 --attn_drop_rate 0 --update_freq 2 --device_abi_aug batch {FT_BATCH}: "
+    print(f"[{tag}] fp32 --attn_drop_rate 0 --update_freq 2 --device_abi_aug {' '.join(kind)} "
+          f"batch {FT_BATCH}: "
           f"{FT_CLI_EPOCHS} epochs straight ({n_micro} micro-steps, {n_micro // 2} updates, "
           f"{dt_a:.3f} s) vs 1 epoch + a fresh main auto-resuming checkpoint-0 + 1 epoch: "
           f"{len(sa)} tensors, {moments} AdamW moment and step tensors and "
           f"{len(a.optimizer.acc)} accumulators equal bit for bit (torch.equal); log.txt equal "
           f"byte for byte; launches {launches_text(steps_a[0][0])} at every micro-step")
-    with open(os.path.join(d, "ft_resume_a", "log.txt")) as f:
+    with open(os.path.join(d, run_name + "_a", "log.txt")) as f:
         ref = straight_run(a, f.read(), dt_a)
     del a, b
     torch.cuda.empty_cache()
@@ -1966,13 +1993,14 @@ def phase_layernorm_bwd(torch, ln, gen):
     return rows
 
 
-def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0):
+def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0, **model_kw):
     """The port's pre-training entry points as a user calls them: the
     model, AdamW and the step, with the schedules built as
     `dig_tpu/cli/run_pretrain.py:98-110` builds them from the
     `PretrainConfig` defaults (first lr = warmup_lr > 0), the state's step
     counter at `start_step`, and one batch of uint8 views with exact-count
-    masks from numpy seed `seed`."""
+    masks from numpy seed `seed`.  `model_kw` overrides the model's
+    arguments (remat, patchnet_name, drop_path_rate, encoder_depth)."""
     from dig_tpu_torch.config import PretrainConfig
     from dig_tpu_torch.models.moco import build_pretrain_model
     from dig_tpu_torch.optim import create_optimizer
@@ -1990,11 +2018,11 @@ def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0):
     cw = contrast_weight_schedule(cfg.loss_weight_contrast, cfg.epochs, steps_per_epoch,
                                   cfg.contrast_start_epoch, cfg.contrast_warmup_steps)
     check(lr[0] > 0, "the first step's lr must be above 0")
+    model_kw = dict(dict(patchnet_name=cfg.patchnet_name, remat=cfg.remat), **model_kw)
     model = build_pretrain_model(cfg.model, dtype=dtype, seed=seed, device=device,
                                  mlp_dim=cfg.moco_mlp_dim, dim=cfg.moco_dim,
                                  temperature=cfg.moco_t, num_windows=cfg.num_windows,
-                                 patchnet_name=cfg.patchnet_name,
-                                 label_smoothing=cfg.label_smoothing)
+                                 label_smoothing=cfg.label_smoothing, **model_kw)
     opt = create_optimizer(cfg.opt, model.named_parameters(), lr, wd, betas=cfg.opt_betas,
                            eps=cfg.opt_eps, clip_grad=cfg.clip_grad)
     state = init_pretrain_state(model, opt)
@@ -2861,6 +2889,461 @@ PTXAS_NAMES = [
      lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}>"),
     (r"(attn_bwd_dkdv_kernel)ILi(\d+)E", lambda m: f"{m[1]}<D={m[2]}>"),
 ]
+# ---------------------------------------------------------------------------
+# the options dig_tpu runs (--remat, --patchnet_name conv, every --opt),
+# and the fine-tuning steps' reproducibility
+# ---------------------------------------------------------------------------
+
+# --remat: the student encoder's 12 blocks run their forward again inside
+# the backward (`torch.utils.checkpoint`); the momentum branch runs without
+# gradients and is not recomputed.  So a step launches #3 12 (student) + 12
+# (momentum) + 12 (recompute) = 36 and #5 twice that, #4 12 and #6 24 as
+# without remat.
+REMAT_PER_STEP = per_step(attention_lse_fwd=36, attention_lse_bwd=12, layer_norm_fwd=72,
+                          layer_norm_bwd=24)
+SLICE8_WARMUP, SLICE8_STEPS = 2, 5
+OPT_STEPS = 7  # updates of each optimizer, card against CPU
+CONV_PARITY_BATCH = 8  # the conv extractor gives one InfoNCE key an image; top-5 needs 5
+OPT_SHAPES = {"encoder.pos_embed": (1, 4, 8), "encoder.patch_embed.proj.weight": (8, 12),
+              "encoder.blocks.0.w": (8, 8), "encoder.blocks.0.b": (8,),
+              "encoder.blocks.1.w": (128, 160), "encoder.blocks.1.norm": (160,),
+              "head.w": (160, 6), "head.b": (6,)}
+OPT_TOL = 1e-6  # parameters after the updates, card vs CPU (relative and absolute)
+DETERMINISM_KINDS = {"rec": {}, "ctc": dict(model_kind="ctc"), "attn": dict(model_kind="attn"),
+                     "mim_rec": dict(model_kind="mim_rec"),
+                     "decoupled": dict(decoder_name="decoupled_tf_decoder"),
+                     "seq_cls": dict(model=SEQ_CLS_MODEL, model_kind="seq_cls"),
+                     "distill": dict(use_feat_distill=True)}
+
+
+def optimizer_names():
+    """Every name of `dig_tpu/optim.py:266-310` with its aliases, and the
+    lookahead prefix on three of them."""
+    from dig_tpu_torch.optim import RULES
+
+    return sorted(RULES) + ["lookahead_adamw", "lookahead_lamb", "lookahead_sgd"]
+
+
+def phase_pretrain_remat(torch, np):
+    """`--remat` on the pre-training step at full width: bf16 batch 128,
+    remat off and on (ms a step, peak memory, launches); then one step from
+    one state and batch with drop-path 0.1 and one generator, remat off
+    against on, in fp32 (loss and every gradient bit for bit) and bf16
+    (reported)."""
+    tag = "pretrain remat"
+    res = {}
+    for remat in (False, True):
+        model, state, step, batch_np = pretrain_setup(torch, np, torch.bfloat16, PRE_BATCH, "cuda",
+                                                      remat=remat)
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(SLICE8_WARMUP):
+            step(state, batch)
+        torch.cuda.synchronize()
+        reset_counts()
+        results, dt, times = timed_steps(torch, lambda: step(state, batch), SLICE8_STEPS)
+        counts = read_counts()
+        check_counts(f"[{tag}]", counts, REMAT_PER_STEP if remat else PER_STEP, SLICE8_STEPS)
+        losses = torch.stack([m["loss"] for _, m in results]).float().cpu()
+        check(bool(torch.isfinite(losses).all()), f"[{tag}] non-finite loss {losses.tolist()}")
+        res[remat] = (sorted(times)[len(times) // 2], dt / SLICE8_STEPS * 1e3,
+                      torch.cuda.max_memory_allocated() / 2**30,
+                      {k: v // SLICE8_STEPS for k, v in counts.items() if v})
+        del model, state, batch, results
+        torch.cuda.empty_cache()
+    for remat, (med, host, peak, launches) in res.items():
+        print(f"[{tag}] bf16 batch {PRE_BATCH}, remat {'on' if remat else 'off'}: {med:.2f} ms a "
+              f"step (median of {SLICE8_STEPS} on the card's clock; {host:.2f} ms by the host's), "
+              f"peak memory {peak:.2f} GiB, launches a step {launches}")
+    for dtype in (torch.float32, torch.bfloat16):
+        out = {}
+        for remat in (False, True):
+            model, state, step, batch_np = pretrain_setup(
+                torch, np, dtype, PRE_BATCH, "cuda", seed=2, start_step=500, remat=remat,
+                drop_path_rate=0.1)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            _, metrics = step(state, batch_np, gen)
+            out[remat] = (metrics["loss"].clone(),
+                          {n: p.grad.clone() for n, p in model.named_parameters()
+                           if p.requires_grad}, gen.get_state())
+            del model, state
+        (la, ga, sa), (lb, gb, sb) = out[False], out[True]
+        differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+        worst = max((float((ga[n] - gb[n]).abs().max()) / max(float(ga[n].abs().max()), 1e-30)
+                     for n in ga), default=0.0)
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        print(f"[{tag}] {name} batch {PRE_BATCH}, drop-path 0.1, one card generator: remat "
+              f"against the plain step: loss {float(lb):.7f} vs {float(la):.7f} "
+              f"({'equal' if torch.equal(la, lb) else 'different'}), {len(ga) - len(differ)} of "
+              f"{len(ga)} gradients equal bit for bit (worst {worst:.2e} of a leaf's max), the "
+              f"generator's state {'equal' if torch.equal(sa, sb) else 'different'} after")
+        if dtype == torch.float32:
+            check(torch.equal(la, lb) and not differ and torch.equal(sa, sb),
+                  f"[{tag}] fp32 remat step differs from the plain one: {differ[:4]}")
+        del out, ga, gb
+        torch.cuda.empty_cache()
+
+
+def phase_pretrain_conv(torch, np, paths):
+    """`--patchnet_name conv` on the pre-training step: bf16 batch 128 at
+    full width (ms a step, launches: the conv extractor runs no kernel, so
+    the encoder's counts); then fp32 at batch 8 (one key an image: InfoNCE's
+    top-5 accuracy needs 5), full width and depth 2,
+    card against CPU as `[pretrain cpu parity]` holds the regular step
+    (`models/layers.py::_exact_conv`: in fp32 PyTorch's own convolution,
+    cuDNN off, in the conv's forward and backward; `conv_backends` reports
+    why)."""
+    tag = "pretrain conv patchnet"
+    model, state, step, batch_np = pretrain_setup(torch, np, torch.bfloat16, PRE_BATCH, "cuda",
+                                                  patchnet_name="conv")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(SLICE8_WARMUP):
+        step(state, batch)
+    torch.cuda.synchronize()
+    reset_counts()
+    results, dt, times = timed_steps(torch, lambda: step(state, batch), SLICE8_STEPS)
+    counts = read_counts()
+    check_counts(f"[{tag}]", counts, PER_STEP, SLICE8_STEPS)
+    losses = torch.stack([m["loss"] for _, m in results]).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"[{tag}] non-finite loss {losses.tolist()}")
+    n_conv = sum(p.numel() for n, p in model.named_parameters()
+                 if n.startswith("patch_extractor."))
+    print(f"[{tag}] bf16 batch {PRE_BATCH}: {step_times_text(times)} on the card's clock, "
+          f"{dt / SLICE8_STEPS * 1e3:.2f} ms by the host's; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the conv extractor "
+          f"{n_conv / 1e6:.2f} M parameters; launches a step "
+          f"{launches_text({k: v // SLICE8_STEPS for k, v in counts.items()})}; losses "
+          f"{[round(x, 5) for x in losses.tolist()]}")
+    paths["pretrain_conv"] = counts
+    del model, state, batch, results
+    torch.cuda.empty_cache()
+    conv_backends(torch, tag)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model, state, step, batch_np = pretrain_setup(torch, np, torch.float32, CONV_PARITY_BATCH,
+                                                      device, seed=1, start_step=500,
+                                                      patchnet_name="conv", encoder_depth=2)
+        reset_counts()
+        _, metrics = step(state, batch_np)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            got = read_counts()
+            want = per_step(attention_lse_fwd=4, attention_lse_bwd=2, layer_norm_fwd=8,
+                            layer_norm_bwd=4)
+            check(got == want, f"[{tag}] the fp32 card step's launches {got} != {want}")
+        runs[device] = (float(metrics["loss"]), {n: p.grad.detach().cpu() for n, p in
+                                                 model.named_parameters() if p.requires_grad})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = runs["cpu"], runs["cuda"]
+    worst, worst_name = leaf_parity(f"[{tag}]", l_cpu, l_gpu, g_cpu, g_gpu)
+    print(f"[{tag}] fp32 batch {CONV_PARITY_BATCH}, full width, depth 2: loss {l_gpu:.7f} (card) "
+          f"vs {l_cpu:.7f} "
+          f"(cpu); {len(g_cpu)} gradient leaves within {STEP_RTOL} of their max |g| (floor "
+          f"{STEP_FLOOR} of the largest); worst {worst:.2e} ({worst_name})")
+
+
+def conv_backends(torch, tag):
+    """The fp32 convolution backends the conv extractor could take, at its
+    first block's shape in a pre-training step (256 maps of 8 x 32, 384 ->
+    576 channels, 3 x 3): forward, input and weight gradients against fp64
+    on the CPU (max error over max |value|), bit-equality of two runs, and
+    ms for forward + backward.  `models/layers.py::_exact_conv` takes
+    PyTorch's own (cuDNN off) in fp32."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(PRE_B, 384, 8, 32, generator=g, dtype=torch.float64)
+    w = torch.randn(576, 384, 3, 3, generator=g, dtype=torch.float64) * 0.02
+    go = torch.randn(PRE_B, 576, 8, 32, generator=g, dtype=torch.float64)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    ref = F.conv2d(xr, wr, padding=1)
+    ref.backward(go)
+    rel = lambda a, b: float((a.double().cpu() - b).abs().max() / b.abs().max())  # noqa: E731
+    rows = []
+    for label, flags in (("PyTorch's own (cuDNN off)", dict(enabled=False)),
+                         ("cuDNN deterministic", dict(enabled=True, allow_tf32=False)),
+                         ("cuDNN default (TF32)", dict(enabled=True, allow_tf32=True))):
+        outs = []
+        with torch.backends.cudnn.flags(benchmark=False, deterministic=True, **flags):
+            xg, wg = x.float().cuda().requires_grad_(), w.float().cuda().requires_grad_()
+            gg = go.float().cuda()
+
+            def run():
+                xg.grad = wg.grad = None
+                y = F.conv2d(xg, wg, padding=1)
+                y.backward(gg)
+                return y.detach()
+
+            for _ in range(2):
+                y = run()
+                outs.append((y, xg.grad.clone(), wg.grad.clone()))
+            ms = time_ms(run, iters=5)
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        rows.append(f"{label}: fwd {rel(outs[0][0], ref.detach()):.1e}, dx "
+                    f"{rel(outs[0][1], xr.grad):.1e}, dw {rel(outs[0][2], wr.grad):.1e}, "
+                    f"{'bit-equal' if same else 'NOT bit-equal'} twice, {ms:.2f} ms fwd + bwd")
+    print(f"[{tag}] fp32 conv backends at {PRE_B} x 384 x 8 x 32 -> 576 (error over max |value| "
+          f"against fp64): " + "; ".join(rows))
+
+
+def _optimizer_run(torch, np, name, device, update_freq):
+    """`name` over OPT_STEPS updates (x `update_freq` micro-steps) of the
+    OPT_SHAPES parameters on `device`: clipping, layer decay 0.75 over two
+    blocks, the first block and the embeddings frozen, lr and wd schedules;
+    gradients (and AdaHessian's Hessian diagonal) from numpy seeds."""
+    from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
+
+    rng = np.random.default_rng(11)
+    params = {n: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device)
+              .requires_grad_() for n, s in OPT_SHAPES.items()}
+    lr = np.linspace(1e-2, 3e-3, OPT_STEPS).astype(np.float32)
+    wd = np.linspace(0.05, 0.1, OPT_STEPS).astype(np.float32)
+    opt = create_optimizer(name, params.items(), lr, wd, clip_grad=3.0, layer_decay=0.75,
+                           num_layers=2, frozen=frozen_encoder_mask(1), update_freq=update_freq)
+    diag = [torch.from_numpy(rng.uniform(0.5, 2, size=s).astype(np.float32)).to(device)
+            for s in OPT_SHAPES.values()]
+    for _ in range(OPT_STEPS * update_freq):
+        scale = 10.0 ** rng.uniform(-2.5, -0.5)
+        for n, p in params.items():
+            p.grad = torch.from_numpy((scale * rng.normal(size=p.shape)).astype(np.float32)).to(
+                device)
+        if name == "adahessian":
+            opt.step(hess_diag=diag)
+        else:
+            opt.step()
+    check(opt.count == OPT_STEPS, f"[optimizers] {name}: {opt.count} updates")
+    return {n: p.detach().cpu() for n, p in params.items()}
+
+
+def phase_optimizers(torch, np):
+    """Every optimizer name: fp32 on the card against the CPU path
+    (`_optimizer_run`; and LAMB at `update_freq` 2), each parameter within
+    OPT_TOL; then each name takes 3 bf16 pre-training steps at full width
+    on one model (launches asserted, loss finite; AdaHessian's step raises
+    `ValueError`, as in `dig_tpu`: no step hands it a Hessian diagonal)."""
+    tag = "optimizers"
+    names = optimizer_names()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for name in names:
+        for update_freq in ((1, 2) if name == "lamb" else (1,)):
+            cpu = _optimizer_run(torch, np, name, "cpu", update_freq)
+            gpu = _optimizer_run(torch, np, name, "cuda", update_freq)
+            for n in cpu:
+                err = float((gpu[n] - cpu[n]).abs().max())
+                check(err <= OPT_TOL * (1 + float(cpu[n].abs().max())),
+                      f"[{tag}] {name} update_freq {update_freq}: {n} card vs CPU {err}")
+                worst = max(worst, err)
+    print(f"[{tag}] {len(names)} names ({', '.join(names)}) and lamb at update_freq 2: fp32, "
+          f"{OPT_STEPS} updates with clipping, layer decay, a frozen block and no-decay "
+          f"parameters, card = CPU within {OPT_TOL} (worst {worst:.2e}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    from dig_tpu_torch.optim import create_optimizer
+    from dig_tpu_torch.config import PretrainConfig
+
+    cfg = PretrainConfig()
+    model, state, step, batch_np = pretrain_setup(torch, np, torch.bfloat16, PRE_BATCH, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+    lr, wd = state.optimizer.lr, state.optimizer.wd
+    rows = []
+    for name in names:
+        state.optimizer = create_optimizer(name, model.named_parameters(), lr, wd,
+                                           betas=cfg.opt_betas, eps=cfg.opt_eps,
+                                           clip_grad=cfg.clip_grad)
+        if name == "adahessian":
+            try:
+                step(state, batch)
+            except ValueError as e:
+                check("hutchinson_hessian_diag" in str(e), f"[{tag}] adahessian: {e}")
+                rows.append("adahessian ValueError (no Hessian diagonal)")
+                continue
+            check(False, f"[{tag}] adahessian stepped without a Hessian diagonal")
+        torch.cuda.synchronize()
+        reset_counts()
+        results, dt, times = timed_steps(torch, lambda: step(state, batch), 3)
+        check_counts(f"[{tag} {name}]", read_counts(), PER_STEP, 3)
+        losses = [float(m["loss"]) for _, m in results]
+        check(all(math.isfinite(x) for x in losses), f"[{tag}] {name}: losses {losses}")
+        rows.append(f"{name} {statistics.median(times):.1f} ms")
+    print(f"[{tag}] bf16 batch {PRE_BATCH}, 3 pre-training steps each on one model (ms a step, "
+          f"median on the card's clock; launches {launches_text(PER_STEP)} a step): "
+          + "; ".join(rows))
+    del model, state, batch
+    torch.cuda.empty_cache()
+
+
+def phase_pretrain_cli_options(torch, np, db, root):
+    """`run_pretrain.main` with `--remat --patchnet_name conv --opt lamb
+    --drop_path 0.1` at the PretrainConfig defaults on the LMDB, 2 epochs of
+    8 steps (launches asserted at every step); then the same argv in fp32
+    with `--device_aug` (which makes a run a function of (seed, step)):
+    straight against auto-resumed, bit for bit, LAMB's state included."""
+    tag = "pretrain cli options"
+    options = ["--remat", "--patchnet_name", "conv", "--opt", "lamb", "--drop_path", "0.1"]
+    out = os.path.join(root, "options")
+    argv = ["--image_alone_path", db, "--output_dir", out, "--epochs", str(PRE_CLI_EPOCHS),
+            *options]
+    state, counts, dt = run_pretrain_cli(torch, tag, argv, PRE_CLI_STEPS, want=REMAT_PER_STEP)
+    check(state.optimizer.rule == "lamb" and state.model.encoder.remat,
+          f"[{tag}] the run did not take its options")
+    log, screen = check_cli_outputs(out, tag)
+    s_it, s_data = epoch_rate(screen, PRE_CLI_EPOCHS - 1)
+    print(f"[{tag}] run_pretrain.main {' '.join(options)}, bf16 batch {PRE_BATCH}, "
+          f"{PRE_CLI_EPOCHS} epochs of {PRE_CLI_STEPS // PRE_CLI_EPOCHS} steps in {dt:.3f} s; the "
+          f"last epoch {s_it * 1e3:.1f} ms a step by the CLI's clock, waiting {s_data * 1e3:.1f} "
+          f"ms; launches per step {launches_text({k: v // PRE_CLI_STEPS for k, v in counts.items()})}"
+          f"; epoch losses {[round(l['train_loss'], 5) for l in log]}")
+    del state
+    half = PRE_CLI_STEPS // PRE_CLI_EPOCHS
+    fp32 = lambda name: ["--image_alone_path", db, "--output_dir", os.path.join(root, name),  # noqa: E731
+                         "--epochs", str(PRE_CLI_EPOCHS), *options, "--dtype", "float32",
+                         "--device_aug"]
+    a, _, dt_a = run_pretrain_cli(torch, tag + " A", fp32("options_a"), PRE_CLI_STEPS,
+                                  want=REMAT_PER_STEP)
+    run_pretrain_cli(torch, tag + " B first epoch", fp32("options_b"), half, cut_after_epoch=0,
+                     want=REMAT_PER_STEP)
+    b, _, _ = run_pretrain_cli(torch, tag + " B resumed", fp32("options_b"), PRE_CLI_STEPS - half,
+                               want=REMAT_PER_STEP)
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    differ = [k for k in sa if not torch.equal(sa[k], sb[k])]
+    check(not differ, f"[{tag}] {len(differ)} of {len(sa)} tensors differ, e.g. {differ[:4]}")
+    oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+    lamb = [(k, i) for k, ts in oa["inner"]["state"].items() for i in range(len(ts))]
+    check(oa["count"] == ob["count"] and all(
+        torch.equal(oa["inner"]["state"][k][i], ob["inner"]["state"][k][i]) for k, i in lamb),
+        f"[{tag}] LAMB's state differs")
+    with open(os.path.join(root, "options_a", "log.txt")) as fa, \
+            open(os.path.join(root, "options_b", "log.txt")) as fb:
+        check(fa.read() == fb.read(), f"[{tag}] the two runs' log.txt differ")
+    print(f"[{tag}] fp32 {' '.join(options)} --device_aug: {PRE_CLI_EPOCHS} epochs straight "
+          f"({dt_a:.3f} s) vs 1 epoch + a fresh main auto-resuming checkpoint-0 + 1 epoch: "
+          f"{len(sa)} tensors and {len(lamb)} LAMB state tensors equal bit for bit; log.txt "
+          f"equal byte for byte")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def phase_finetune_cli_opt(torch, d, pre_ckpt):
+    """`run_finetune.main` with `--opt adamp` (AdamP's projection and its
+    wd_ratio) at the FinetuneConfig defaults from `[pretrain cli]`'s
+    checkpoint: 1 epoch of 4 steps + eval, launches asserted."""
+    tag = "finetune cli opt"
+    out = os.path.join(d, "ft_adamp")
+    argv = ["--data_path", os.path.join(d, "labelled"), "--eval_data_path",
+            os.path.join(d, "labelled_eval"), "--finetune", pre_ckpt, "--output_dir", out,
+            "--epochs", "1", "--opt", "adamp"]
+    state, steps, evals, counts, dt = run_finetune_cli(torch, tag, argv)
+    n_steps = FT_CLI_RECORDS // FT_BATCH
+    check(len(steps) == n_steps and len(evals) == -(-FT_CLI_EVAL_RECORDS // FT_BATCH),
+          f"[{tag}] {len(steps)} steps, {len(evals)} eval batches")
+    check_each(tag, "step", steps, FT_PER_STEP)
+    check_each(tag, "eval batch", evals, FT_EVAL_BATCH)
+    check(state.optimizer.rule == "adamp" and state.optimizer.count == n_steps,
+          f"[{tag}] optimizer {state.optimizer.rule} count {state.optimizer.count}")
+    with open(os.path.join(out, "log.txt")) as f:
+        log = [json.loads(line) for line in f]
+    check(len(log) == 1 and math.isfinite(log[0]["train_loss"]), f"[{tag}] log {log}")
+    print(f"[{tag}] run_finetune.main --opt adamp, bf16 batch {FT_BATCH}, 1 epoch of {n_steps} "
+          f"steps + eval of {FT_CLI_EVAL_RECORDS} records in {dt:.3f} s; the host queues a step in "
+          f"(median) {statistics.median(t for _, t in steps) * 1e3:.1f} ms; launches "
+          f"{launches_text(steps[0][0])} at every step, {launches_text(evals[0][0])} every eval "
+          f"batch; loss {log[0]['train_loss']:.4f}, val acc {log[0]['val_acc']}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def gather_form_repeats(torch, np, repeats=20):
+    """The op the CTC loss took its emit log-probabilities with before this
+    port's repair, `torch.gather` along the class axis, at a CTC step's
+    shapes (256 sequences x 32 frames x 98 classes, the labels of
+    `labelled_batch`): its backward (an atomic scatter-add) repeated,
+    counting the gradients that differ from the first.  Reported only: the
+    loss no longer calls it (`losses/ctc.py`)."""
+    from dig_tpu_torch.utils.charset import build_charset
+
+    charset = build_charset("ALLCASES_SYMBOLS", 25)
+    batch = labelled_batch(np, charset, 25, FT_BATCH, 0)
+    labels = torch.from_numpy(batch["targets"]).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logprobs = torch.randn(FT_BATCH, 32, 98, device="cuda", generator=gen).requires_grad_()
+    idx = labels.clamp(0, 97)[:, None, :].expand(-1, 32, -1)
+    # the padded positions (EOS on) take no gradient, as in the loss
+    valid = np.arange(labels.shape[1])[None] < batch["lengths"][:, None] - 1
+    grad_out = torch.randn(FT_BATCH, 32, labels.shape[1], device="cuda", generator=gen)
+    grad_out = grad_out * torch.from_numpy(valid).cuda()[:, None, :]
+    grads = []
+    for _ in range(repeats):
+        logprobs.grad = None
+        torch.gather(logprobs, 2, idx).backward(grad_out)
+        grads.append(logprobs.grad.clone())
+    differ = sum(not torch.equal(grads[0], g) for g in grads[1:])
+    triples = sum(int(np.bincount(row[v]).max() >= 3)
+                  for row, v in zip(batch["targets"], valid) if v.any())
+    print(f"[determinism] the gather form's backward (the CTC loss's op before the one-hot "
+          f"repair) at {FT_BATCH} x 32 x 98, labelled_batch's labels ({triples} of {FT_BATCH} "
+          f"words hold an id three times or more): {differ} of {repeats - 1} repeats differ "
+          f"from the first")
+
+
+def phase_determinism(torch, np):
+    """Each fine-tuning kind at the FinetuneConfig defaults (bf16, batch 256,
+    dropouts on, `labelled_batch`, whose words repeat ids): two steps from
+    one state and one batch with the same generator, every gradient and
+    parameter compared with `torch.equal`.  Then a third step under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`, only to name
+    the ops that have no reproducible CUDA implementation."""
+    import copy
+    import gc
+    import warnings
+
+    tag = "determinism"
+    gather_form_repeats(torch, np)
+    for name, fields in DETERMINISM_KINDS.items():
+        cfg, model, state, step, batch_np, charset, teacher = kind_setup(
+            torch, np, fields, torch.bfloat16, FT_BATCH, "cuda")
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
+        start = copy.deepcopy(model.state_dict())
+        opt_start = copy.deepcopy(state.optimizer.state_dict())
+        runs = []
+        for _ in range(2):
+            model.load_state_dict(start)
+            state.optimizer.load_state_dict(opt_start)
+            state.step = 0
+            step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+            runs.append(({n: p.grad.clone() for n, p in model.named_parameters()
+                          if p.grad is not None},
+                         {k: v.clone() for k, v in model.state_dict().items()}))
+        (ga, pa), (gb, pb) = runs
+        differ = [n for n in ga if not torch.equal(ga[n], gb[n])]
+        moved = [k for k in pa if not torch.equal(pa[k], pb[k])]
+        model.load_state_dict(start)
+        state.optimizer.load_state_dict(opt_start)
+        flagged = set()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                step(state, batch, torch.Generator(device="cuda").manual_seed(0))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        for w in caught:
+            text = str(w.message)
+            if "deterministic" in text:
+                flagged.add(text.split(" does not have a deterministic")[0][:100])
+        print(f"[{tag}] {name}: two steps from one state, bf16 batch {FT_BATCH}: "
+              f"{len(ga) - len(differ)} of {len(ga)} gradients and {len(pa) - len(moved)} of "
+              f"{len(pa)} tensors after the update equal bit for bit"
+              + (f"; differ: {differ[:6]}" if differ else "")
+              + f"; ops without a deterministic CUDA implementation: "
+              f"{sorted(flagged) if flagged else 'none'}")
+        check(not differ and not moved, f"[{tag}] {name}: the step does not repeat its bits "
+                                        f"({len(differ)} gradients, {len(moved)} tensors differ)")
+        del model, state, step, batch, start, opt_start, runs, ga, gb, pa, pb, teacher
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def ptxas_kernels(log):
     """[(kernel, registers, spill store bytes, spill load bytes)] of one
     build's ptxas report, an attention body's name as
@@ -2990,6 +3473,10 @@ def main():
     phase_kinds_step(torch, np, paths)
     phase_memory_bank(torch, np)
     phase_kinds_cpu_parity(torch, np)
+    phase_determinism(torch, np)
+    phase_pretrain_remat(torch, np)
+    phase_pretrain_conv(torch, np, paths)
+    phase_optimizers(torch, np)
     phase_sync_debug_step(torch, np)
     phase_pretrain_data(torch, np, paths)
     phase_two_ranks_one_card(torch, np)

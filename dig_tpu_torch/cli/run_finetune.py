@@ -39,12 +39,14 @@ raises); here they come from the model that has them.
   pre-training ``checkpoint-N/checkpoint.pth``; the encoder is found under
   `--model_prefix`, else ``encoder.``, else ``backbone.``;
 * a port checkpoint directory ``checkpoint-N/``: its ``encoder.*``
-  tensors (``momentum_encoder.*`` is never taken).
-A native `dig_tpu` directory is refused (`tools/export_pth.py` converts
-it): `dig_tpu` reads its teacher from such a directory, which only JAX
-can unpickle, so the port's teacher is a recognizer `.pth` or a port
-checkpoint directory, read as `--finetune` reads its input into a second
-recognizer of the student's configuration.  A learnable ``pos_embed`` of
+  tensors (``momentum_encoder.*`` is never taken);
+* a native `dig_tpu` directory (``arrays.npz`` + ``treedef.pkl``, read
+  without JAX by `utils/native_ckpt.py`): its ``params["encoder"]`` (or the
+  params themselves, an encoder's), as `dig_tpu` takes them.
+The teacher is read as `--finetune` reads its input, into a second
+recognizer of the student's configuration (`dig_tpu` reads its teacher
+from a native directory only).  Any of these paths, `--resume` too, may
+be a remote URI (fsspec).  A learnable ``pos_embed`` of
 another grid is refitted bicubically.  A `.pth` switches GELU to the erf
 form unless `--exact_gelu` says otherwise, as in `dig_tpu` (weights trained
 under torch's erf GELU); a directory keeps tanh, the form the port
@@ -77,10 +79,12 @@ and their server are stopped when `main` ends, on every rank.  stdout is
 teed into ``screen.txt``, and the signal handlers and the GELU form are
 set, only while `main` runs.
 
-Refused with a message (see ROADMAP.md): optimizers other than adamw,
-`--n_fsdp` / `--n_tensor` above 1, remote checkpoint URIs and native
-`dig_tpu` checkpoint directories; and, as in `dig_tpu`, distillation with
-a kind other than rec or without `--teacher_ckpt`.
+`--opt` takes every optimizer name of `dig_tpu` (`optim.py`).  `--resume`
+takes a port checkpoint directory or a native `dig_tpu` one (its params
+and AdamW's moments; for `--eval`, its params).  Refused with a message:
+`--n_fsdp` / `--n_tensor` above 1 (not ported yet, see ROADMAP.md); and,
+as in `dig_tpu`, an optimizer name it does not know, distillation with a
+kind other than rec or without `--teacher_ckpt`.
 """
 
 from __future__ import annotations
@@ -113,7 +117,7 @@ from dig_tpu_torch.metrics.text import (
 from dig_tpu_torch.models.rec_model import SeqClsRecModel, build_rec_model
 from dig_tpu_torch.ops import activations
 from dig_tpu_torch.ops.images import to_model_images
-from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
+from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask, parse_optimizer_name
 from dig_tpu_torch.parallel.dist import (
     all_reduce_floats,
     broadcast_floats,
@@ -134,6 +138,7 @@ from dig_tpu_torch.train.finetune import (
     make_finetune_step,
     make_mim_finetune_step,
 )
+from dig_tpu_torch.utils import native_ckpt
 from dig_tpu_torch.utils.charset import build_charset
 from dig_tpu_torch.utils.checkpoint import (
     auto_resume,
@@ -144,7 +149,6 @@ from dig_tpu_torch.utils.checkpoint import (
     load_torch_checkpoint,
     merge_pretrained_tree,
     prune_checkpoints,
-    refuse_unreadable,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -183,9 +187,7 @@ def build_model(cfg: FinetuneConfig, device, use_feat_distill=None):
 def _refuse_unported(cfg: FinetuneConfig) -> None:
     """Raise for every flag whose code is not ported, and for the
     combinations `dig_tpu` refuses, before anything is built or written."""
-    if cfg.opt.lower() != "adamw":
-        raise NotImplementedError(f"--opt {cfg.opt!r} is not ported yet (adamw only; "
-                                  f"see ROADMAP.md)")
+    parse_optimizer_name(cfg.opt)
     check_mesh(cfg.n_fsdp, cfg.n_tensor)
     if cfg.resume.endswith((".pth", ".pt")):
         raise ValueError("--resume expects a checkpoint directory; to initialize from a torch "
@@ -197,9 +199,6 @@ def _refuse_unported(cfg: FinetuneConfig) -> None:
     if cfg.use_feat_distill and not cfg.teacher_ckpt and not cfg.eval:
         raise ValueError("--use_feat_distill requires --teacher_ckpt "
                          "(the frozen encoder to distill from)")
-    for path in (cfg.resume, cfg.finetune, cfg.teacher_ckpt):
-        if path:
-            refuse_unreadable(path)
 
 
 def load_finetune_init(cfg: FinetuneConfig, model, path: str = "") -> int:
@@ -214,8 +213,9 @@ def load_finetune_init(cfg: FinetuneConfig, model, path: str = "") -> int:
             tree = convert_torch_recognizer(sd)
         else:
             tree = {"encoder": convert_torch_encoder(sd, prefix=cfg.model_prefix or "encoder.")}
+    elif "native" in (payload := restore_checkpoint(path)):
+        tree = {"encoder": native_ckpt.encoder_state_dict(payload["native"])}
     else:
-        payload = restore_checkpoint(path)
         tree = {"encoder": convert_torch_encoder(payload["model"], prefix="encoder.")}
     n = merge_pretrained_tree(model, tree, pos_embed_grid=model.encoder.patch_shape)
     print(f"[finetune] {n} tensors initialized from {path} "
@@ -331,7 +331,9 @@ def _run(cfg: FinetuneConfig, dist_info: dict):
         if cfg.finetune:
             load_finetune_init(cfg, model)
         elif cfg.resume:
-            model.load_state_dict(restore_checkpoint(cfg.resume)["model"])
+            payload = restore_checkpoint(cfg.resume)
+            model.load_state_dict(native_ckpt.model_state_dict(payload["native"], False)
+                                  if "native" in payload else payload["model"])
         paths = [p for p in [cfg.eval_data_path] + list(cfg.other_test_data_folders) if p]
         results = [dict(path=p, **evaluate_benchmark(cfg, p, eval_fn, charset, device,
                                                      accuracy_fn)) for p in paths]

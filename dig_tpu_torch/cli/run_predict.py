@@ -19,9 +19,10 @@ geometric mean over the frames of each frame's largest probability.
 Runs on CUDA; `main(cfg, device="cpu")` runs the plain versions of the
 kernels.
 
-Refused with a message: `--resume` of a native `dig_tpu` checkpoint (its
-`treedef.pkl` needs JAX to unpickle: convert it with `tools/export_pth.py`
-and pass the `.pth` to `--finetune`).
+`--resume` takes a checkpoint directory: a native `dig_tpu` one (its
+params, as the JAX CLI takes them; read without JAX by
+`utils/native_ckpt.py`) or the port's own; it and `--finetune` may be
+remote URIs (fsspec).
 """
 
 from __future__ import annotations
@@ -40,7 +41,9 @@ from dig_tpu_torch.data.images import decode_image, resize_uint8
 from dig_tpu_torch.metrics.text import ctc_decode_batch
 from dig_tpu_torch.ops import activations
 from dig_tpu_torch.ops.images import to_model_images
+from dig_tpu_torch.utils import native_ckpt
 from dig_tpu_torch.utils.charset import build_charset
+from dig_tpu_torch.utils.checkpoint import restore_checkpoint
 
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp", ".ppm", ".tif", ".tiff")
 
@@ -227,7 +230,11 @@ def load_model(cfg: PredictConfig, device):
                             use_feat_distill=cfg.use_feat_distill,
                             text_cond_vis=cfg.text_cond_vis, dtype=dtype,
                             model_kind=cfg.model_kind, seed=cfg.seed, device=device)
-    if cfg.finetune:
+    if cfg.resume:  # a whole recognizer's weights, as dig_tpu takes them (no surgery)
+        payload = restore_checkpoint(cfg.resume)
+        model.load_state_dict(native_ckpt.model_state_dict(payload["native"], False)
+                              if "native" in payload else payload["model"])
+    elif cfg.finetune:
         sd = load_pth(cfg.finetune, cfg.model_key, cfg.model_prefix)
         missing, unexpected = model.load_state_dict(sd, strict=False)
         if missing:
@@ -245,11 +252,6 @@ def load_model(cfg: PredictConfig, device):
 def main(cfg: PredictConfig, device="cuda"):
     if not cfg.images and not cfg.data_path:
         raise SystemExit("run_predict: provide --images and/or --data_path")
-    if cfg.resume:
-        raise ValueError(
-            "--resume of a native dig_tpu checkpoint directory is not supported "
-            "here: its treedef.pkl unpickles only with JAX. Convert it with "
-            "`python tools/export_pth.py <ckpt_dir> out.pth` and pass --finetune out.pth")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_predict runs on CUDA and no card is visible; "

@@ -48,10 +48,13 @@ on every rank.  stdout is teed into ``screen.txt``, and the signal
 handlers are installed, only while `main` runs: both are put back when it
 returns or raises (the JAX CLI leaves them installed).
 
-Not ported yet, each refused with a message (see ROADMAP.md): `--n_fsdp` /
-`--n_tensor` above 1, `--remat`, optimizers other than adamw,
-`--patchnet_name conv`, `--resume` of a native `dig_tpu` checkpoint
-directory, and remote checkpoint URIs.
+Every `--opt` of `dig_tpu` (`optim.py`), `--remat` (each encoder block
+rematerialized in the backward), `--patchnet_name conv` (`ConvPatchNet`),
+`--resume` of a native `dig_tpu` checkpoint directory (params, momentum
+branch and AdamW's moments; another optimizer's state is refused) and
+remote checkpoint URIs (`--resume`, `--output_dir`'s checkpoints; through
+fsspec, which must be installed for them) run here.  Not ported yet,
+refused with a message (see ROADMAP.md): `--n_fsdp` / `--n_tensor` above 1.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ from dig_tpu_torch.data.pipeline import (
     stop_worker_processes,
 )
 from dig_tpu_torch.models.moco import build_pretrain_model
-from dig_tpu_torch.optim import create_optimizer
+from dig_tpu_torch.optim import create_optimizer, parse_optimizer_name
 from dig_tpu_torch.parallel.dist import (
     broadcast_module,
     destroy,
@@ -89,7 +92,6 @@ from dig_tpu_torch.utils.checkpoint import (
     auto_resume,
     load_into_state,
     prune_checkpoints,
-    refuse_unreadable,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -119,28 +121,12 @@ def build_model(cfg: PretrainConfig, device):
         cfg.model, dtype=dtype, seed=cfg.seed, device=device,
         mlp_dim=cfg.moco_mlp_dim, dim=cfg.moco_dim, temperature=cfg.moco_t,
         num_windows=cfg.num_windows, patchnet_name=cfg.patchnet_name,
-        label_smoothing=cfg.label_smoothing, drop_path_rate=cfg.drop_path)
-
-
-def _refuse_unported(cfg: PretrainConfig) -> None:
-    """Raise for every flag whose code is not ported, before anything is
-    built or written."""
-    check_mesh(cfg.n_fsdp, cfg.n_tensor)
-    if cfg.remat:
-        raise NotImplementedError("--remat (activation rematerialization) is not ported yet; "
-                                  "see ROADMAP.md")
-    if cfg.opt.lower() != "adamw":
-        raise NotImplementedError(f"--opt {cfg.opt!r} is not ported yet (adamw only; "
-                                  f"see ROADMAP.md)")
-    if cfg.patchnet_name == "conv":
-        raise NotImplementedError("--patchnet_name conv (ConvPatchNet) is not ported yet; "
-                                  "see ROADMAP.md")
-    if cfg.resume:
-        refuse_unreadable(cfg.resume)
+        label_smoothing=cfg.label_smoothing, drop_path_rate=cfg.drop_path, remat=cfg.remat)
 
 
 def main(cfg: PretrainConfig, device="cuda"):
-    _refuse_unported(cfg)
+    check_mesh(cfg.n_fsdp, cfg.n_tensor)  # before anything is built or written
+    parse_optimizer_name(cfg.opt)  # a name dig_tpu does not know, likewise
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pretrain runs on CUDA and no card is visible; "
                            "call main(cfg, device='cpu') for the CPU")

@@ -6,9 +6,9 @@
 so that a command line written for `dig_tpu.cli.run_predict` parses the
 same here, the reference CLIs' own spellings included (`--use_cls`,
 `--decoder_type`, `--use_seq_cls_token`, `--moco_m_cos`: see
-`_REF_FLAG_ALIASES`).  Options the port does not run yet (`--resume` of a
-native checkpoint, optimizers other than adamw, FSDP / tensor sharding)
-parse as in the JAX package and are refused by the CLI with a message.
+`_REF_FLAG_ALIASES`).  The one option the port does not run yet, FSDP /
+tensor sharding (`--n_fsdp` / `--n_tensor` above 1), parses as in the JAX
+package and is refused by the CLIs with a message.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ class PredictConfig:
     drop_path: float = 0.0
     use_feat_distill: bool = False
     exact_gelu: Optional[bool] = None  # None = auto (erf for .pth weights)
-    # weights: --resume = native dig_tpu checkpoint dir (refused here);
+    # weights: --resume = a native dig_tpu or a port checkpoint directory;
     # --finetune = reference-layout .pth
     resume: str = ""
     finetune: str = ""
@@ -189,9 +189,8 @@ def config_to_json(cfg) -> str:
 @dataclasses.dataclass
 class PretrainConfig:
     """`dig_tpu.config.PretrainConfig`: the same fields and defaults, parsed
-    by `dig_tpu_torch.cli.run_pretrain`, which refuses with a message the
-    ones whose code is not ported yet (`remat`, `n_fsdp` / `n_tensor` above
-    1, `profile_steps`, `opt` other than adamw, `patchnet_name` conv)."""
+    by `dig_tpu_torch.cli.run_pretrain`, which refuses with a message only
+    `n_fsdp` / `n_tensor` above 1 (parameter sharding is not ported yet)."""
 
     # model
     model: str = "pretrain_simmim_moco_ori_vit_small_patch4_32x128"

@@ -19,7 +19,13 @@ local batches, the mean of the ranks' means is the global batch's mean.
 length, it returns inf for an impossible alignment (or 0 under
 ``zero_infinity``), and its CUDA backward is documented as not
 deterministic, which a resumed run that must repeat an uninterrupted one
-bit for bit cannot take.  The backward here is autograd's.
+bit for bit cannot take.  The backward here is autograd's.  For the same
+reason the emit log-probabilities are a one-hot product, as optax builds
+them, and not a `torch.gather`: the gather's CUDA backward is an atomic
+scatter-add, whose fp32 sums over a label that holds one id three times or
+more come out in another order from run to run; the product's backward is
+a matrix product, the same bits every run (`models/layers.py::embedding`
+does the same for the embedding's backward).
 """
 
 from __future__ import annotations
@@ -30,25 +36,26 @@ import torch.nn.functional as F
 
 def ctc_loss(logits, labels, label_paddings, blank_id: int, log_epsilon: float = -1e5):
     """logits [B, T, K] (every frame valid), labels [B, N] ids,
-    label_paddings [B, N] (1.0 = padding) -> per-sequence loss [B], fp32."""
+    label_paddings [B, N] (1.0 = padding) -> per-sequence loss [B], in at
+    least fp32 (fp64 logits stay fp64)."""
     b, n = labels.shape
     k = logits.shape[-1]
-    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    acc = torch.promote_types(logits.dtype, torch.float32)
+    logprobs = torch.log_softmax(logits.to(acc), dim=-1)
     label_lens = n - label_paddings.sum(dim=1).long()
-    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))  # [B, N]
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).to(acc), (0, 1))  # [B, N]
     logprobs_phi = logprobs[:, :, blank_id].transpose(0, 1)[..., None]  # [T, B, 1]
-    # an id outside [0, K) emits with log-probability 0, as optax's one-hot product gives
-    valid = ((labels >= 0) & (labels < k))[:, None, :]
-    idx = labels.long().clamp(0, k - 1)[:, None, :].expand(-1, logprobs.shape[1], -1)
-    logprobs_emit = torch.where(valid, torch.gather(logprobs, 2, idx), 0.0)
-    logprobs_emit = logprobs_emit.transpose(0, 1)  # [T, B, N]
+    # an id outside [0, K) has a zero one-hot row: it emits with log-probability 0
+    onehot = F.one_hot(labels.long().clamp(0, k - 1), k).to(acc)
+    onehot = onehot * ((labels >= 0) & (labels < k))[..., None].to(acc)
+    logprobs_emit = torch.bmm(logprobs, onehot.transpose(1, 2)).transpose(0, 1)  # [T, B, N]
 
     def add_to_phi(phi, score):  # phi[:, 1:] logaddexp score
         return torch.cat([phi[:, :1], torch.logaddexp(phi[:, 1:], score)], dim=-1)
 
-    phi = torch.full((b, n + 1), log_epsilon, dtype=torch.float32, device=logits.device)
+    phi = torch.full((b, n + 1), log_epsilon, dtype=acc, device=logits.device)
     phi = torch.cat([torch.zeros_like(phi[:, :1]), phi[:, 1:]], dim=-1)
-    emit = torch.full((b, n), log_epsilon, dtype=torch.float32, device=logits.device)
+    emit = torch.full((b, n), log_epsilon, dtype=acc, device=logits.device)
     for t in range(logprobs.shape[1]):
         # emit-to-blank epsilon transition, except before a repeated label
         prev_phi = add_to_phi(phi, emit + log_epsilon * repeat)

@@ -142,6 +142,59 @@ class Dense(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
+def _exact_conv(dtype):
+    """The convolution backend for a call, reproducible and exact for its
+    type: in fp32 PyTorch's own im2col + GEMM (cuDNN off), whose fp32 sums
+    are those of a matrix product (on an H100 its forward and weight
+    gradient lie within 1e-6 of fp64, cuDNN's deterministic algorithms' at
+    3e-6 and 4e-5, cuDNN's default TF32 at 3e-4; `chip_smoke.py`); in bf16
+    cuDNN with deterministic algorithms.  TF32 off and no autotuning in
+    both."""
+    return torch.backends.cudnn.flags(enabled=dtype != torch.float32, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+class _Conv3x3Fn(torch.autograd.Function):
+    """A 3x3, stride-1, padding-1 convolution of NCHW `x`, whose forward and
+    backward both run under `_exact_conv`: the global cuDNN flags at the
+    time autograd reaches the backward would otherwise choose its
+    algorithms, and cuDNN's fastest backward algorithms are not
+    reproducible, which a resumed run that must repeat an uninterrupted
+    one bit for bit cannot take."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        with _exact_conv(x.dtype):
+            return F.conv2d(x, weight, bias, padding=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        with _exact_conv(x.dtype):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                list(ctx.needs_input_grad))
+        return gx, gw, gb
+
+
+class Conv3x3(nn.Conv2d):
+    """flax's `nn.Conv(c_out, (3, 3), padding="SAME", dtype=dtype)` on a
+    channel-last [B, H, W, C] input: fp32 parameters in torch's layout
+    ([c_out, c_in, 3, 3]) cast to `dtype`, output [B, H, W, c_out].  The
+    channel-last input seen as NCHW is a channels-last tensor, which cuDNN
+    takes as it is."""
+
+    def __init__(self, in_channels, out_channels, dtype=torch.float32):
+        super().__init__(in_channels, out_channels, 3, padding=1)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        y = _Conv3x3Fn.apply(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), self.bias.to(dt))
+        return y.permute(0, 2, 3, 1)
+
+
 class LayerNorm(nn.Module):
     """`flax.linen.LayerNorm` semantics: eps 1e-6 (torch's default is 1e-5),
     at-least-fp32 statistics with the fast variance max(E[x^2] - mu^2, 0),

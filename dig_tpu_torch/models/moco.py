@@ -20,9 +20,10 @@ import copy
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from dig_tpu_torch.models.layers import CrossBlock, Dense, LayerNorm
+from dig_tpu_torch.models.layers import Conv3x3, CrossBlock, Dense, LayerNorm
 from dig_tpu_torch.models.registry import register_model
 from dig_tpu_torch.models.vit import PretrainViTEncoder
 from dig_tpu_torch.ops.activations import gelu
@@ -127,6 +128,50 @@ class PatchNet(nn.Module):
         return x
 
 
+class _MaxPool2(nn.Module):
+    """flax's `nn.max_pool(x, (2, 2), strides=(2, 2))` on [B, H, W, C]."""
+
+    def forward(self, x):
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+class ConvPatchNet(nn.Module):
+    """`--patchnet_name conv` (`dig_tpu/models/moco.py:137-172`, reference
+    modeling_pretrain_moco_mim_ori.py:207-258): four blocks of conv3x3 +
+    `BatchStatsNorm` + ReLU, widths d, 1.5d, 2d, 2d, a 2x2 max-pool after
+    each of the first three (8 x 32 tokens -> 1 x 4), `adaptive_window_pool`
+    to `num_windows`, then Dense-BN-ReLU-Dense-BN(affine off) to one global
+    vector: [B, N, d] -> [B, 1, d].  The tensors are channel-last
+    throughout, so each `BatchStatsNorm` reduces over (B, H, W) as
+    `BatchNorm2d` does.  Keys as the reference's: ``conv_layers.{0,2,4,6}``
+    (conv ``.0``, norm ``.1``; the pools at the odd indices) and
+    ``patches2global.{0,1,3,4}``, which `convert_torch_moco` reads."""
+
+    def __init__(self, embed_dim: int, num_windows: int = 5,
+                 patch_shape: Tuple[int, int] = (8, 32), dtype=torch.float32):
+        super().__init__()
+        d = embed_dim
+        self.num_windows = num_windows
+        self.patch_shape = tuple(patch_shape)
+        layers, c_in = [], d
+        for i, width in enumerate((d, int(d * 1.5), d * 2, d * 2)):
+            layers.append(nn.Sequential(Conv3x3(c_in, width, dtype), BatchStatsNorm(width),
+                                        nn.ReLU()))
+            if i < 3:
+                layers.append(_MaxPool2())
+            c_in = width
+        self.conv_layers = nn.Sequential(*layers)
+        self.patches2global = nn.Sequential(
+            Dense(num_windows * 2 * d, d, dtype=dtype), BatchStatsNorm(d), nn.ReLU(),
+            Dense(d, d, dtype=dtype), BatchStatsNorm(d, affine=False))
+
+    def forward(self, seq_x):
+        b, n, c = seq_x.shape
+        x = self.conv_layers(seq_x.reshape(b, *self.patch_shape, c))
+        x = adaptive_window_pool(x, self.num_windows).reshape(b, -1)
+        return self.patches2global(x)[:, None, :]
+
+
 class _GELU(nn.Module):
     def forward(self, x):
         return gelu(x)
@@ -153,7 +198,10 @@ class DiGPretrainModel(nn.Module):
     `drop_path_rate` is the student encoder's (`--drop_path`): its masks
     are drawn from `forward_student`'s `generator`; the momentum branch
     always runs without drop-path, as `deterministic=True` makes it in the
-    JAX package."""
+    JAX package.  `remat` (`--remat`) rematerializes the encoder's blocks in
+    the student's backward; `patchnet_name` is "regular" (`PatchNet` with
+    its cross blocks), "no_patchtrans" (its pooling alone) or "conv"
+    (`ConvPatchNet`), each EMA-tracked by its momentum copy."""
 
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: int = 4,
                  encoder_embed_dim: int = 384, encoder_depth: int = 12,
@@ -163,7 +211,7 @@ class DiGPretrainModel(nn.Module):
                  num_windows: int = 5, use_pixel_target: bool = True,
                  use_moco_target: bool = True, use_pix_projector: bool = True,
                  patchnet_name: str = "regular", label_smoothing: float = 0.0,
-                 drop_path_rate: float = 0.0, dtype=torch.float32):
+                 drop_path_rate: float = 0.0, remat: bool = False, dtype=torch.float32):
         super().__init__()
         self.img_size, self.patch_size = tuple(img_size), patch_size
         self.temperature, self.label_smoothing = temperature, label_smoothing
@@ -171,17 +219,19 @@ class DiGPretrainModel(nn.Module):
         c = encoder_embed_dim
         self.encoder = PretrainViTEncoder(
             img_size, patch_size, c, encoder_depth, encoder_num_heads, mlp_ratio, qkv_bias,
-            use_final_norm=not use_moco_target, drop_path_rate=drop_path_rate, dtype=dtype)
+            use_final_norm=not use_moco_target, drop_path_rate=drop_path_rate, remat=remat,
+            dtype=dtype)
         self.has_pix_projector = use_pixel_target and use_moco_target and use_pix_projector
         if use_moco_target:
-            if patchnet_name == "conv":
-                raise NotImplementedError(
-                    "patchnet_name='conv' (ConvPatchNet) is not ported yet; see ROADMAP.md")
             self.encoder_projection_layer = MLPHead(3, c, mlp_dim, dim, dtype=dtype)
             self.predictor = MLPHead(2, dim, mlp_dim, dim, dtype=dtype)
-            self.patch_extractor = PatchNet(
-                c, encoder_num_heads, num_windows, self.encoder.patch_shape,
-                use_patch_transformer=patchnet_name == "regular", dtype=dtype)
+            if patchnet_name == "conv":
+                self.patch_extractor = ConvPatchNet(c, num_windows, self.encoder.patch_shape,
+                                                    dtype)
+            else:
+                self.patch_extractor = PatchNet(
+                    c, encoder_num_heads, num_windows, self.encoder.patch_shape,
+                    use_patch_transformer=patchnet_name == "regular", dtype=dtype)
         if self.has_pix_projector:
             self.pix_projector = MLPHead(3, c, 512, c, dtype=dtype)
         if use_pixel_target:

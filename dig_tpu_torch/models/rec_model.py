@@ -38,6 +38,7 @@ from torch import nn
 from dig_tpu_torch.models.attn_decoder import GRU, AttentionRecognitionHead
 from dig_tpu_torch.models.decoder import DecoupledTFDecoder, TFDecoder, create_decoder
 from dig_tpu_torch.models.layers import (
+    Conv3x3,
     Dense,
     LayerNorm,
     PatchEmbed,
@@ -312,7 +313,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init in the JAX package's distributions: truncated normal
     (std 0.02) for the encoder's dense layers and the learned tokens,
     xavier-uniform for the patch projection, flax's lecun-normal for the
-    other dense layers and the GRU's weights, N(0, 1) for the embeddings,
+    other dense layers, the convolutions and the GRU's weights, N(0, 1) for the embeddings,
     zero biases, unit norm scales."""
     with torch.no_grad():
         for name, mod in model.named_modules():
@@ -331,6 +332,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                 bound = math.sqrt(6.0 / (fan_in + fan_out))
                 nn.init.uniform_(w, -bound, bound, generator=generator)
                 mod.proj.bias.zero_()
+            elif isinstance(mod, Conv3x3):  # flax nn.Conv: lecun_normal, fan_in c_in x 3 x 3
+                _trunc_normal(mod.weight, math.sqrt(1.0 / mod.weight[0].numel())
+                              / 0.87962566103423978, generator)
+                mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 nn.init.normal_(mod.weight, 0.0, 1.0, generator=generator)
             elif isinstance(mod, GRU):

@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dig_tpu_torch.models.layers import (
     Block,
@@ -34,6 +35,44 @@ from dig_tpu_torch.models.layers import (
     sinusoid_position_table,
 )
 from dig_tpu_torch.models.registry import register_model
+
+
+def _remat_block(blk, x, generator):
+    """`blk(x, generator)` under `torch.utils.checkpoint` (non-reentrant:
+    the reentrant variant drops the gradients of a block none of whose
+    inputs needs one): only the block's input is kept, and its forward runs
+    again inside the backward.  `preserve_rng_state` covers torch's global
+    generators, from which nothing here draws; the recompute must draw the
+    dropout and drop-path masks that the forward drew from `generator`, so
+    it starts from the generator's state before the forward and puts back
+    the state it found."""
+    if generator is None:
+        return checkpoint(blk, x, None, use_reentrant=False, preserve_rng_state=False)
+    before = generator.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:  # the forward
+            calls.append(1)
+            return blk(x, generator)
+        now = generator.get_state()  # the recompute, inside the backward
+        generator.set_state(before)
+        try:
+            return blk(x, generator)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
+def run_blocks(blocks, x, generator=None, remat: bool = False):
+    """The encoder's blocks in order; with `remat`, each one rematerialized
+    in the backward (`nn.remat(Block)` in the JAX package,
+    `dig_tpu/models/vit.py:127, 223`), where a gradient is being recorded."""
+    remat = remat and torch.is_grad_enabled()
+    for blk in blocks:
+        x = _remat_block(blk, x, generator) if remat else blk(x, generator)
+    return x
 
 
 class VisionTransformer(nn.Module):
@@ -49,6 +88,8 @@ class VisionTransformer(nn.Module):
     * `use_learnable_pos_emb`: a learned `pos_embed` instead of the table.
     * `return_feat_map=False`: the pooled path, `fc_norm` of the token mean
       (mean pooling) or `norm` of token 0, then `head` when `num_classes`.
+    * `remat`: each block rematerialized in the backward (`run_blocks`);
+      the JAX module has the field and no config reaches it, here neither.
     Parameters that the JAX package creates only on the path a flag takes
     exist here only under that flag, so the two trees hold the same names."""
 
@@ -61,9 +102,10 @@ class VisionTransformer(nn.Module):
                  use_mean_pooling: bool = True, return_feat_map: bool = True,
                  num_classes: int = 0, use_seq_cls_token: bool = False, max_seq_len: int = 25,
                  num_mem_slots: int = 0, use_mem_in_decoder: bool = False,
-                 dtype=torch.float32):
+                 remat: bool = False, dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
+        self.remat = remat
         self.drop_rate = drop_rate
         self.return_feat_map = return_feat_map
         self.use_mean_pooling = use_mean_pooling
@@ -134,8 +176,7 @@ class VisionTransformer(nn.Module):
                    + self.cls_type_emb.to(x.dtype))
             cls = dropout(cls.expand(b, -1, -1), self.drop_rate, generator)
             x = torch.cat([cls, x + self.vis_type_emb.to(x.dtype)], dim=1)
-        for blk in self.blocks:
-            x = blk(x, generator)
+        x = run_blocks(self.blocks, x, generator, self.remat)
         if self.num_mem_slots > 0 and not self.use_mem_in_decoder:
             x = x[:, : x.shape[1] - self.num_mem_slots]
         if self.use_seq_cls_token:
@@ -155,7 +196,9 @@ class PretrainViTEncoder(nn.Module):
     `MoCo_ViT` replaces the last LayerNorm with Identity.  With
     `drop_path_rate` > 0 a pass that is given a `generator` draws its
     blocks' drop-path masks from it; without one the pass is deterministic
-    (the momentum branch, evaluation)."""
+    (the momentum branch, evaluation).  `remat` (`--remat`) keeps only each
+    block's input for the backward and runs the block again there
+    (`run_blocks`), with the same masks."""
 
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: int = 4,
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
@@ -163,9 +206,11 @@ class PretrainViTEncoder(nn.Module):
                  qk_scale: Optional[float] = None, init_values: float = 0.0,
                  use_final_norm: bool = True, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
-                 use_learnable_pos_emb: bool = False, dtype=torch.float32):
+                 use_learnable_pos_emb: bool = False, remat: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.embed_dim = embed_dim
+        self.remat = remat
         self.patch_embed = PatchEmbed(img_size, patch_size, 3, embed_dim, dtype)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         n = self.patch_embed.num_patches
@@ -202,8 +247,7 @@ class PretrainViTEncoder(nn.Module):
             x = x * (1.0 - m) + self.mask_token.to(x.dtype) * m
         pos = self.pos_embed if hasattr(self, "pos_embed") else self.pos_table
         x = x + pos.to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x, generator)
+        x = run_blocks(self.blocks, x, generator, self.remat)
         if self.norm is not None:
             x = self.norm(x)
         return x

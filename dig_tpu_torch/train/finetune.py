@@ -7,7 +7,7 @@ engine_for_finetuning.py:26-285):
   teacher-forced pass with dropout and drop-path drawn from the step's
   `torch.Generator` (the JAX step's `rng`), label-smoothing sequence CE
   (plain CE at smoothing 0), backward, the global gradient norm before
-  clipping, then clipping + AdamW (`dig_tpu_torch.optim`); returns the
+  clipping, then clipping + the optimizer (`dig_tpu_torch.optim`); returns the
   greedy ids of the teacher-forced logits with the metrics;
 * `make_distill_finetune_step`: the same plus a smooth-L1 (beta 2) between
   the student's projected features and a frozen teacher's standardized
@@ -22,7 +22,7 @@ engine_for_finetuning.py:26-285):
 
 The steps run where the model lives and take uint8 image batches, as the
 JAX steps do.  Gradient accumulation (`update_freq` > 1) lives in the
-optimizer (`dig_tpu_torch.optim.AdamW`), as optax `MultiSteps` does in the
+optimizer (`dig_tpu_torch.optim`), as optax `MultiSteps` does in the
 JAX package: the step is the same.  The returned metrics are device
 tensors, so a step does not wait for the card.
 """
@@ -65,7 +65,7 @@ def _seq_ce(logits, targets, lengths, smoothing):
 
 def _backward_and_update(state: TrainState, loss, with_norm: bool = True):
     """backward, the data-parallel reduction, the global gradient norm
-    before clipping (when `with_norm`), clipping + AdamW; returns the norm."""
+    before clipping (when `with_norm`), clipping + the update; returns the norm."""
     opt = state.optimizer
     opt.zero_grad()
     loss.backward()

@@ -13,7 +13,8 @@ operations:
    momentum branch on the same images and masks, without gradients;
 4. loss = (InfoNCE(q1, k2) + InfoNCE(q2, k1)) * cw + pixel MSE * w_pixel,
    the pixel targets taken from the ori view only;
-5. backward, then clipping + AdamW (`dig_tpu_torch.optim`).
+5. backward, then clipping + the optimizer (`dig_tpu_torch.optim`: any
+   `--opt` of the JAX package).
 
 The step runs where its model lives.  Masks and augmented views arrive as
 batch inputs: from the host loader (`data/pipeline.py`, SeqCLR augmentation

@@ -16,7 +16,7 @@ from torch import nn
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module  # holds the student and its momentum modules
-    optimizer: object  # `dig_tpu_torch.optim.AdamW`
+    optimizer: object  # `dig_tpu_torch.optim.create_optimizer`'s
     step: int = 0
 
     @property

@@ -43,14 +43,25 @@ GRU head), `convert_torch_recognizer`, `has_decoder_keys`, and
 `merge_pretrained_tree`, which grafts what fits onto a model and fits a
 learnable ``pos_embed`` of another grid with `interpolate_pos_embed`.
 
-Not ported yet (see ROADMAP.md): remote URIs (``gs://...`` through fsspec)
-and reading the JAX package's native directories (``arrays.npz`` +
-``treedef.pkl``), both refused with a message.
+Every function that takes a path also takes a remote URI (``gs://...``,
+``s3://...``, ``memory://...``; `dig_tpu/utils/checkpoint.py:64-83,
+212-264`): its files go through fsspec, which is imported only for such a
+path (a local run never imports it; without it installed a remote path
+raises a message naming it).  A remote checkpoint is written in place,
+with no temporary name (object stores have no atomic rename): its
+``meta.json``, written last, is still the commit marker.
+
+`restore_checkpoint` also reads the JAX package's native directories
+(``arrays.npz`` + ``treedef.pkl``, `dig_tpu/utils/checkpoint.py:85-112,
+184-209`), without JAX (`utils/native_ckpt.py`): the payload then holds
+the saved trees under "native", which `load_into_state` carries into the
+port's layout.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import re
@@ -61,28 +72,71 @@ import numpy as np
 import torch
 
 from dig_tpu_torch.parallel.dist import barrier, is_main_process
+from dig_tpu_torch.utils import native_ckpt
 
 PAYLOAD = "checkpoint.pth"
 
 
-def _refuse_remote(path: str) -> None:
-    if "://" in path:
-        raise NotImplementedError(
-            f"remote checkpoint URIs ({path!r}) are not ported yet; see ROADMAP.md")
+def is_remote(path: str) -> bool:
+    return "://" in path
 
 
-def _replace_into(path: str, name: str, write) -> None:
-    """write(tmp path), then rename onto `name` inside `path`."""
+def _fs(path: str):
+    """(fsspec filesystem, path on it) of a remote URI; fsspec is imported
+    here only."""
+    try:
+        import fsspec
+    except ImportError as e:
+        raise ImportError(f"{path} is a remote checkpoint URI, which needs the fsspec "
+                          f"package (and its protocol's implementation); it is not "
+                          f"installed") from e
+    return fsspec.core.url_to_fs(path)
+
+
+def _join(base: str, *parts: str) -> str:
+    if is_remote(base):
+        return "/".join([base.rstrip("/"), *parts])
+    return os.path.join(base, *parts)
+
+
+def _exists(path: str) -> bool:
+    if is_remote(path):
+        fs, root = _fs(path)
+        return fs.exists(root)
+    return os.path.exists(path)
+
+
+def read_bytes(path: str) -> bytes:
+    """A file's bytes, local or remote."""
+    if is_remote(path):
+        fs, root = _fs(path)
+        with fs.open(root, "rb") as f:
+            return f.read()
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _write(path: str, name: str, write) -> None:
+    """write(binary file) into ``path/name``: locally under a temporary
+    name, then renamed onto it; remotely in place."""
+    if is_remote(path):
+        fs, root = _fs(path)
+        with fs.open(f"{root}/{name}", "wb") as f:
+            write(f)
+        return
     tmp = os.path.join(path, "tmp_" + name)
-    write(tmp)
+    with open(tmp, "wb") as f:
+        write(f)
     os.replace(tmp, os.path.join(path, name))
 
 
 def save_checkpoint(output_dir: str, tag, state, extra: Optional[dict] = None) -> str:
     """Write ``{output_dir}/checkpoint-{tag}`` from a `TrainState` (rank 0;
     every rank returns after it has); returns its path."""
-    _refuse_remote(output_dir)
-    path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{tag}"))
+    if is_remote(output_dir):
+        path = _join(output_dir, f"checkpoint-{tag}")
+    else:
+        path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{tag}"))
     if is_main_process():
         _write_checkpoint(path, state, extra)
     barrier()
@@ -90,43 +144,32 @@ def save_checkpoint(output_dir: str, tag, state, extra: Optional[dict] = None) -
 
 
 def _write_checkpoint(path: str, state, extra: Optional[dict]) -> None:
-    os.makedirs(path, exist_ok=True)
-    opt = state.optimizer
-    payload = {"model": state.model.state_dict(),
-               "optimizer": {"inner": opt.inner.state_dict(), "count": int(opt.count)},
+    if is_remote(path):
+        fs, root = _fs(path)
+        fs.makedirs(root, exist_ok=True)
+    else:
+        os.makedirs(path, exist_ok=True)
+    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
                "step": int(state.step)}
-    if opt.acc is not None:
-        payload["optimizer"].update(acc=opt.acc, mini_step=int(opt.mini_step))
-    _replace_into(path, PAYLOAD, lambda tmp: torch.save(payload, tmp))
+    _write(path, PAYLOAD, lambda f: torch.save(payload, f))
     meta = {"step": int(state.step)}
     if extra:
         meta["extra"] = extra
-
-    def write_meta(tmp):
-        with open(tmp, "w") as f:
-            json.dump(meta, f)
-
-    _replace_into(path, "meta.json", write_meta)
-
-
-def refuse_unreadable(path: str) -> None:
-    """Raise for a checkpoint path the port cannot read: a remote URI, or a
-    directory in the JAX package's native format."""
-    _refuse_remote(path)
-    if os.path.exists(os.path.join(path, "arrays.npz")):
-        raise NotImplementedError(
-            f"{path} is a native dig_tpu checkpoint (arrays.npz + treedef.pkl), which the "
-            f"port does not read yet; export it with tools/export_pth.py (see ROADMAP.md)")
+    _write(path, "meta.json", lambda f: f.write(json.dumps(meta).encode()))  # last: the commit marker
 
 
 def restore_checkpoint(path: str) -> dict:
     """Load a checkpoint directory onto the CPU: the payload's keys plus
-    "step" and, where the save gave one, "extra" from ``meta.json``."""
-    refuse_unreadable(path)
-    path = os.path.abspath(path)
-    payload = torch.load(os.path.join(path, PAYLOAD), map_location="cpu", weights_only=True)
-    with open(os.path.join(path, "meta.json")) as f:
-        meta = json.load(f)
+    "step" and, where the save gave one, "extra" from ``meta.json``; for a
+    native `dig_tpu` directory, its trees under "native" (`native_ckpt`)."""
+    if not is_remote(path):
+        path = os.path.abspath(path)
+    if _exists(_join(path, "arrays.npz")):
+        return native_ckpt.read_native(lambda name: read_bytes(_join(path, name)))
+    pth = _join(path, PAYLOAD)
+    payload = torch.load(io.BytesIO(read_bytes(pth)) if is_remote(pth) else pth,
+                         map_location="cpu", weights_only=True)
+    meta = json.loads(read_bytes(_join(path, "meta.json")).decode())
     payload["step"] = meta["step"]
     if "extra" in meta:
         payload["extra"] = meta["extra"]
@@ -135,42 +178,45 @@ def restore_checkpoint(path: str) -> dict:
 
 def load_into_state(state, payload: dict):
     """Put a restored payload into `state`, in place: model (student and
-    momentum modules), AdamW moments and step tensors, the schedule index
-    and the step counter.  Returns `state`.
+    momentum modules), the optimizer's state (`state_dict()`: AdamW's
+    moments and step tensors, or the other rules' state), the schedule
+    index and the step counter.  Returns `state`.  A native payload goes
+    through `native_ckpt.load_into_state`.
 
     Only the optimizer's per-parameter state is taken from the file.  Its
     hyper-parameters (betas, eps, the groups' lr scales) stay those the
     optimizer was built with, as in the JAX package, whose optimizer state
     holds none: the flags of the resuming run decide."""
+    if "native" in payload:
+        return native_ckpt.load_into_state(state, payload)
     state.model.load_state_dict(payload["model"])
-    inner = state.optimizer.inner
-    saved, groups = payload["optimizer"]["inner"], inner.state_dict()["param_groups"]
-    if [len(g["params"]) for g in saved["param_groups"]] != [len(g["params"]) for g in groups]:
-        raise ValueError("the checkpoint's optimizer groups its parameters differently from "
-                         "this run's (another model, layer decay or frozen layers)")
-    inner.load_state_dict({"state": saved["state"], "param_groups": groups})
-    state.optimizer.count = int(payload["optimizer"]["count"])
-    if "acc" in payload["optimizer"]:
-        device = state.optimizer.params[0].device
-        state.optimizer.acc = [a.to(device) for a in payload["optimizer"]["acc"]]
-        state.optimizer.mini_step = int(payload["optimizer"]["mini_step"])
+    state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state
 
 
+def _list_dir_names(output_dir: str) -> Optional[list]:
+    """Entry names directly under `output_dir` (local or remote); None when
+    it does not exist."""
+    if is_remote(output_dir):
+        fs, root = _fs(output_dir)
+        try:
+            return [p.rstrip("/").rsplit("/", 1)[-1] for p in fs.ls(root, detail=False)]
+        except FileNotFoundError:
+            return None
+    return os.listdir(output_dir) if os.path.isdir(output_dir) else None
+
+
 def _numbered(output_dir: str) -> list:
     """[(N, name)] of the ``checkpoint-N`` entries under `output_dir`, ascending."""
-    if not os.path.isdir(output_dir):
-        return []
-    return sorted((int(m.group(1)), n) for n in os.listdir(output_dir)
+    return sorted((int(m.group(1)), n) for n in _list_dir_names(output_dir) or []
                   if (m := re.fullmatch(r"checkpoint-(\d+)", n)))
 
 
 def numeric_checkpoints(output_dir: str) -> list:
     """Complete (meta.json-bearing) ``checkpoint-N`` paths, newest first."""
-    _refuse_remote(output_dir)
-    return [os.path.join(output_dir, n) for _, n in reversed(_numbered(output_dir))
-            if os.path.exists(os.path.join(output_dir, n, "meta.json"))]
+    return [_join(output_dir, n) for _, n in reversed(_numbered(output_dir))
+            if _exists(_join(output_dir, n, "meta.json"))]
 
 
 def latest_checkpoint(output_dir: str) -> Optional[str]:
@@ -184,14 +230,20 @@ def prune_checkpoints(output_dir: str, keep: int) -> list:
     newest `keep` (0 or negative keeps all, the reference's behaviour);
     returns the names deleted (rank 0 deletes; every rank returns after it
     has).  Other tags are never touched."""
-    _refuse_remote(output_dir)
     if keep <= 0:
         return []
     numbered = _numbered(output_dir)
     pruned = [name for _, name in (numbered[:-keep] if keep < len(numbered) else [])]
     if is_main_process():
         for name in pruned:
-            shutil.rmtree(os.path.join(output_dir, name), ignore_errors=True)
+            if is_remote(output_dir):
+                fs, root = _fs(output_dir)
+                try:
+                    fs.rm(f"{root}/{name}", recursive=True)
+                except FileNotFoundError:
+                    pass
+            else:
+                shutil.rmtree(os.path.join(output_dir, name), ignore_errors=True)
     barrier()
     return pruned
 
@@ -230,10 +282,11 @@ def load_torch_checkpoint(path: str, model_key: str = "model|module") -> dict:
     top-level keys tried in order (run_class_finetuning.py:372-377), with
     ``state_dict`` tried last; a file with none of them is the state dict
     itself.  Unpickling is restricted to tensors, containers and the
-    argparse namespace the reference stores beside them."""
-    _refuse_remote(path)
+    argparse namespace the reference stores beside them.  `path` may be a
+    remote URI."""
     with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = torch.load(io.BytesIO(read_bytes(path)) if is_remote(path) else path,
+                          map_location="cpu", weights_only=True)
     for key in model_key.split("|") + ["state_dict"]:
         if isinstance(ckpt, dict) and key in ckpt:
             ckpt = ckpt[key]

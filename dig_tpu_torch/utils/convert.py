@@ -21,7 +21,6 @@ The sinusoid tables are recomputed at construction and never stored.
 
 from __future__ import annotations
 
-import argparse
 
 import numpy as np
 import torch
@@ -210,6 +209,27 @@ def _cross_patchnet(tree: dict) -> dict:
     return out
 
 
+def _conv_patchnet(tree: dict) -> dict:
+    """`ConvPatchNet` (``c{i}_conv``, ``c{i}_bn``, ``p2g_dense0``,
+    ``p2g_bn0``, ``p2g_dense1``) -> the reference layout: conv block i at
+    ``conv_layers.{2i}`` (kernel [3, 3, in, out] -> [out, in, 3, 3]), the
+    head at ``patches2global.{0,1,3}`` (`_convert_conv_patchnet`'s inverse)."""
+    out = {}
+    for i in range(4):
+        conv = tree[f"c{i}_conv"]
+        out[f"conv_layers.{2 * i}.0.weight"] = _t(np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        out[f"conv_layers.{2 * i}.0.bias"] = _t(conv["bias"])
+        out.update(_norm(tree[f"c{i}_bn"], f"conv_layers.{2 * i}.1"))
+    out.update(_dense(tree["p2g_dense0"], "patches2global.0"))
+    out.update(_norm(tree["p2g_bn0"], "patches2global.1"))
+    out.update(_dense(tree["p2g_dense1"], "patches2global.3"))
+    return out
+
+
+def _patchnet(tree: dict) -> dict:
+    return _conv_patchnet(tree) if "c0_conv" in tree else _cross_patchnet(tree)
+
+
 def _pix_decoder(tree: dict) -> dict:
     out = {**_dense(tree["fc0"], "0"), **_dense(tree["fc1"], "1"), **_dense(tree["head"], "4")}
     out.update(_norm(tree["norm"], "2"))
@@ -221,10 +241,10 @@ def moco_params_from_jax(student: dict, ema: dict, patch_size: int = 4) -> dict:
     `DiGPretrainModel` state dict.  Top-level keys of the JAX trees:
     encoder, patch_extractor, pix_decoder, pix_projector, predictor,
     projection (the EMA tree: encoder, patch_extractor, pix_projector,
-    projection)."""
+    projection); the patch extractor is a `PatchNet` or a `ConvPatchNet`."""
     convert = {"encoder": lambda t: _encoder(t, patch_size), "projection": _mlp_head,
                "predictor": _mlp_head, "pix_projector": _mlp_head,
-               "patch_extractor": _cross_patchnet, "pix_decoder": _pix_decoder}
+               "patch_extractor": _patchnet, "pix_decoder": _pix_decoder}
     names = {"encoder": "encoder", "projection": "encoder_projection_layer",
              "predictor": "predictor", "pix_projector": "pix_projector",
              "patch_extractor": "patch_extractor", "pix_decoder": "pix_decoder"}
@@ -243,12 +263,10 @@ def load_pth(path: str, model_key: str = "model|module", model_prefix: str = "")
     reference's '|'-separated list of candidate top-level keys
     (run_class_finetuning.py:372-377), with ``state_dict`` tried last;
     `model_prefix` is stripped from every key.  Unpickling is restricted
-    to tensors and the argparse namespace the reference stores beside them."""
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    for key in model_key.split("|") + ["state_dict"]:
-        if isinstance(ckpt, dict) and key in ckpt:
-            ckpt = ckpt[key]
-            break
-    return {k[len(model_prefix):]: v.float() for k, v in ckpt.items()
-            if k.startswith(model_prefix) and torch.is_tensor(v)}
+    to tensors and the argparse namespace the reference stores beside them
+    (`checkpoint.load_torch_checkpoint`, which also reads a remote URI)."""
+    from dig_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+    return {k[len(model_prefix):]: v.float()
+            for k, v in load_torch_checkpoint(path, model_key).items()
+            if k.startswith(model_prefix)}

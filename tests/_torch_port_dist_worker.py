@@ -6,8 +6,8 @@ Reads ``<dir>/inputs.pt`` (written by the test), joins a process group of
 `world` gloo ranks at tcp://127.0.0.1:<port>, runs the scenario and writes
 ``<dir>/rank<rank>.pt``.  Scenarios:
 
-* ``steps``: one pre-training step, one fine-tuning step, two fine-tuning
-  micro-steps under `update_freq` 2, `BatchStatsNorm` and InfoNCE forward
+* ``steps``: one pre-training step, one fine-tuning step (AdamW, and
+  LAMB), two fine-tuning micro-steps under `update_freq` 2, `BatchStatsNorm` and InfoNCE forward
   and backward, each on this rank's rows of a global batch; the metric
   meters' sync, the preemption consensus (rank 1 signals itself) and the
   rank's step streams.
@@ -57,7 +57,7 @@ def _pretrain_step(inp, rank, world):
             "params": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
-def _finetune(inp, rank, world, update_freq):
+def _finetune(inp, rank, world, update_freq, opt_name="adamw"):
     from dig_tpu_torch.models.rec_model import build_rec_model
     from dig_tpu_torch.optim import create_optimizer, frozen_encoder_mask
     from dig_tpu_torch.train.finetune import init_finetune_state, make_finetune_step
@@ -68,7 +68,7 @@ def _finetune(inp, rank, world, update_freq):
         if hasattr(m, "dropout"):
             m.dropout = 0.0
     model.load_state_dict(f["state_dict"])
-    opt = create_optimizer("adamw", model.named_parameters(), f["lr"], f["wd"], eps=f["eps"],
+    opt = create_optimizer(opt_name, model.named_parameters(), f["lr"], f["wd"], eps=f["eps"],
                            clip_grad=f["clip"][update_freq], layer_decay=f["layer_decay"],
                            num_layers=2, frozen=frozen_encoder_mask(f["frozen"]),
                            update_freq=update_freq)
@@ -151,7 +151,8 @@ def _sync_and_streams(rank, world):
 def _steps(inp, rank, world):
     out = {"pretrain": _pretrain_step(inp, rank, world),
            "finetune": _finetune(inp, rank, world, 1),
-           "finetune_update_freq_2": _finetune(inp, rank, world, 2)}
+           "finetune_update_freq_2": _finetune(inp, rank, world, 2),
+           "finetune_lamb": _finetune(inp, rank, world, 1, "lamb")}
     out.update(_norm_and_infonce(inp, rank, world))
     out.update(_sync_and_streams(rank, world))
     return out

@@ -9,6 +9,8 @@ Everything runs on the CPU in fp32 at the micro width.
 
 import json
 import os
+import pickle
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -203,20 +205,30 @@ def test_save_leaves_no_temporary_file_and_overwrites(tmp_path):
     assert payload["optimizer"]["count"] == 1
 
 
-def test_unreadable_checkpoints_are_refused(tmp_path):
+def test_unreadable_checkpoints_are_refused(tmp_path, monkeypatch):
+    """Remote URIs and native directories are read now
+    (tests/test_torch_port_remote_native.py); what stays unreadable is
+    refused with a message: a remote URI where fsspec cannot be imported
+    (the message names the package, and the error comes before any
+    filesystem is touched), and a native directory whose pickle is not a
+    JAX treedef or whose leaves do not match it."""
     state, _ = _fresh()
-    for call in (lambda: ckpt.save_checkpoint("gs://bucket/run", 0, state),
-                 lambda: ckpt.restore_checkpoint("gs://bucket/run/checkpoint-0"),
-                 lambda: ckpt.auto_resume("s3://bucket/run", state),
-                 lambda: ckpt.prune_checkpoints("gs://bucket/run", 1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    monkeypatch.setitem(sys.modules, "fsspec", None)  # import fsspec -> ImportError
+    for call in (lambda: ckpt.save_checkpoint("memory://bucket/run", 0, state),
+                 lambda: ckpt.restore_checkpoint("memory://bucket/run/checkpoint-0"),
+                 lambda: ckpt.auto_resume("memory://bucket/run", state),
+                 lambda: ckpt.prune_checkpoints("memory://bucket/run", 1)):
+        with pytest.raises(ImportError, match="fsspec"):
             call()
     native = tmp_path / "checkpoint-7"
     native.mkdir()
-    (native / "arrays.npz").write_bytes(b"")
-    (native / "treedef.pkl").write_bytes(b"")
+    np.savez(native / "arrays.npz", leaf_0=np.zeros(2))
+    (native / "treedef.pkl").write_bytes(pickle.dumps({"not": "a treedef"}))
     (native / "meta.json").write_text('{"step": 1}')
-    with pytest.raises(NotImplementedError, match="export_pth.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="PyTreeDef"):
+        ckpt.restore_checkpoint(str(native))
+    (native / "treedef.pkl").write_bytes(pickle.dumps(print))
+    with pytest.raises(pickle.UnpicklingError, match="builtins.print"):
         ckpt.restore_checkpoint(str(native))
 
 

@@ -704,3 +704,111 @@ def test_nccl_world_1_steps_equal_the_one_process_steps_bit_for_bit(cuda):
             assert sorted(want) == sorted(got), step
             differ = [k for k in want if not torch.equal(want[k], got[k])]
             assert not differ, f"{step}: {differ[:5]} differ"
+
+
+def _wide_pretrain_model(remat, drop_path_rate, dtype):
+    """A pre-training model of width 128 (2 heads x 64, depth 2): its rows
+    reach the LayerNorm kernels, which the micro model's 64 do not."""
+    from dig_tpu_torch.models.moco import DiGPretrainModel
+    from dig_tpu_torch.models.rec_model import init_weights
+
+    model = DiGPretrainModel(encoder_embed_dim=128, encoder_depth=2, encoder_num_heads=2,
+                             mlp_dim=32, dim=16, num_windows=4, remat=remat,
+                             drop_path_rate=drop_path_rate, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(3))
+    model.reset_momentum()
+    return model.cuda().train()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_step_launches_its_counts_and_equals_the_plain_step(cuda, dtype):
+    """One pre-training step with `remat` at drop-path 0.1 from one card
+    generator: the student's forward kernels launch again for the
+    recompute (#3 3 x depth, #5 6 x depth; #4 and #6 as without remat), and
+    loss, gradients and parameters equal the plain step's bit for bit (the
+    recompute draws the forward's masks and the kernels repeat their bits)."""
+    import numpy as np
+
+    from dig_tpu_torch.optim import create_optimizer
+    from dig_tpu_torch.train.pretrain import init_pretrain_state, make_pretrain_step
+
+    rng = np.random.default_rng(0)
+    batch = {"images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "aug_images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "mask": rng.random((4, 2, 256)) < 0.7}
+    wrappers = (tattn.attention_lse_fwd, tattn.attention_lse_bwd, tln.layer_norm_fwd,
+                tln.layer_norm_bwd)
+    runs = {}
+    for remat in (False, True):
+        model = _wide_pretrain_model(remat, 0.1, dtype)
+        state = init_pretrain_state(model, create_optimizer("adamw", model.named_parameters(),
+                                                            [1e-3], [0.05]))
+        before = [w.launches for w in wrappers]
+        _, metrics = make_pretrain_step(model, [0.99], [0.1])(
+            state, batch, torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        runs[remat] = dict(launches=[w.launches - b for w, b in zip(wrappers, before)],
+                           loss=metrics["loss"].item(),
+                           grads=[p.grad.clone() for p in model.parameters() if p.requires_grad],
+                           params=[t.clone() for t in model.state_dict().values()])
+    assert runs[False]["launches"] == [4, 2, 8, 4]
+    assert runs[True]["launches"] == [6, 2, 12, 4]
+    assert runs[False]["loss"] == runs[True]["loss"]
+    assert all(torch.equal(a, b) for a, b in zip(runs[False]["grads"], runs[True]["grads"]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[False]["params"], runs[True]["params"]))
+
+
+@pytest.mark.cuda
+def test_ctc_loss_backward_is_reproducible(cuda):
+    """The CTC loss at a fine-tuning batch's shapes (256 sequences, 32
+    frames, 98 classes) with labels that hold one id three times or more:
+    the same gradient bits on every call (the emit log-probabilities are a
+    one-hot product, whose backward is a matrix product)."""
+    from dig_tpu_torch.losses.ctc import ctc_step_loss
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn(256, 32, 98, device="cuda", generator=gen)
+    targets = torch.randint(0, 8, (256, 26), device="cuda", generator=gen)  # many repeats
+    lengths = torch.randint(2, 27, (256,), device="cuda", generator=gen)
+    grads = []
+    for _ in range(3):
+        x = logits.clone().requires_grad_()
+        ctc_step_loss(x, targets, lengths, 97).backward()
+        grads.append(x.grad)
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+
+
+@pytest.mark.cuda
+def test_conv_patchnet_matches_the_cpu_and_repeats_its_bits(cuda):
+    """`ConvPatchNet` in fp32 on the card (`models/layers.py::_exact_conv`:
+    no cuDNN, no TF32, forward and backward) against the CPU, within 1e-4 of
+    each output's and gradient's max plus 1e-6 of the largest gradient (the
+    floor of chip_smoke's card-vs-CPU checks: the biases of the convolutions
+    and of the head's first Dense, each followed by a batch norm, have a
+    gradient that is zero but for rounding), and bit-equal between calls.
+    The loss is a fixed random projection of the output (the sum of its
+    squares would be constant: the last norm has no affine)."""
+    from dig_tpu_torch.models.moco import ConvPatchNet
+    from dig_tpu_torch.models.rec_model import init_weights
+
+    net = ConvPatchNet(128, 4, (8, 32))
+    init_weights(net, torch.Generator().manual_seed(0))
+    x = torch.randn(16, 256, 128, generator=torch.Generator().manual_seed(1))
+    r = torch.randn(16, 1, 128, generator=torch.Generator().manual_seed(2))
+    res = {}
+    for device in ("cpu", "cuda", "cuda"):
+        m = net.to(device)
+        m.zero_grad()
+        xi = x.detach().clone().to(device).requires_grad_()
+        y = m(xi)
+        (y * r.to(device)).sum().backward()
+        res.setdefault(device, []).append([t.detach().cpu() for t in
+                                           [y, xi.grad] + [p.grad for p in m.parameters()]])
+    a, b = res["cuda"]
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    cpu = res["cpu"][0]
+    floor = 1e-6 * max(float(v.abs().max()) for v in cpu[1:])
+    for u, v in zip(a, cpu):
+        err = float((u - v).abs().max())
+        assert err <= 1e-4 * float(v.abs().max()) + floor, err

@@ -216,9 +216,9 @@ def _finetune_inputs():
     return jm, params, batches
 
 
-def _finetune_jax_on_mesh(jm, params, batches, lr, wd, update_freq):
+def _finetune_jax_on_mesh(jm, params, batches, lr, wd, update_freq, opt_name="adamw"):
     mesh = _mesh()
-    inner = j_create_optimizer("adamw", lr, wd, eps=OPT_EPS,
+    inner = j_create_optimizer(opt_name, lr, wd, eps=OPT_EPS,
                                clip_grad=CLIP if update_freq > 1 else None,
                                layer_decay=LAYER_DECAY, num_layers=2,
                                frozen=j_frozen_encoder_mask(FROZEN))
@@ -239,10 +239,10 @@ def _finetune_jax_on_mesh(jm, params, batches, lr, wd, update_freq):
     return out
 
 
-def _finetune_one_process(state_dict, batches, lr, wd, update_freq):
+def _finetune_one_process(state_dict, batches, lr, wd, update_freq, opt_name="adamw"):
     model = _rec_model()
     model.load_state_dict(state_dict)
-    opt = create_optimizer("adamw", model.named_parameters(), lr, wd, eps=OPT_EPS,
+    opt = create_optimizer(opt_name, model.named_parameters(), lr, wd, eps=OPT_EPS,
                            clip_grad=CLIP if update_freq > 1 else None, layer_decay=LAYER_DECAY,
                            num_layers=2, frozen=frozen_encoder_mask(FROZEN),
                            update_freq=update_freq)
@@ -300,6 +300,10 @@ def steps(tmp_path_factory):
                                                   1),
            "uf_one": _finetune_one_process(ft_sd, fbatches, sched["lr"], sched["wd"], 2),
            "uf_jax": _finetune_jax_on_mesh(jft, fparams, fbatches, sched["lr"], sched["wd"], 2),
+           "lamb_one": _finetune_one_process(ft_sd, fbatches, sched["lr"], sched["wd"], 1,
+                                             "lamb"),
+           "lamb_jax": _finetune_jax_on_mesh(jft, fparams, fbatches, sched["lr"], sched["wd"], 1,
+                                             "lamb"),
            "heads": heads, "pre_sd": pre_sd, "ft_sd": ft_sd}
     out["ranks"] = _finish("steps", root, procs)
     return out
@@ -410,6 +414,18 @@ def test_update_freq_2_two_ranks_equal_the_global_batch(steps):
         np.testing.assert_allclose(mean, jx["losses"][i], rtol=1e-5)
     _check_update([r["finetune_update_freq_2"]["params"] for r in steps["ranks"]], one["params"],
                   jx["params"], steps["ft_sd"], 1e-3)
+
+
+def test_lamb_step_two_ranks_update_as_the_global_batch(steps):
+    """A non-AdamW optimizer behind the reducer: one LAMB fine-tuning step
+    (its trust ratio reads every parameter's and update's norm) on both
+    ranks equals one process's on the global batch and JAX's over the mesh,
+    at the bounds of the AdamW step above."""
+    ranks = [r["finetune_lamb"] for r in steps["ranks"]]
+    one, jx = steps["lamb_one"], steps["lamb_jax"]
+    assert all(r["count"] == 1 for r in ranks) and one["count"] == 1
+    _check_reduced_grads([r["grads"] for r in ranks], one["grads"], jx["grads"])
+    _check_update([r["params"] for r in ranks], one["params"], jx["params"], steps["ft_sd"], 1e-3)
 
 
 @pytest.mark.parametrize("name", ["rows", "tokens"])

@@ -273,8 +273,10 @@ def test_finetune_config_matches_jax():
 
 
 STILL_REFUSED = {
-    "opt": (lambda m: toptim.create_optimizer("lamb", m.named_parameters(), [1e-3]),
-            NotImplementedError, "lamb"),
+    # every optimizer name of dig_tpu runs (test_torch_port_optimizers.py);
+    # a name it does not know is refused, as dig_tpu refuses it
+    "opt": (lambda m: toptim.create_optimizer("lamb_x", m.named_parameters(), [1e-3]),
+            ValueError, "Invalid optimizer 'lamb_x'"),
     # every model kind and decoder runs; distillation needs the
     # rec model's projector, which the CTC and the decoupled models lack
     "model_kind": (lambda m: t_build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder",

@@ -79,7 +79,8 @@ def _decoder_dropout_off(model):
 def _decoders_at_dropout_0(mp):
     """Both CLIs build their decoders at dropout 0."""
     real_t, real_j = tcli.build_model, jcli.build_model
-    mp.setattr(tcli, "build_model", lambda cfg, device: _decoder_dropout_off(real_t(cfg, device)))
+    mp.setattr(tcli, "build_model", lambda cfg, device, **kw: _decoder_dropout_off(
+        real_t(cfg, device, **kw)))
     mp.setattr(jcli, "build_model", lambda cfg: (lambda m: m.clone(
         decoder=m.decoder.clone(dropout=0.0)))(real_j(cfg)))
 
@@ -546,14 +547,10 @@ REFUSALS = {
     "distill": (["--use_feat_distill"], ValueError, "teacher_ckpt"),
     "distill_kind": (["--use_feat_distill", "--teacher_ckpt", "t", "--model_kind", "ctc"],
                      ValueError, "requires --model_kind rec"),
-    "opt": (["--opt", "lamb"], NotImplementedError, "lamb"),
-    "teacher_remote": (["--use_feat_distill", "--teacher_ckpt", "gs://bucket/teacher"],
-                       NotImplementedError, "remote"),
+    "opt": (["--opt", "lamb_x"], ValueError, "Invalid optimizer 'lamb_x'"),  # as dig_tpu
     "n_fsdp": (["--n_fsdp", "2"], NotImplementedError, "n_fsdp"),
     "n_tensor": (["--n_tensor", "2"], NotImplementedError, "n_tensor"),
     "resume_pth": (["--resume", "x.pth"], ValueError, "--finetune"),
-    "resume_remote": (["--resume", "gs://bucket/run/checkpoint-3"], NotImplementedError,
-                      "remote"),
 }
 
 
@@ -580,12 +577,90 @@ def test_cli_refuses_dist_eval_across_processes(data, tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "out")
 
 
-def test_cli_refuses_a_native_dig_tpu_directory(both_runs, data, tmp_path):
+def _memory_copy(local_dir, url):
+    """A local checkpoint directory copied onto fsspec's in-memory filesystem."""
+    import fsspec
+
+    fs, root = fsspec.core.url_to_fs(url)
+    for name in os.listdir(local_dir):
+        with open(os.path.join(local_dir, name), "rb") as f, fs.open(f"{root}/{name}", "wb") as g:
+            g.write(f.read())
+    return url
+
+
+def _params_close(got, want, rtol):
+    """Every leaf within `rtol` of its largest value, plus a floor of 1e-6
+    of the largest parameter (as `test_cli_final_parameters_match_jax`)."""
+    assert sorted(want) == sorted(got)
+    floor = 1e-6 * max(float(w.abs().max()) for w in want.values())
+    for name, w in want.items():
+        err, scale = float((got[name] - w).abs().max()), float(w.abs().max())
+        assert err <= rtol * scale + floor, f"{name}: {err:.3e} vs max {scale:.3e}"
+
+
+@pytest.mark.parametrize("what", ["opt", "teacher_remote", "resume_remote"])
+def test_cli_runs_the_options_dig_tpu_runs(what, both_runs, data, tmp_path):
+    """What the port once refused:
+    * opt: both CLIs with `--opt adamp` (the projection and its wd_ratio)
+      from the same `.pth`: the logs' losses within 1e-4 and every final
+      leaf within 1e-4 of its largest value, as AdamW's runs above;
+    * teacher_remote: distillation from a teacher on fsspec's in-memory
+      filesystem (a copy of `both_runs`' port checkpoint) repeats the run
+      from the local directory bit for bit (one epoch);
+    * resume_remote: `--resume memory://...` of `both_runs`' port
+      checkpoint-0 repeats the `--resume` of the local directory bit for
+      bit."""
+    if what == "opt":
+        n_dev = jax.device_count()
+        with pytest.MonkeyPatch.context() as mp:
+            _decoders_at_dropout_0(mp)
+            jfinal = _run_jax(MODEL + RECIPE + [
+                "--data_path", data["train"], "--eval_data_path", data["eval"],
+                "--finetune", data["pth"], "--batch_size", str(GLOBAL_BATCH // n_dev),
+                "--output_dir", str(tmp_path / "jax_out"), "--opt", "adamp"])
+        tfinal = tcli.main(_port_cfg(data, tmp_path / "port_out", "--opt", "adamp"),
+                           device="cpu")
+        assert tfinal.optimizer.rule == "adamp" and tfinal.optimizer.count == 8
+        for jl, tl in zip(_log(tmp_path / "jax_out"), _log(tmp_path / "port_out")):
+            np.testing.assert_allclose(tl["train_loss"], jl["train_loss"], rtol=1e-4)
+        _params_close(tfinal.model.state_dict(),
+                      params_from_jax(jax.tree_util.tree_map(np.asarray, jfinal.params)), 1e-4)
+        return
+    local = str(both_runs["root"] / "port_out" / ("checkpoint-1" if what == "teacher_remote"
+                                                  else "checkpoint-0"))
+    url = _memory_copy(local, f"memory://ft-cli-{what}-{os.getpid()}/ckpt")
+    flag = (["--use_feat_distill", "--teacher_ckpt"] if what == "teacher_remote"
+            else ["--resume"])
+    runs = [tcli.main(_port_cfg(data, tmp_path / name, *flag, path, "--epochs", "1"
+                                if what == "teacher_remote" else "2", "--eval_data_path", ""),
+                      device="cpu") for name, path in (("local", local), ("remote", url))]
+    a, b = (r.model.state_dict() for r in runs)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert _log(tmp_path / "local") == _log(tmp_path / "remote")
+    assert runs[0].step == (4 if what == "teacher_remote" else 8)
+
+
+def test_cli_reads_a_native_dig_tpu_directory(both_runs, data, tmp_path):
+    """The JAX CLI's own ``checkpoint-1`` (a native directory, read without
+    JAX) as `--finetune` (the encoder, equal to `dig_tpu`'s final encoder
+    bit for bit), as `--resume` of an `--eval` run (the whole recognizer:
+    the same accuracy as `dig_tpu`'s last eval of it) and as
+    `--teacher_ckpt` (one epoch of distillation, finite)."""
     native = str(both_runs["root"] / "jax_out" / "checkpoint-1")
     assert os.path.exists(os.path.join(native, "arrays.npz"))
-    for flag in ("--finetune", "--resume"):
-        with pytest.raises(NotImplementedError, match="(?s)native dig_tpu checkpoint.*ROADMAP"):
-            tcli.main(_port_cfg(data, tmp_path / "out", flag, native), device="cpu")
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, both_runs["jfinal"].params))
+    cfg = _port_cfg(data, tmp_path / "init", "--finetune", native)
+    model = tcli.build_model(cfg, "cpu")
+    assert tcli.load_finetune_init(cfg, model) == sum(k.startswith("encoder.") for k in want)
+    got = model.state_dict()
+    assert all(torch.equal(got[k], want[k]) for k in want if k.startswith("encoder."))
+    res = tcli.main(_port_cfg(data, tmp_path / "eval", "--eval", "--resume", native,
+                              "--finetune", ""), device="cpu")
+    assert res[0]["acc"] == both_runs["jlog"][-1]["val_acc"]
+    run = tcli.main(_port_cfg(data, tmp_path / "distill", "--use_feat_distill",
+                              "--teacher_ckpt", native, "--epochs", "1", "--eval_data_path", ""),
+                    device="cpu")
+    assert run.step == 4 and all(np.isfinite(l["train_loss"]) for l in _log(tmp_path / "distill"))
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(data, tmp_path):

@@ -148,16 +148,18 @@ def test_cli_auto_erf_for_pth(tmp_path, micro_pair):
 
 
 @pytest.mark.parametrize("field,value,exc,words", [
-    ("resume", "out/checkpoint-best", ValueError, "tools/export_pth.py"),
+    # --resume reads a native or a port directory (test_torch_port_remote_native.py);
+    # one that does not exist is refused
+    ("resume", "out/checkpoint-best", FileNotFoundError, "checkpoint-best"),
     ("model_kind", "ctc_beam", ValueError, "unknown model_kind"),
     ("decoder_name", "rnn_decoder", KeyError, "unknown decoder"),
     ("use_feat_distill", True, ValueError, "requires model_kind 'rec'"),
 ])
 def test_cli_refuses_unported_options(field, value, exc, words):
     """Every model kind, decoder and `--text_cond_vis` serves
-    (test_torch_port_kinds_aux_cli.py); what is refused is a native
-    checkpoint, a kind or decoder `dig_tpu` does not have, and a
-    distillation projector on a kind that has none."""
+    (test_torch_port_kinds_aux_cli.py); what is refused is a checkpoint
+    directory that does not exist, a kind or decoder `dig_tpu` does not
+    have, and a distillation projector on a kind that has none."""
     from dig_tpu_torch.cli.run_predict import main
     from dig_tpu_torch.config import PredictConfig
 

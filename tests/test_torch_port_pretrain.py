@@ -175,9 +175,23 @@ def test_pretrain_encoder_with_mask_matches_jax():
     assert not np.allclose(_np(tenc(torch.from_numpy(x))), got, atol=1e-3)
 
 
-def test_conv_patchnet_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_create_model("pretrain_simmim_moco_ori_vit_micro_patch4_32x128", patchnet_name="conv")
+def test_conv_patchnet_builds_the_jax_layout():
+    """`patchnet_name="conv"` builds `ConvPatchNet` (student and momentum
+    copy), whose state dict `convert_torch_moco` turns into the JAX model's
+    patch-extractor tree: the same leaves and shapes (the module against
+    `dig_tpu`'s: tests/test_torch_port_conv_patchnet.py)."""
+    name = "pretrain_simmim_moco_ori_vit_micro_patch4_32x128"
+    model = t_create_model(name, patchnet_name="conv", mlp_dim=32, dim=16, num_windows=4)
+    assert isinstance(model.patch_extractor, tmoco.ConvPatchNet)
+    assert isinstance(model.momentum_patch_extractor, tmoco.ConvPatchNet)
+    trees = convert_torch_moco({k: v.detach().numpy() for k, v in model.state_dict().items()})
+    jm = j_create_model(name, patchnet_name="conv", mlp_dim=32, dim=16, num_windows=4)
+    want = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, 32, 128, 3)), jnp.zeros((4, 256), bool),
+                   True)["params"]["patch_extractor"]
+    for tree in (trees["student"], trees["ema"]):
+        got = _flat(tree["patch_extractor"])
+        assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in
+                                                         _flat(want).items()}
 
 
 def test_registry_names_match_jax():

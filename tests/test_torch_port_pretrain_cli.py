@@ -86,6 +86,20 @@ def _log(out):
         return [json.loads(line) for line in f]
 
 
+def _run_jax(jcfg):
+    """`dig_tpu.cli.run_pretrain.main`, with stdout and the signal handlers
+    put back afterwards (the JAX CLI leaves its tee and handlers installed)."""
+    stdout, handlers = sys.stdout, {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        return jcli.main(jcfg)
+    finally:
+        tee, sys.stdout = sys.stdout, stdout
+        if tee is not stdout:
+            tee.file.close()
+        for s, h in handlers.items():
+            signal.signal(s, h)
+
+
 @pytest.fixture(scope="module")
 def both_runs(lmdb_path, tmp_path_factory):
     """Both CLIs, two epochs of four steps from the same weights."""
@@ -118,17 +132,9 @@ def both_runs(lmdb_path, tmp_path_factory):
     jstate = jstate.replace(params=as_jax(trees["student"]), ema_params=as_jax(trees["ema"]))
     j_save_checkpoint(str(root / "jax_init"), "init", jstate, extra={"epoch": -1})
 
-    stdout, handlers = sys.stdout, {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
-    try:  # the JAX CLI leaves its tee and its signal handlers installed
-        jcfg.resume = str(root / "jax_init" / "checkpoint-init")
-        jfinal = jcli.main(jcfg)
-    finally:
-        tee, sys.stdout = sys.stdout, stdout
-        if tee is not stdout:
-            tee.file.close()
-        for s, h in handlers.items():
-            signal.signal(s, h)
-
+    jcfg.resume = str(root / "jax_init" / "checkpoint-init")
+    stdout = sys.stdout
+    jfinal = _run_jax(jcfg)
     tfinal = tcli.main(_port_cfg(lmdb_path, root / "port_out", "--resume", port_init),
                        device="cpu")
     assert sys.stdout is stdout  # the port puts the stream back itself
@@ -307,28 +313,186 @@ def test_cli_sigterm_checkpoints_at_the_step_boundary_and_exits_0(lmdb_path, tmp
 
 
 REFUSALS = {
-    "n_fsdp": (["--n_fsdp", "2"], "n_fsdp"),
-    "n_tensor": (["--n_tensor", "2"], "n_tensor"),
-    "remat": (["--remat"], "remat"),
-    "opt": (["--opt", "lamb"], "lamb"),
-    "patchnet_name": (["--patchnet_name", "conv"], "ConvPatchNet"),
-    "resume_remote": (["--resume", "gs://bucket/run/checkpoint-3"], "remote"),
+    "n_fsdp": (["--n_fsdp", "2"], NotImplementedError, "(?s)n_fsdp.*ROADMAP.md"),
+    "n_tensor": (["--n_tensor", "2"], NotImplementedError, "(?s)n_tensor.*ROADMAP.md"),
+    "opt": (["--opt", "lamb_x"], ValueError, "Invalid optimizer 'lamb_x'"),  # as dig_tpu
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSALS))
 def test_cli_refuses_what_is_not_ported(what, lmdb_path, tmp_path):
-    argv, word = REFUSALS[what]
-    with pytest.raises(NotImplementedError, match=f"(?s){word}.*ROADMAP.md"):
+    """Parameter sharding is not ported; an optimizer name `dig_tpu` does
+    not know is refused as `dig_tpu` refuses it.  Every other option runs
+    (`test_cli_runs_the_options_dig_tpu_runs`)."""
+    argv, exc, word = REFUSALS[what]
+    with pytest.raises(exc, match=word):
         tcli.main(_port_cfg(lmdb_path, tmp_path / "out", *argv), device="cpu")
     assert not os.path.exists(tmp_path / "out")  # refused before anything is written
 
 
-def test_cli_refuses_a_native_dig_tpu_checkpoint(both_runs, lmdb_path, tmp_path):
-    native = str(both_runs["root"] / "jax_out" / "checkpoint-1")
+OPTIONS = ["--opt", "lamb", "--patchnet_name", "conv", "--remat"]
+
+
+@pytest.fixture(scope="module")
+def option_runs(lmdb_path, tmp_path_factory):
+    """Both CLIs with `--opt lamb --patchnet_name conv --remat`, two epochs
+    of four steps from the same weights (the conv extractor's carried by
+    `convert_torch_moco`), each resuming its own package's init checkpoint
+    with a LAMB state."""
+    root = tmp_path_factory.mktemp("options")
+    model = build_pretrain_model(NAME, seed=4, device="cpu", mlp_dim=32, dim=16, num_windows=4,
+                                 patchnet_name="conv")
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = create_optimizer("lamb", model.named_parameters(), [1e-3], [0.1])
+    port_init = ckpt.save_checkpoint(str(root / "port_init"), "init",
+                                     TrainState(model=model, optimizer=opt), extra={"epoch": -1})
+    n_dev = jax.device_count()
+    jargv = COMMON + OPTIONS + ["--image_alone_path", lmdb_path, "--batch_size",
+                                str(GLOBAL_BATCH // n_dev), "--output_dir", str(root / "jax_out")]
+    jcfg = j_parse_config(JPretrainConfig, jargv)
+    from dig_tpu.optim import create_optimizer as j_create_optimizer
+
+    tx = j_create_optimizer("lamb", np.full(8, 1e-3, np.float32), np.full(8, 0.1, np.float32))
+    trees = convert_torch_moco({k: v.numpy() for k, v in start.items()})
+    jstate = j_init_pretrain_state(jcli.build_model(jcfg), tx, jax.random.PRNGKey(0))
+    as_jax = lambda tree: jax.tree_util.tree_map(jax.numpy.asarray, tree)  # noqa: E731
+    jstate = jstate.replace(params=as_jax(trees["student"]), ema_params=as_jax(trees["ema"]))
+    j_save_checkpoint(str(root / "jax_init"), "init", jstate, extra={"epoch": -1})
+    jcfg.resume = str(root / "jax_init" / "checkpoint-init")
+    jfinal = _run_jax(jcfg)
+    tfinal = tcli.main(_port_cfg(lmdb_path, root / "port_out", *OPTIONS, "--resume", port_init),
+                       device="cpu")
+    return dict(root=root, start=start, jfinal=jfinal, tfinal=tfinal,
+                jlog=_log(root / "jax_out"), tlog=_log(root / "port_out"))
+
+
+def _memory_copy(local_dir, url):
+    """A local checkpoint directory copied onto fsspec's in-memory filesystem."""
+    import fsspec
+
+    fs, root = fsspec.core.url_to_fs(url)
+    for name in os.listdir(local_dir):
+        with open(os.path.join(local_dir, name), "rb") as f, fs.open(f"{root}/{name}", "wb") as g:
+            g.write(f.read())
+    return url
+
+
+@pytest.mark.parametrize("what", ["opt", "patchnet_name", "remat", "resume_remote"])
+def test_cli_runs_the_options_dig_tpu_runs(what, both_runs, option_runs, lmdb_path, tmp_path):
+    """What the port once refused, held against `dig_tpu`:
+    * opt, patchnet_name: both CLIs with `--opt lamb --patchnet_name conv
+      --remat` from the same weights: the epoch logs' losses within 1e-4,
+      the conv extractor in both, and every final leaf within 1e-3 of its
+      largest value (plus the floor of `test_cli_final_parameters_match_jax`
+      for the leaves whose gradient is zero but for rounding: here also the
+      conv and head biases that a `BatchStatsNorm` follows).  AdamW's bound
+      there is 1e-4; LAMB's trust ratio scales each step to lr x ||p||, for
+      the wide conv kernels ~10x AdamW's lr per element, and the two
+      packages' gradients (within 1e-4 of each leaf's max,
+      tests/test_torch_port_conv_patchnet.py) move with it;
+    * remat: `--remat --device_aug --drop_path 0.1` repeats the same run
+      without `--remat` bit for bit (the recompute draws the forward's
+      drop-path masks);
+    * resume_remote: `--resume memory://...` (the init checkpoint copied
+      onto fsspec's in-memory filesystem) repeats the `--resume` of the
+      local directory bit for bit.
+    The last two are held to the port's own runs, which `both_runs` holds
+    to `dig_tpu`'s; `--device_aug` makes a run a function of (seed, step),
+    which host augmentation on a thread is not."""
+    if what in ("opt", "patchnet_name"):
+        jfinal, tfinal = option_runs["jfinal"], option_runs["tfinal"]
+        assert int(jfinal.step) == tfinal.step == tfinal.optimizer.count == 8
+        assert tfinal.optimizer.rule == "lamb" and "p2g_dense0" in jfinal.params["patch_extractor"]
+        if what == "patchnet_name":
+            for jl, tl in zip(option_runs["jlog"], option_runs["tlog"]):
+                for k in ("train_loss", "train_loss_contrast", "train_loss_pixel"):
+                    np.testing.assert_allclose(tl[k], jl[k], rtol=1e-4, err_msg=k)
+            return
+        want = moco_params_from_jax(jax.tree_util.tree_map(np.asarray, jfinal.params),
+                                    jax.tree_util.tree_map(np.asarray, jfinal.ema_params))
+        got = tfinal.model.state_dict()
+        assert sorted(want) == sorted(got)
+        floor = 1e-6 * max(float(w.abs().max()) for w in want.values())
+        for name, w in want.items():
+            err, scale = float((got[name] - w).abs().max()), float(w.abs().max())
+            assert err <= 1e-3 * scale + floor, f"{name}: {err:.3e} vs max {scale:.3e}"
+        return
+    init = str(both_runs["root"] / "port_init" / "checkpoint-init")
+    extra = ("--device_aug", "--drop_path", "0.1")
+    ref = tcli.main(_port_cfg(lmdb_path, tmp_path / "ref", *extra, "--resume", init),
+                    device="cpu")
+    if what == "remat":
+        run = tcli.main(_port_cfg(lmdb_path, tmp_path / "out", *extra, "--remat", "--resume",
+                                  init), device="cpu")
+    else:
+        url = _memory_copy(init, f"memory://port-cli-{os.getpid()}/checkpoint-init")
+        run = tcli.main(_port_cfg(lmdb_path, tmp_path / "out", *extra, "--resume", url),
+                        device="cpu")
+    want, got = ref.model.state_dict(), run.model.state_dict()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert _log(tmp_path / "out") == _log(tmp_path / "ref")
+
+
+def test_cli_resumes_a_native_dig_tpu_checkpoint(both_runs, lmdb_path, tmp_path):
+    """`--resume` of the JAX CLI's own ``checkpoint-0``, a native directory
+    read without JAX: the port's CLI runs epoch 1 from it; and from that
+    state (params, momentum branch, AdamW's moments and count) the port's
+    step takes the update `dig_tpu`'s step takes from its own restore of
+    the directory, on one batch: the momentum branch within 1e-6 and the
+    parameters' moves within 1e-3 of lr (the bounds of
+    tests/test_torch_port_pretrain.py; wrong moments or count would move
+    them by a whole step).  The CLI runs are not compared: host
+    augmentation draws an epoch's views from where the epochs before left
+    its generator, so a resumed run sees other views than a straight one."""
+    native = str(both_runs["root"] / "jax_out" / "checkpoint-0")
     assert os.path.exists(os.path.join(native, "arrays.npz"))
-    with pytest.raises(NotImplementedError, match="(?s)native dig_tpu checkpoint.*ROADMAP.md"):
-        tcli.main(_port_cfg(lmdb_path, tmp_path / "out", "--resume", native), device="cpu")
+    run = tcli.main(_port_cfg(lmdb_path, tmp_path / "out", "--resume", native), device="cpu")
+    assert run.step == run.optimizer.count == 8
+    log = _log(tmp_path / "out")
+    assert [l["epoch"] for l in log] == [1] and np.isfinite(log[0]["train_loss"])
+
+    from dig_tpu.optim import create_optimizer as j_create_optimizer
+    from dig_tpu.train.pretrain import make_pretrain_step as j_make_pretrain_step
+    from dig_tpu.utils.checkpoint import restore_checkpoint as j_restore_checkpoint
+
+    lr, wd, mom, cw = (np.full(8, v, np.float32) for v in (1e-3, 0.1, 0.99, 0.1))
+    jcfg = j_parse_config(JPretrainConfig, COMMON)
+    jmodel = jcli.build_model(jcfg)
+    payload = j_restore_checkpoint(native)
+    jstate = j_init_pretrain_state(jmodel, j_create_optimizer("adamw", lr, wd, eps=1e-3),
+                                   jax.random.PRNGKey(0))
+    jstate = jstate.replace(params=payload["params"], opt_state=payload["opt_state"],
+                            ema_params=payload["ema_params"],
+                            step=jax.numpy.asarray(payload["step"], jax.numpy.int32))
+    rng = np.random.default_rng(9)
+    batch = {"images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "aug_images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
+             "mask": np.zeros((4, 2, 256), bool)}
+    for r in range(4):
+        for v in range(2):
+            batch["mask"][r, v, rng.permutation(256)[:179]] = True
+    jnew, _ = j_make_pretrain_step(jmodel, mom, cw)(
+        jstate, {k: jax.numpy.asarray(v) for k, v in batch.items()}, jax.random.PRNGKey(1))
+
+    model = build_pretrain_model(NAME, seed=5, device="cpu", mlp_dim=32, dim=16, num_windows=4)
+    state = init_pretrain_state(model, create_optimizer("adamw", model.named_parameters(), lr,
+                                                        wd, eps=1e-3))
+    state = ckpt.load_into_state(state, ckpt.restore_checkpoint(native))
+    assert state.step == state.optimizer.count == 4
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    make_pretrain_step(model, mom, cw)(state, batch)
+    want = moco_params_from_jax(jax.tree_util.tree_map(np.asarray, jnew.params),
+                                jax.tree_util.tree_map(np.asarray, jnew.ema_params))
+    got = model.state_dict()
+    for name, w in want.items():
+        if name.startswith(("momentum_", "pix_projector_m")):
+            np.testing.assert_allclose(got[name].numpy(), w.numpy(), rtol=1e-6, atol=1e-7,
+                                       err_msg=name)
+        else:
+            np.testing.assert_allclose((got[name] - before[name]).numpy(),
+                                       (w - before[name]).numpy(), rtol=0, atol=1e-3 * 1e-3,
+                                       err_msg=name)
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu(lmdb_path, tmp_path):
