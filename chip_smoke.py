@@ -145,7 +145,24 @@
    path stays NCCL), each running the full-width fp32 pre-training and
    fine-tuning steps on its half of a global batch of 8 through the
    kernels, against one process on the whole batch.
-14. Prints one JSON line describing every kernel, then as the last line
+14. Parameter sharding (`--n_fsdp`, `--n_tensor`), over gloo on the one
+   card (`--sharded-child` mode under torchrun; not a scaling figure).
+   `[attention at the tensor split]`: #1-#4 on one tensor rank's 3 heads
+   (the packed [256, 256, 576] layout) against their plain versions,
+   timed beside SDPA.  `[sharded pretrain one card]` (meshes 1x2x1, 1x1x2,
+   1x2x2) and `[sharded finetune one card]` (1x2x1, 1x1x2): the full-width
+   steps, bf16, 3 steps at the global batch (128; 256), the parameters,
+   momentum branch and AdamW state sharded by the rules: each rank's
+   launches a step, the grad norm equal on every rank and the loss on
+   tensor peers, tensor peers' replicated parameters bit-equal, each
+   rank's parameter + AdamW bytes equal to the rules' share, peak memory
+   and ms a step; one fp32 step at a global batch of 8 (the pre-training
+   encoder at depth 4) against one process within item 13's bounds.  In
+   item 10's directory, `[sharded cli]`: `run_pretrain.main --n_fsdp 2`
+   for 2 epochs, its last checkpoint resumed by one process bit for bit;
+   `run_finetune.main --n_tensor 2` from item 9's checkpoint, 1 epoch +
+   eval, its eval line equal to one process's `--eval` of its checkpoint.
+15. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -867,6 +884,7 @@ def phase_finetune_data(torch, np, d, paths, pre_ckpt, db, pre_ref):
     paths["kinds_cli"] = phase_kinds_cli(torch, np, d, ft_out)
     paths["ddp_pretrain_cli"], paths["ddp_finetune_cli"] = phase_ddp_clis(
         torch, d, db, pre_ckpt, pre_ref, ft_ref)
+    phase_sharded_cli(torch, d, db, pre_ckpt)
 
 
 # ---------------------------------------------------------------------------
@@ -1111,25 +1129,13 @@ def phase_two_ranks_one_card(torch, np):
     max (plus STEP_FLOOR of the largest) of one process's, the parameters
     after AdamW equal on both ranks and within 1e-3 of each tensor's
     largest step (plus its last bit) of one process's."""
-    import socket
     import tempfile
 
     tag = "two ranks one card"
     one = two_rank_steps(torch, np, slice(0, TWO_RANK_BATCH))
-    with tempfile.TemporaryDirectory() as root, socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-        sock.close()
+    with tempfile.TemporaryDirectory() as root:
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
-             "2", "--master_addr", "127.0.0.1", "--master_port", str(port),
-             os.path.abspath(__file__), "--gloo-child", root],
-            capture_output=True, text=True, timeout=DDP_CHILD_TIMEOUT, cwd=ROOT)
-        dt = time.perf_counter() - t0
-        check(proc.returncode == 0, f"[{tag}] torchrun exited {proc.returncode}:\n"
-              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        dt, _ = torchrun_children(tag, 2, ["--gloo-child", root])
         ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
                  for r in range(2)]
     worst = {}
@@ -1163,6 +1169,419 @@ def phase_two_ranks_one_card(torch, np):
               f"{k}: loss within 1e-5, {n} reduced gradients equal on both ranks, worst "
               f"{eg:.2e} of a leaf's max, parameters after AdamW within {ep:.2e}"
               for k, (eg, ep, n) in worst.items()) + f"; torchrun call {dt:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# parameter sharding: torchrun children over gloo, all on the one card
+# ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 3  # bf16 steps a mesh and a trainer
+SHARDED_FP32_BATCH = 8  # the fp32 checks' global batch
+SHARDED_FP32_DEPTH = 4  # the fp32 pre-training check's encoder depth (full width)
+# (mesh, the trainers it runs); the meshes of one world size share a torchrun call
+SHARDED_MESHES = (("1x2x1", ("pretrain", "finetune")), ("1x1x2", ("pretrain", "finetune")),
+                  ("1x2x2", ("pretrain",)))
+NOT_SCALING = "gloo via host; not a scaling figure"
+
+
+def mesh_of(spec):
+    return tuple(int(a) for a in spec.split("x"))
+
+
+def torchrun_children(tag, nproc, args, timeout=DDP_CHILD_TIMEOUT):
+    """This script under torchrun with `nproc` ranks and `args`; fails the
+    phase on a non-zero exit.  Returns (seconds, stdout)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node",
+         str(nproc), "--master_addr", "127.0.0.1", "--master_port", str(port),
+         os.path.abspath(__file__), *args],
+        capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    dt = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[{tag}] torchrun exited {proc.returncode}:\n"
+          f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return dt, proc.stdout
+
+
+def sharded_child(root):
+    """One rank of a sharded phase, started by torchrun: card 0, a gloo
+    group this process makes (NCCL takes one rank a device), the job of
+    ``root/spec.json``; its results to ``root/rank<r>.pt``."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method="env://", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        out = sharded_cli_job(torch, spec) if spec["job"] == "cli" else \
+            sharded_step_job(torch, np, spec)
+    finally:
+        from dig_tpu_torch.parallel.mesh import clear_mesh
+
+        clear_mesh()
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    return 0
+
+
+def rank_rows(torch, batch_np, mesh):
+    """This rank's share of a global batch (as its loader gives it) on the
+    card, then its tensor group's rows (`shard_batch`)."""
+    from dig_tpu_torch.parallel.mesh import shard_batch
+
+    def rows(v):
+        n = v.shape[0] // mesh.world
+        return torch.from_numpy(v[mesh.rank * n:(mesh.rank + 1) * n]).cuda()
+
+    return shard_batch({k: rows(v) for k, v in batch_np.items()})
+
+
+def held_bytes(model, opt):
+    """(bytes of the rank's parameters, of AdamW's moments): every tensor
+    but AdamW's step counts."""
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    moments = sum(st[k].numel() * st[k].element_size() for st in opt.inner.state.values()
+                  for k in ("exp_avg", "exp_avg_sq"))
+    return params, moments
+
+
+def replicated_digests(model):
+    """sha1 of each replicated parameter's bytes: tensor peers must agree."""
+    import hashlib
+
+    return {n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for n, p in model.named_parameters() if getattr(p, "shard_spec", None) is None}
+
+
+def whole_grads(torch, model):
+    """Every gradient whole (a sharded parameter's gathered: a collective)."""
+    out = {}
+    for n, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        spec = getattr(p, "shard_spec", None)
+        out[n] = (p.grad if spec is None else spec.gather_full(p.grad)).detach().cpu()
+    return out
+
+
+def sharded_setup(torch, np, kind, dtype, batch, mesh, **kw):
+    """(model, state, run(batch, i) -> metrics, global batch, launches a step)
+    of a trainer at full width on `mesh` (None: one process)."""
+    from dig_tpu_torch.utils.rng import step_generator
+
+    dp = 0 if mesh is None else mesh.dp_index
+    if kind == "pretrain":
+        model, state, step, batch_np = pretrain_setup(torch, np, dtype, batch, "cuda", mesh=mesh,
+                                                      **kw)
+        depth = model.encoder.depth
+        want = {k: v * depth // 12 for k, v in PER_STEP.items()}
+        return model, state, lambda b, i: step(state, b)[1], batch_np, want
+    rates = kw.pop("rates", True)
+    model, state, step, batch_np, _ = finetune_setup(torch, np, dtype, batch, "cuda", rates=rates,
+                                                     mesh=mesh, **kw)
+    want = FT_PER_STEP if rates else FT_PER_STEP_RESUME
+
+    def run(b, i):
+        return step(state, b, step_generator(0, 0, i, "cuda", dp))[1]
+
+    return model, state, run, batch_np, want
+
+
+def sharded_bf16(torch, np, kind, mesh):
+    """SHARDED_STEPS bf16 steps at full width on this rank's rows."""
+    batch = PRE_BATCH if kind == "pretrain" else FT_BATCH
+    model, state, run, batch_np, want = sharded_setup(torch, np, kind, torch.bfloat16, batch,
+                                                      mesh)
+    local = rank_rows(torch, batch_np, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    metrics, times = [], []
+    for i in range(SHARDED_STEPS):
+        t0 = time.perf_counter()
+        m = run(local, i)
+        metrics.append({k: float(v) for k, v in m.items()})  # waits for the step
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    attn = model.encoder.blocks[0].attn
+    return {"counts": counts, "want": want, "metrics": metrics, "ms": times,
+            "peak": torch.cuda.max_memory_allocated(), "held": held_bytes(model, state.optimizer),
+            "predicted": model.predicted_bytes, "replicated": replicated_digests(model),
+            "heads": (attn.num_heads // attn.tp.size if attn.tp is not None else attn.num_heads),
+            "rows": int(local["images"].shape[0])}
+
+
+def sharded_fp32(torch, np, kind, mesh):
+    """One fp32 step at SHARDED_FP32_BATCH (the pre-training encoder at
+    SHARDED_FP32_DEPTH blocks; fine-tuning with every rate 0, so that #3 /
+    #4 run on the rank's heads), AdamW's eps at 1e-3 as [two ranks one
+    card] takes it; on `mesh`, this rank's rows (None: one process, all)."""
+    from dig_tpu_torch.parallel.sharding import full_state_dict
+
+    kw = dict(seed=3, encoder_depth=SHARDED_FP32_DEPTH) if kind == "pretrain" else \
+        dict(seed=3, rates=False)
+    model, state, run, batch_np, want = sharded_setup(torch, np, kind, torch.float32,
+                                                      SHARDED_FP32_BATCH, mesh, **kw)
+    for group in state.optimizer.inner.param_groups:
+        group["eps"] = 1e-3
+    before = ({k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+              if mesh is None else None)
+    batch = ({k: torch.from_numpy(v).cuda() for k, v in batch_np.items()} if mesh is None
+             else rank_rows(torch, batch_np, mesh))
+    reset_counts()
+    loss = float(run(batch, 0)["loss"])
+    counts = read_counts()
+    grads = whole_grads(torch, model)
+    params = {k: v.cpu() for k, v in full_state_dict(model).items()}
+    keep = mesh is None or mesh.rank == 0
+    return {"loss": loss, "counts": counts, "want": want, "grads": grads if keep else None,
+            "params": params if keep else None, "before": before}
+
+
+def sharded_step_job(torch, np, spec):
+    """Each mesh of ``spec["meshes"]`` in turn, its groups made anew."""
+    from dig_tpu_torch.parallel.mesh import clear_mesh, create_mesh
+
+    out = {}
+    for name, kinds in spec["meshes"]:
+        d, f, t = mesh_of(name)
+        mesh = create_mesh(f, t, d)
+        res = out[name] = {"coords": (mesh.data, mesh.fsdp, mesh.tensor)}
+        for kind in kinds:
+            res[kind] = sharded_bf16(torch, np, kind, mesh)
+            torch.cuda.empty_cache()
+            res[kind + "_fp32"] = sharded_fp32(torch, np, kind, mesh)
+            torch.cuda.empty_cache()
+        clear_mesh()
+    return out
+
+
+def check_fp32_against_one(tag, ranks, one, dp_loss):
+    """The [two ranks one card] bounds: the mean loss over the data-parallel
+    ranks within 1e-5 of one process's; rank 0's whole gradients within
+    1e-5 of each leaf's max (plus STEP_FLOOR of the largest), the whole
+    parameters after AdamW within 1e-3 of each tensor's largest step (plus
+    its last bit).  Returns (worst gradient, worst parameter error)."""
+    import numpy as np
+
+    check(abs(dp_loss - one["loss"]) <= 1e-5 * abs(one["loss"]),
+          f"[{tag}] mean loss {dp_loss} vs one process's {one['loss']}")
+    got, want = ranks[0]["grads"], one["grads"]
+    check(sorted(got) == sorted(want), f"[{tag}] gradient leaves differ")
+    floor = STEP_FLOOR * max(float(g.abs().max()) for g in want.values())
+    err_g = 0.0
+    for name, g in want.items():
+        err = float((got[name] - g).abs().max())
+        check(err <= 1e-5 * float(g.abs().max()) + floor, f"[{tag}] gradient {name}: {err}")
+        err_g = max(err_g, err / max(float(g.abs().max()), 1e-30))
+    err_p = 0.0
+    for name, v in one["params"].items():
+        err = float((ranks[0]["params"][name] - v).abs().max())
+        check(err <= 1e-3 * float((v - one["before"][name]).abs().max())
+              + float(np.spacing(np.float32(v.abs().max()))),
+              f"[{tag}] parameter {name}: max abs err {err}")
+        err_p = max(err_p, err)
+    return err_g, err_p
+
+
+def phase_sharded_steps(torch, np):
+    """`[sharded pretrain one card]` and `[sharded finetune one card]`:
+    each mesh of SHARDED_MESHES as torchrun children over gloo on card 0
+    (NCCL refuses two ranks a device), the full-width trainers with their
+    parameters, momentum branch and AdamW state sharded by the rules
+    (`parallel/sharding.py`).  bf16, SHARDED_STEPS steps at the global batch
+    (128 pre-training, 256 fine-tuning at FinetuneConfig defaults): each
+    rank's launches a step, loss and grad norm finite, the grad norm equal
+    on every rank and the loss on tensor peers, tensor peers' replicated
+    parameters bit-equal, each rank's parameter + AdamW bytes equal to the
+    share the rules predict, peak memory, ms a step.  fp32 at a global batch
+    of SHARDED_FP32_BATCH against one process on the whole batch
+    (`check_fp32_against_one`)."""
+    import tempfile
+
+    one = {kind: sharded_fp32(torch, np, kind, None) for kind in ("pretrain", "finetune")}
+    for kind, res in one.items():
+        check(res["counts"] == res["want"], f"[sharded {kind}] one process: {res['counts']}")
+    torch.cuda.empty_cache()
+    by_world = {}
+    for spec, kinds in SHARDED_MESHES:
+        by_world.setdefault(math.prod(mesh_of(spec)), []).append((spec, kinds))
+    results = {}
+    for world, meshes in by_world.items():
+        with tempfile.TemporaryDirectory() as root:
+            with open(os.path.join(root, "spec.json"), "w") as fh:
+                json.dump({"job": "steps", "meshes": meshes}, fh)
+            dt, _ = torchrun_children(f"sharded {world} ranks", world, ["--sharded-child", root])
+            ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                     for r in range(world)]
+        for spec, kinds in meshes:
+            results[spec] = (kinds, [r[spec] for r in ranks], dt)
+    for spec, (kinds, ranks, dt) in results.items():
+        world = len(ranks)
+        for kind in kinds:
+            tag = f"sharded {kind} one card"
+            res = [r[kind] for r in ranks]
+            for r, x in enumerate(res):
+                for name, n in x["want"].items():
+                    check(x["counts"][name] == n * SHARDED_STEPS,
+                          f"[{tag}] {spec} rank {r} {name}: {x['counts'][name]} launches in "
+                          f"{SHARDED_STEPS} steps, want {n} a step")
+                for m in x["metrics"]:
+                    check(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+                          f"[{tag}] {spec} rank {r}: {m}")
+                check(x["held"] == tuple(x["predicted"]),
+                      f"[{tag}] {spec} rank {r}: holds {x['held']} bytes, the rules predict "
+                      f"{x['predicted']}")
+            for i in range(SHARDED_STEPS):
+                norms = {x["metrics"][i]["grad_norm"] for x in res}
+                check(len(norms) == 1, f"[{tag}] {spec} step {i}: grad norms {norms}")
+            peers = {}
+            for r, x in zip(ranks, res):
+                peers.setdefault(tuple(r["coords"][:2]), []).append(x)
+            for group in peers.values():
+                a = group[0]
+                for b in group[1:]:
+                    check([m["loss"] for m in a["metrics"]] == [m["loss"] for m in b["metrics"]],
+                          f"[{tag}] {spec}: tensor peers' losses differ")
+                    differ = [n for n in a["replicated"] if a["replicated"][n] != b["replicated"][n]]
+                    check(not differ, f"[{tag}] {spec}: tensor peers' replicated parameters "
+                          f"differ: {differ[:4]}")
+            dp_loss = [statistics.mean(g[0]["metrics"][i]["loss"] for g in peers.values())
+                       for i in range(SHARDED_STEPS)]
+            fp = [r[kind + "_fp32"] for r in ranks]
+            for r, x in enumerate(fp):
+                check(x["counts"] == x["want"], f"[{tag}] {spec} rank {r} fp32: {x['counts']}")
+            fp_peers = {}
+            for r, x in zip(ranks, fp):
+                fp_peers.setdefault(tuple(r["coords"][:2]), x["loss"])
+            err_g, err_p = check_fp32_against_one(f"{tag} {spec} fp32", fp, one[kind],
+                                                  statistics.mean(fp_peers.values()))
+            x = res[0]
+            print(f"[{tag}] mesh {spec} ({world} ranks, gloo on cuda:0), {x['rows']} rows a "
+                  f"tensor group, attention on {x['heads']} heads a rank: launches a step "
+                  f"{launches_text({k: v // SHARDED_STEPS for k, v in x['counts'].items()})} on "
+                  f"every rank; losses {[round(v, 4) for v in dp_loss]} (data-parallel mean), "
+                  f"grad norms {[round(m['grad_norm'], 4) for m in x['metrics']]} equal on every "
+                  f"rank; {len(x['replicated'])} replicated tensors bit-equal on tensor peers; "
+                  f"parameter + AdamW bytes a rank "
+                  f"{[sum(y['held']) for y in res]} = the rules' share "
+                  f"{[sum(y['predicted']) for y in res]}; peak memory a rank "
+                  f"{[round(y['peak'] / 2**30, 2) for y in res]} GiB; ms a step "
+                  f"{[[round(v, 1) for v in y['ms']] for y in res]} ({NOT_SCALING}); fp32 "
+                  f"global batch {SHARDED_FP32_BATCH}"
+                  f"{f', depth {SHARDED_FP32_DEPTH}' if kind == 'pretrain' else ', rates 0'} "
+                  f"against one process: loss within 1e-5, gradients worst {err_g:.2e} of a "
+                  f"leaf's max, parameters after AdamW within {err_p:.2e}; the torchrun call of "
+                  f"{dt:.1f} s")
+
+
+def sharded_cli_job(torch, spec):
+    """[sharded cli]'s ranks: `run_pretrain.main` with --n_fsdp 2, then
+    `run_finetune.main` with --n_tensor 2, each under this group."""
+    _, counts, dt_pre = run_pretrain_cli(torch, "sharded cli pretrain", spec["pretrain"],
+                                         PRE_CLI_STEPS)
+    state, steps, evals, _, dt_ft = run_finetune_cli(torch, "sharded cli finetune",
+                                                     spec["finetune"])
+    check_each("sharded cli finetune", "step", steps, FT_PER_STEP)
+    check_each("sharded cli finetune", "eval batch", evals, FT_EVAL_BATCH)
+    return {"pretrain_s": dt_pre, "finetune_s": dt_ft, "steps": len(steps), "evals": len(evals),
+            "finetune_step": state.step}
+
+
+def eval_line(screen, path):
+    return [x for x in screen.splitlines() if x.startswith(f"* {path}:")][-1]
+
+
+def phase_sharded_cli(torch, d, db, pre_ckpt):
+    """`[sharded cli]`: on two gloo ranks on the card, `run_pretrain.main`
+    with --n_fsdp 2 at PretrainConfig defaults (64 rows a rank: the global
+    batch 128) for PRE_CLI_EPOCHS epochs on the 1,024-PNG LMDB, then
+    `run_finetune.main` with --n_tensor 2 (128 rows a rank) from
+    [pretrain cli]'s checkpoint for one epoch and its eval.  A one-process
+    run then auto-resumes the sharded pre-training's last checkpoint, and
+    its tensors must equal the file's bit for bit; a one-process `--eval`
+    of the sharded fine-tuning's checkpoint must give the run's eval line
+    (accuracy, loss and F-measure to the printed 4 decimals): the eval
+    pass gathers the sharded parameters and runs every layer whole, in the
+    same batches, so nothing of the mesh reaches its sums."""
+    import tempfile
+
+    from dig_tpu_torch.cli import run_finetune, run_pretrain
+    from dig_tpu_torch.config import FinetuneConfig, PretrainConfig, parse_config
+    from dig_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    tag = "sharded cli"
+    out_pre, out_ft = os.path.join(d, "sharded_pre"), os.path.join(d, "sharded_ft")
+    pre_argv = ["--image_alone_path", db, "--output_dir", out_pre, "--epochs",
+                str(PRE_CLI_EPOCHS), "--batch_size", str(PRE_BATCH // 2), "--n_fsdp", "2"]
+    ft_common = ["--data_path", os.path.join(d, "labelled"), "--eval_data_path",
+                 os.path.join(d, "labelled_eval"), "--batch_size", str(FT_BATCH // 2)]
+    ft_argv = ft_common + ["--finetune", pre_ckpt, "--output_dir", out_ft, "--epochs", "1",
+                           "--n_tensor", "2"]
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "spec.json"), "w") as fh:
+            json.dump({"job": "cli", "pretrain": pre_argv, "finetune": ft_argv}, fh)
+        dt, _ = torchrun_children(tag, 2, ["--sharded-child", root])
+        ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    log, screen = check_cli_outputs(out_pre, tag)
+    check("mesh: {'data': 1, 'fsdp': 2, 'tensor': 1}" in screen, f"[{tag}] no mesh line")
+    # one process resumes the last checkpoint: nothing left to train
+    last = os.path.join(out_pre, f"checkpoint-{PRE_CLI_EPOCHS - 1}")
+    state = run_pretrain.main(parse_config(PretrainConfig, [
+        "--image_alone_path", db, "--output_dir", out_pre, "--epochs", str(PRE_CLI_EPOCHS)]))
+    saved = restore_checkpoint(last)
+    live = state.model.state_dict()
+    differ = [k for k, v in saved["model"].items() if not torch.equal(live[k].cpu(), v)]
+    check(not differ and len(live) == len(saved["model"]),
+          f"[{tag}] {len(differ)} tensors differ from {os.path.basename(last)}: {differ[:4]}")
+    moments = state.optimizer.state_dict()["inner"]["state"]
+    file_moments = saved["optimizer"]["inner"]["state"]
+    check(all(torch.equal(moments[i][k].cpu(), file_moments[i][k]) for i in file_moments
+              for k in ("exp_avg", "exp_avg_sq")), f"[{tag}] AdamW moments differ from the file")
+    check(state.step == PRE_CLI_STEPS, f"[{tag}] the resumed run trained ({state.step} steps)")
+    del state
+    torch.cuda.empty_cache()
+    with open(os.path.join(out_ft, "screen.txt")) as fh:
+        ft_screen = fh.read()
+    check("mesh: {'data': 1, 'fsdp': 1, 'tensor': 2}" in ft_screen, f"[{tag}] no mesh line")
+    with open(os.path.join(out_ft, "log.txt")) as fh:
+        ft_log = [json.loads(line) for line in fh]
+    check(len(ft_log) == 1 and math.isfinite(ft_log[0]["train_loss"]), f"[{tag}] {ft_log}")
+    eval_dir = os.path.join(d, "sharded_ft_eval")
+    results = run_finetune.main(parse_config(FinetuneConfig, ft_common + [
+        "--eval", "--resume", os.path.join(out_ft, "checkpoint-0"), "--output_dir", eval_dir]))
+    with open(os.path.join(eval_dir, "screen.txt")) as fh:
+        one_line = eval_line(fh.read(), os.path.join(d, "labelled_eval"))
+    run_line = eval_line(ft_screen, os.path.join(d, "labelled_eval"))
+    check(results[0]["acc"] == ft_log[0]["val_acc"] and one_line == run_line,
+          f"[{tag}] eval: the run's {run_line!r} vs one process's {one_line!r}")
+    r = ranks[0]
+    print(f"[{tag}] 2 gloo ranks on cuda:0 ({NOT_SCALING}): run_pretrain.main --n_fsdp 2, "
+          f"{PRE_CLI_EPOCHS} epochs of {PRE_CLI_STEPS // PRE_CLI_EPOCHS} steps at 2 x "
+          f"{PRE_BATCH // 2} rows in {r['pretrain_s']:.1f} s, launches {launches_text(PER_STEP)} "
+          f"a step on each rank, epoch losses {[round(l['train_loss'], 4) for l in log]}; a "
+          f"one-process run auto-resumed {os.path.basename(last)}: {len(live)} tensors and the "
+          f"AdamW moments equal to the file bit for bit; run_finetune.main --n_tensor 2 from "
+          f"[pretrain cli]'s checkpoint, 1 epoch of {r['steps']} steps at 2 x {FT_BATCH // 2} "
+          f"rows + {r['evals']} eval batches in {r['finetune_s']:.1f} s; its eval line equal to "
+          f"one process's --eval of its checkpoint-0: {run_line.split(': ', 1)[1]}; torchrun "
+          f"call {dt:.1f} s")
 
 
 def phase_ddp_clis(torch, d, db, pre_ckpt, pre_ref, ft_ref):
@@ -1993,14 +2412,36 @@ def phase_layernorm_bwd(torch, ln, gen):
     return rows
 
 
-def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0, **model_kw):
+def shard_for(model, mesh):
+    """Shard `model` on `mesh` as the CLIs do (`shard_model`, before the
+    optimizer is built), keeping on it the bytes its parameters and AdamW's
+    two moments take a rank by the rules' placements (`param_shardings`
+    of the whole model): the share the rules predict."""
+    from dig_tpu_torch.parallel.mesh import param_shardings
+    from dig_tpu_torch.parallel.sharding import shard_model
+
+    sizes = {None: 1, "fsdp": mesh.n_fsdp, "tensor": mesh.n_tensor}
+    named = dict(model.named_parameters())
+    params = moments = 0
+    for name, pl in param_shardings(model, mesh.n_fsdp, mesh.n_tensor).items():
+        p = named[name]
+        n = p.numel() // sizes[pl.mesh_axis] * p.element_size()
+        params += n
+        moments += 2 * n if p.requires_grad else 0
+    shard_model(model, mesh)
+    model.predicted_bytes = (params, moments)
+
+
+def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0, mesh=None,
+                   **model_kw):
     """The port's pre-training entry points as a user calls them: the
     model, AdamW and the step, with the schedules built as
     `dig_tpu/cli/run_pretrain.py:98-110` builds them from the
     `PretrainConfig` defaults (first lr = warmup_lr > 0), the state's step
     counter at `start_step`, and one batch of uint8 views with exact-count
     masks from numpy seed `seed`.  `model_kw` overrides the model's
-    arguments (remat, patchnet_name, drop_path_rate, encoder_depth)."""
+    arguments (remat, patchnet_name, drop_path_rate, encoder_depth).  With
+    `mesh`, the model is sharded on it before the optimizer is built."""
     from dig_tpu_torch.config import PretrainConfig
     from dig_tpu_torch.models.moco import build_pretrain_model
     from dig_tpu_torch.optim import create_optimizer
@@ -2023,6 +2464,8 @@ def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0, **mode
                                  mlp_dim=cfg.moco_mlp_dim, dim=cfg.moco_dim,
                                  temperature=cfg.moco_t, num_windows=cfg.num_windows,
                                  label_smoothing=cfg.label_smoothing, **model_kw)
+    if mesh is not None:
+        shard_for(model, mesh)
     opt = create_optimizer(cfg.opt, model.named_parameters(), lr, wd, betas=cfg.opt_betas,
                            eps=cfg.opt_eps, clip_grad=cfg.clip_grad)
     state = init_pretrain_state(model, opt)
@@ -2337,11 +2780,11 @@ def phase_colsum(torch, fd, gen):
     return rows[FC1_ROWS]
 
 
-def finetune_setup(torch, np, dtype, batch, device, rates=True, seed=0):
+def finetune_setup(torch, np, dtype, batch, device, rates=True, seed=0, mesh=None):
     """`kind_setup` of the recognizer at the FinetuneConfig defaults:
     (model, state, step, batch, charset)."""
     _, model, state, step, batch_np, charset, _ = kind_setup(torch, np, {}, dtype, batch, device,
-                                                             rates, seed)
+                                                             rates, seed, mesh)
     return model, state, step, batch_np, charset
 
 
@@ -2499,7 +2942,7 @@ def labelled_batch(np, charset, max_len, batch, seed):
             "targets": targets, "lengths": lengths}
 
 
-def kind_setup(torch, np, fields, dtype, batch, device, rates=True, seed=0):
+def kind_setup(torch, np, fields, dtype, batch, device, rates=True, seed=0, mesh=None):
     """The port's fine-tuning entry points as a user calls them: the
     recognizer, step and eval of the FinetuneConfig defaults with `fields`
     (a kind's), built as the fine-tuning CLI builds them
@@ -2509,6 +2952,7 @@ def kind_setup(torch, np, fields, dtype, batch, device, rates=True, seed=0):
     images with labels from numpy seed `seed` (`labelled_batch`).  The
     distillation teacher is a second recognizer from the same seed, frozen.
     `rates=False`: every rate 0, the decoders' too (the card-vs-CPU checks).
+    With `mesh`, the model is sharded on it before the optimizer is built.
     Returns (cfg, model, state, step, batch, charset, teacher or None)."""
     from dig_tpu_torch.cli import run_finetune
     from dig_tpu_torch.config import FinetuneConfig
@@ -2539,6 +2983,8 @@ def kind_setup(torch, np, fields, dtype, batch, device, rates=True, seed=0):
         return model
 
     model = build()
+    if mesh is not None:
+        shard_for(model, mesh)
     frozen = (frozen_encoder_mask(cfg.fixed_encoder_layers) if cfg.fixed_encoder_layers > 0
               else None)
     opt = create_optimizer(cfg.opt, model.named_parameters(), lr, wd, betas=cfg.opt_betas,
@@ -2741,8 +3187,17 @@ def phase_attention_l281(torch, attn, gen):
     25 class queries + 256 patches, not a multiple of the 64-row blocks;
     H = 12, D = 64) against their plain versions, bf16 and fp32, at the
     tolerances of the pre-training shapes; each timed beside SDPA's."""
-    b, l, h, d = FT_BATCH, SEQ_CLS_L, 12, 64
+    return phase_attention_at(torch, attn, gen, f"attention at L={SEQ_CLS_L}", FT_BATCH,
+                              SEQ_CLS_L, 12)
+
+
+def phase_attention_at(torch, attn, gen, tag, b, l, h):
+    """#3, #4, #1 and #2 on q, k, v read as column slices of one packed
+    [B, L, 3 H D] projection (D = 64), against their plain versions, bf16
+    and fp32, each timed beside SDPA's; returns {dtype: times}."""
+    d = 64
     c = h * d
+    rows = {}
     scale = d**-0.5
     for dt in (torch.bfloat16, torch.float32):
         dn = str(dt).split(".")[1]
@@ -2791,7 +3246,9 @@ def phase_attention_l281(torch, attn, gen):
             ms1 = time_ms(lambda: attn.attention_fwd(q, k, v, scale), iters=5)
         check(bool(torch.equal(o1, o)), f"attention_fwd L={l} {dn}: o differs from #3's")
         torch.cuda.synchronize()
-        print(f"[attention at L={l}] {dn} B={b} H={h} D={d}: #3 attention_lse_fwd max_abs_err "
+        rows[dn] = dict(ms3=ms3, sdpa=sdpa_ms, ms4=ms4, sdpa_bwd=sdpa_bwd_ms, fwd_bound=fwd_bound,
+                        bwd_bound=bwd_bound)
+        print(f"[{tag}] {dn} B={b} L={l} H={h} D={d}: #3 attention_lse_fwd max_abs_err "
               f"o={err3:.3e}{flips}, {ms3:.4f} ms (plain {plain3:.4f}, sdpa {sdpa_ms:.4f}, bound "
               f"{fwd_bound:.4f} ({fwd_by}), {fwd_bound / ms3:.3f} of it); #4 attention_lse_bwd "
               f"{rel4:.2e} of max |ref|, {ms4:.4f} ms (plain {plain4:.4f}, sdpa backward "
@@ -2800,6 +3257,7 @@ def phase_attention_l281(torch, attn, gen):
               f"equal to #4 bit for bit")
         del qkv, q, k, v, do, o, m, s, dqkv, out, rec, o1
         torch.cuda.empty_cache()
+    return rows
 
 
 def phase_kinds_cli(torch, np, d, ft_out):
@@ -3480,6 +3938,10 @@ def main():
     phase_sync_debug_step(torch, np)
     phase_pretrain_data(torch, np, paths)
     phase_two_ranks_one_card(torch, np)
+    # the pre-training step's attention on one tensor rank's heads (H / 2)
+    split_rows = phase_attention_at(torch, attn, gen, "attention at the tensor split", PRE_B, L,
+                                    H // 2)
+    phase_sharded_steps(torch, np)
 
     def row(name, source, replaces, measured, path):
         return dict(name=name, route="cuda", source=f"dig_tpu_torch/ops/csrc/{source}.cu",
@@ -3495,9 +3957,13 @@ def main():
         row("attention_bwd", "attention_bwd", "dig_tpu/ops/attention.py:111",
             rec_bwd_rows["bfloat16"], "pretrain_switches"),
         row("attention_lse_fwd", "attention_lse_fwd", "dig_tpu/ops/attention.py:275",
-            dict(attn_rows["bfloat16"], float32=attn_rows["float32"]), "pretrain"),
+            dict(attn_rows["bfloat16"], float32=attn_rows["float32"],
+                 tensor_split={k: {"ms": v["ms3"], "sdpa_ms": v["sdpa"]}
+                               for k, v in split_rows.items()}), "pretrain"),
         row("attention_lse_bwd", "attention_lse_bwd", "dig_tpu/ops/attention.py:299",
-            attn_bwd_rows["bfloat16"], "pretrain"),
+            dict(attn_bwd_rows["bfloat16"],
+                 tensor_split={k: {"ms": v["ms4"], "sdpa_backward_ms": v["sdpa_bwd"]}
+                               for k, v in split_rows.items()}), "pretrain"),
         row("layer_norm_fwd", "layernorm_fwd", "dig_tpu/ops/layernorm.py:44", ln_rows["bfloat16"],
             "pretrain"),
         row("layer_norm_bwd", "layernorm_bwd", "dig_tpu/ops/layernorm.py:54",
@@ -3520,6 +3986,8 @@ if __name__ == "__main__":
         sys.exit(ddp_child(sys.argv[2]))
     if sys.argv[1:2] == ["--gloo-child"]:  # started by phase_two_ranks_one_card
         sys.exit(gloo_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-child"]:  # started by the sharded phases
+        sys.exit(sharded_child(sys.argv[2]))
     try:
         sys.exit(main())
     except Exception as e:  # any failed phase: report and exit non-zero, no result line

@@ -71,6 +71,13 @@ their sums (correct, total, F-measure, loss) are added up; without it
 every rank evaluates the whole set and rank 0's figures decide.  Only rank
 0 prints and writes.
 
+Parameter sharding, as in the JAX CLI (`run_pretrain` says how): `--n_fsdp`
+and `--n_tensor` lay the ranks out as a (data, fsdp, tensor) mesh, and the
+encoder's blocks and the decoder's layers split over ``tensor``.  The eval
+pass gathers the sharded parameters once and runs every layer whole; its
+rows are sharded over (data, fsdp) under `--dist_eval` and replicated over
+``tensor``.
+
 SIGTERM / SIGINT checkpoint at the next step boundary and exit 0 (143
 without an `--output_dir`); a non-finite loss exits 1.  Runs on CUDA;
 `main(cfg, device="cpu")` runs the plain versions of the kernels (and,
@@ -81,14 +88,15 @@ set, only while `main` runs.
 
 `--opt` takes every optimizer name of `dig_tpu` (`optim.py`).  `--resume`
 takes a port checkpoint directory or a native `dig_tpu` one (its params
-and AdamW's moments; for `--eval`, its params).  Refused with a message:
-`--n_fsdp` / `--n_tensor` above 1 (not ported yet, see ROADMAP.md); and,
-as in `dig_tpu`, an optimizer name it does not know, distillation with a
-kind other than rec or without `--teacher_ckpt`.
+and AdamW's moments; for `--eval`, its params).  Refused with a message,
+as in `dig_tpu`: a mesh that does not divide the world, an optimizer name
+it does not know, distillation with a kind other than rec or without
+`--teacher_ckpt`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -123,12 +131,18 @@ from dig_tpu_torch.parallel.dist import (
     broadcast_floats,
     broadcast_module,
     destroy,
-    get_rank,
-    get_world_size,
     init_distributed_mode,
     mean_over_ranks,
 )
-from dig_tpu_torch.parallel.mesh import check_mesh, host_local_rows, local_batch
+from dig_tpu_torch.parallel.mesh import (
+    clear_mesh,
+    create_mesh,
+    current_mesh,
+    host_local_rows,
+    local_batch,
+    shard_batch,
+)
+from dig_tpu_torch.parallel.sharding import full_numel, gathered, shard_model
 from dig_tpu_torch.train.finetune import (
     init_finetune_state,
     make_ctc_eval_step,
@@ -185,10 +199,10 @@ def build_model(cfg: FinetuneConfig, device, use_feat_distill=None):
 
 
 def _refuse_unported(cfg: FinetuneConfig) -> None:
-    """Raise for every flag whose code is not ported, and for the
-    combinations `dig_tpu` refuses, before anything is built or written."""
+    """Raise for the flags and combinations `dig_tpu` refuses, before
+    anything is built or written (a mesh the world does not divide is
+    refused in `main`, once the world is known)."""
     parse_optimizer_name(cfg.opt)
-    check_mesh(cfg.n_fsdp, cfg.n_tensor)
     if cfg.resume.endswith((".pth", ".pt")):
         raise ValueError("--resume expects a checkpoint directory; to initialize from a torch "
                          f".pth use --finetune (got --resume {cfg.resume})")
@@ -224,7 +238,7 @@ def load_finetune_init(cfg: FinetuneConfig, model, path: str = "") -> int:
 
 
 def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, device,
-                       accuracy_fn=word_accuracy) -> dict:
+                       accuracy_fn=word_accuracy, model=None) -> dict:
     """Greedy or beam decoding over one benchmark LMDB
     (`dig_tpu/cli/run_finetune.py:105-188`): the last partial batch padded
     to the batch size (zero images and targets, length 1), per-row losses
@@ -235,11 +249,22 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
     sums.  Prints the JAX CLI's line; returns {"acc", "n", "fmeasure"}, and
     "multi_label_fmeasure" when `eval_fn` returns presence logits third
     (the F-measure of each batch against the presence of every target id,
-    averaged over the rows)."""
+    averaged over the rows).  Under a mesh the rows are sharded over the
+    data-parallel ranks (with `--dist_eval`) and replicated over
+    ``tensor``: tensor peers decode the same rows, and the sums are added
+    up over the data-parallel group; a sharded `model` is gathered for the
+    pass, so every layer runs whole."""
+    with gathered(model) if model is not None else contextlib.nullcontext():
+        return _evaluate(cfg, data_path, eval_fn, charset, device, accuracy_fn)
+
+
+def _evaluate(cfg, data_path, eval_fn, charset, device, accuracy_fn) -> dict:
     ds = build_dataset(data_path, is_train=False, voc_type=cfg.voc_type, max_len=cfg.max_len,
                        img_height=cfg.input_h, img_width=cfg.input_w)
     bs = local_batch(cfg.batch_size)
-    rank, world = (get_rank(), get_world_size()) if cfg.dist_eval else (0, 1)
+    mesh = current_mesh()
+    rank, world, group = (mesh.dp_index, mesh.n_dp, mesh.dp_group) if cfg.dist_eval else \
+        (0, 1, None)
     loader = DataLoader(ds, ShardedSampler(len(ds), rank=rank, world=world, shuffle=False),
                         batch_size=bs, num_workers=cfg.num_workers, drop_last=False)
     n_correct, n_total, f_sum, loss_sum, ml_sum = 0.0, 0, 0.0, 0.0, 0.0
@@ -253,20 +278,21 @@ def evaluate_benchmark(cfg: FinetuneConfig, data_path: str, eval_fn, charset, de
             lens = np.concatenate([lens, np.ones((pad,), lens.dtype)])
         out = eval_fn(pinned_to_device({"images": images, "targets": targets,
                                         "lengths": lens}, device))
-        ids = host_local_rows(out[0])[:n].cpu().numpy()
+        ids = out[0][:n].cpu().numpy()
         n_correct += accuracy_fn(ids, targets[:n], charset) * n
         n_total += n
         f_sum += recognition_f_measure(ids, targets[:n], charset) * n
-        loss_sum += float(host_local_rows(out[1])[:n].sum())
+        loss_sum += float(out[1][:n].sum())
         if len(out) == 3:
             has_cls = True
-            cls_logit = host_local_rows(out[2])[:n].float().cpu().numpy()
+            cls_logit = out[2][:n].float().cpu().numpy()
             presence = np.zeros((n, cls_logit.shape[-1]), np.float32)
             presence[np.arange(n)[:, None], targets[:n]] = 1.0
             ml_sum += multi_label_f_measure(cls_logit, presence) * n
     sums = [n_correct, n_total, f_sum, loss_sum, ml_sum]
     # one figure on every rank: the ranks decide on it together (checkpoint-best)
-    n_correct, n_total, f_sum, loss_sum, ml_sum = (all_reduce_floats(sums) if cfg.dist_eval
+    n_correct, n_total, f_sum, loss_sum, ml_sum = (all_reduce_floats(sums, group=group)
+                                                   if cfg.dist_eval
                                                    else broadcast_floats(sums))
     n_total = int(n_total)
     acc = n_correct / max(n_total, 1)
@@ -290,6 +316,8 @@ def main(cfg: FinetuneConfig, device="cuda"):
     tee = None
     exact_before = activations.EXACT
     try:
+        # a mesh the world does not divide raises here, before anything is written
+        dist_info["mesh"] = create_mesh(cfg.n_fsdp, cfg.n_tensor)
         with stdout_on_main_process_only():
             if cfg.output_dir and is_main_process():
                 os.makedirs(cfg.output_dir, exist_ok=True)
@@ -303,6 +331,7 @@ def main(cfg: FinetuneConfig, device="cuda"):
     finally:
         if cfg.worker_type == "process":  # this rank's loader workers and their server
             stop_worker_processes()
+        clear_mesh()
         if dist_info["created"]:
             destroy()
 
@@ -319,7 +348,8 @@ def _run(cfg: FinetuneConfig, dist_info: dict):
     activations.set_exact(exact)
     cfg.finalize(world)
     backend = f", {dist_info['backend']}" if dist_info["backend"] else ""
-    print(f"devices: {world} ({device}{backend}), lr: {cfg.absolute_lr:.2e}")
+    print(f"devices: {world} ({device}{backend}), mesh: {dist_info['mesh'].shape}, "
+          f"lr: {cfg.absolute_lr:.2e}")
     charset = build_charset(cfg.voc_type, cfg.max_len)
     if charset.num_classes != cfg.nb_classes:
         raise ValueError(f"--voc_type {cfg.voc_type} has {charset.num_classes} classes, "
@@ -336,7 +366,7 @@ def _run(cfg: FinetuneConfig, dist_info: dict):
                                   if "native" in payload else payload["model"])
         paths = [p for p in [cfg.eval_data_path] + list(cfg.other_test_data_folders) if p]
         results = [dict(path=p, **evaluate_benchmark(cfg, p, eval_fn, charset, device,
-                                                     accuracy_fn)) for p in paths]
+                                                     accuracy_fn, model)) for p in paths]
         total = sum(r["n"] for r in results)
         avg = sum(r["acc"] * r["n"] for r in results) / max(total, 1)
         print(f"average word accuracy over {len(results)} benchmarks: {avg:.4f}")
@@ -384,6 +414,7 @@ def make_step(cfg: FinetuneConfig, model, device):
 def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, guard):
     eval_fn, accuracy_fn = evaluation
     device, rank, world = dist_info["device"], dist_info["rank"], dist_info["world_size"]
+    mesh = dist_info["mesh"]
     device_abi = cfg.device_abi_aug and cfg.use_abi_aug
     train_ds = build_dataset(
         cfg.data_path, is_train=True, voc_type=cfg.voc_type, max_len=cfg.max_len,
@@ -404,6 +435,10 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, gua
         warmup_steps=cfg.warmup_steps)
     wd_sched = cosine_schedule(cfg.weight_decay, cfg.weight_decay_end, cfg.epochs,
                                steps_per_epoch)
+    if cfg.finetune:
+        load_finetune_init(cfg, model)
+    broadcast_module(model)  # every rank starts from rank 0's weights
+    shard_model(model, mesh)  # this rank's pieces of the sharded parameters
     optimizer = create_optimizer(
         cfg.opt, model.named_parameters(), lr_sched, wd_sched, betas=cfg.opt_betas,
         eps=cfg.opt_eps, clip_grad=cfg.clip_grad, layer_decay=cfg.layer_decay,
@@ -412,11 +447,9 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, gua
         if cfg.fixed_encoder_layers > 0 else None,
         update_freq=cfg.update_freq)
     state = init_finetune_state(model, optimizer)
-    n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_params = sum(full_numel(p) for p in model.parameters() if p.requires_grad)
     print(f"params: {n_params / 1e6:.2f} M")
 
-    if cfg.finetune:
-        load_finetune_init(cfg, model)
     start_epoch = cfg.start_epoch
     if cfg.resume:
         payload = restore_checkpoint(cfg.resume)
@@ -426,7 +459,6 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, gua
         state, extra = auto_resume(cfg.output_dir, state)
         if extra is not None:
             start_epoch = int(extra.get("epoch", -1)) + 1
-    broadcast_module(model)  # every rank starts from rank 0's weights
 
     step_fn = make_step(cfg, model, device)
     aug_fn = None
@@ -447,7 +479,7 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, gua
     def eval_and_keep_best(epoch):
         nonlocal max_accuracy
         stats = evaluate_benchmark(cfg, cfg.eval_data_path, eval_fn, charset, device,
-                                   accuracy_fn)
+                                   accuracy_fn, model)
         if stats["acc"] > max_accuracy:
             max_accuracy = stats["acc"]
             if cfg.output_dir and cfg.save_ckpt and cfg.save_best:
@@ -462,11 +494,14 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, gua
         for it, batch in enumerate(logger.log_every(batches, PRINT_FREQ, f"Epoch: [{epoch}]",
                                                     total=steps_per_epoch)):
             gstep = epoch * micro_steps + it
-            if aug_fn is not None:
+            if aug_fn is not None:  # this rank's rows, from its own stream
                 batch["images"] = aug_fn(step_generator(cfg.seed + 1, 1, gstep, device, rank),
                                          batch["images"])
+            # the step's dropout: keyed by the data-parallel index, so that
+            # tensor peers draw the same masks
             state, metrics, pred_ids = step_fn(
-                state, batch, step_generator(cfg.seed + 1, 0, gstep, device, rank))
+                state, shard_batch(batch),
+                step_generator(cfg.seed + 1, 0, gstep, device, mesh.dp_index))
             tracer.tick()
             if guard.sync_should_stop(step=it, every=STOP_POLL_STEPS):
                 # extra epoch - 1: auto-resume redoes this epoch's data with
@@ -477,8 +512,8 @@ def _train(cfg: FinetuneConfig, dist_info: dict, model, evaluation, charset, gua
                     f"epoch {epoch} step {it}")
             # the metrics stay on the device but for these steps
             if it % PRINT_FREQ == 0 or it == steps_per_epoch - 1:
-                class_acc = accuracy_fn(
-                    pred_ids.cpu().numpy(), batch["targets"].cpu().numpy(), charset)
+                class_acc = accuracy_fn(host_local_rows(pred_ids).cpu().numpy(),
+                                        batch["targets"].cpu().numpy(), charset)
                 host_metrics = mean_over_ranks(dict(metrics, class_acc=class_acc))
                 if not math.isfinite(host_metrics["loss"]):
                     print(f"Loss is {host_metrics['loss']}, stopping training")

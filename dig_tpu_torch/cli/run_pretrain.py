@@ -48,13 +48,27 @@ on every rank.  stdout is teed into ``screen.txt``, and the signal
 handlers are installed, only while `main` runs: both are put back when it
 returns or raises (the JAX CLI leaves them installed).
 
+Parameter sharding, as in the JAX CLI:
+
+    torchrun --nproc_per_node 4 -m dig_tpu_torch.cli.run_pretrain --n_fsdp 2 --n_tensor 2 ...
+
+lays the world's ranks out as a (data, fsdp, tensor) mesh
+(`parallel/mesh.py`; a mesh that does not divide the world is refused
+before anything is written) and shards the parameters, the momentum branch
+and the optimizer state by the JAX package's rules (`parallel/sharding.py`):
+the ViT blocks split their heads and columns over ``tensor``, and the
+large leaves are split over ``fsdp``.  Tensor peers compute on the rows of
+their whole group (`shard_batch`) and draw the same dropout (stream 0 is
+keyed by the data-parallel index); each rank still loads `--batch_size`
+rows, the global batch is `--batch_size` x world.  Checkpoints hold the
+whole tensors whatever the mesh, so a run resumes across meshes.
+
 Every `--opt` of `dig_tpu` (`optim.py`), `--remat` (each encoder block
 rematerialized in the backward), `--patchnet_name conv` (`ConvPatchNet`),
 `--resume` of a native `dig_tpu` checkpoint directory (params, momentum
 branch and AdamW's moments; another optimizer's state is refused) and
 remote checkpoint URIs (`--resume`, `--output_dir`'s checkpoints; through
-fsspec, which must be installed for them) run here.  Not ported yet,
-refused with a message (see ROADMAP.md): `--n_fsdp` / `--n_tensor` above 1.
+fsspec, which must be installed for them) run here.
 """
 
 from __future__ import annotations
@@ -82,7 +96,8 @@ from dig_tpu_torch.parallel.dist import (
     init_distributed_mode,
     mean_over_ranks,
 )
-from dig_tpu_torch.parallel.mesh import check_mesh, local_batch
+from dig_tpu_torch.parallel.mesh import clear_mesh, create_mesh, local_batch, shard_batch
+from dig_tpu_torch.parallel.sharding import full_numel, shard_model
 from dig_tpu_torch.train.pretrain import (
     init_pretrain_state,
     make_device_view_fn,
@@ -125,14 +140,15 @@ def build_model(cfg: PretrainConfig, device):
 
 
 def main(cfg: PretrainConfig, device="cuda"):
-    check_mesh(cfg.n_fsdp, cfg.n_tensor)  # before anything is built or written
-    parse_optimizer_name(cfg.opt)  # a name dig_tpu does not know, likewise
+    parse_optimizer_name(cfg.opt)  # a name dig_tpu does not know: before anything is built
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_pretrain runs on CUDA and no card is visible; "
                            "call main(cfg, device='cpu') for the CPU")
     dist_info = init_distributed_mode(device)
     tee = None
     try:
+        # a mesh the world does not divide raises here, before anything is written
+        dist_info["mesh"] = create_mesh(cfg.n_fsdp, cfg.n_tensor)
         with stdout_on_main_process_only():
             if cfg.output_dir and is_main_process():
                 os.makedirs(cfg.output_dir, exist_ok=True)
@@ -147,6 +163,7 @@ def main(cfg: PretrainConfig, device="cuda"):
     finally:
         if cfg.worker_type == "process":  # this rank's loader workers and their server
             stop_worker_processes()
+        clear_mesh()
         if dist_info["created"]:
             destroy()
 
@@ -154,9 +171,10 @@ def main(cfg: PretrainConfig, device="cuda"):
 def _run(cfg: PretrainConfig, dist_info: dict, guard):
     print(config_to_json(cfg))
     device, rank, world = dist_info["device"], dist_info["rank"], dist_info["world_size"]
+    mesh = dist_info["mesh"]
     cfg.finalize(world)
     backend = f", {dist_info['backend']}" if dist_info["backend"] else ""
-    print(f"devices: {world} ({device}{backend}), lr: {cfg.absolute_lr:.2e}")
+    print(f"devices: {world} ({device}{backend}), mesh: {mesh.shape}, lr: {cfg.absolute_lr:.2e}")
 
     rng = np.random.default_rng(cfg.seed + rank)
     dataset = build_pretraining_dataset(
@@ -193,12 +211,14 @@ def _run(cfg: PretrainConfig, dist_info: dict, guard):
     )
 
     model = build_model(cfg, device)
+    broadcast_module(model)  # every rank starts from rank 0's weights
+    shard_model(model, mesh)  # this rank's pieces of the sharded parameters
     optimizer = create_optimizer(
         cfg.opt, model.named_parameters(), lr_sched, wd_sched, betas=cfg.opt_betas,
         eps=cfg.opt_eps, clip_grad=cfg.clip_grad,
     )
     state = init_pretrain_state(model, optimizer)
-    n_params = sum(p.numel() for p in model.parameters() if p.requires_grad)
+    n_params = sum(full_numel(p) for p in model.parameters() if p.requires_grad)
     print(f"params: {n_params / 1e6:.2f} M")
 
     # restore after init_pretrain_state, which resets the momentum branch
@@ -211,7 +231,6 @@ def _run(cfg: PretrainConfig, dist_info: dict, guard):
         state, extra = auto_resume(cfg.output_dir, state)
         if extra is not None:
             start_epoch = int(extra.get("epoch", -1)) + 1
-    broadcast_module(model)  # every rank starts from rank 0's weights
 
     step_fn = make_pretrain_step(
         model, mom_sched, cw_sched,
@@ -243,13 +262,16 @@ def _run(cfg: PretrainConfig, dist_info: dict, guard):
             logger.log_every(batches, PRINT_FREQ, header, total=steps_per_epoch)
         ):
             # one generator a step and a stream, from (seed, stream, global
-            # step, rank) alone: 0 the train step, 1 the view generator
+            # step, rank) alone: 0 the train step (keyed by the data-parallel
+            # index: tensor peers draw the same masks), 1 the view generator
+            # (by the rank, on this rank's rows)
             gstep = epoch * steps_per_epoch + it
             if view_fn is not None:
                 batch = view_fn(step_generator(cfg.seed + 1, 1, gstep, device, rank),
                                 batch["images"])
             state, metrics = step_fn(
-                state, batch, step_generator(cfg.seed + 1, 0, gstep, device, rank))
+                state, shard_batch(batch),
+                step_generator(cfg.seed + 1, 0, gstep, device, mesh.dp_index))
             tracer.tick()
             if guard.sync_should_stop(step=it, every=STOP_POLL_STEPS):
                 # extra epoch - 1: auto-resume redoes this epoch (with

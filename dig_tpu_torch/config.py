@@ -6,9 +6,8 @@
 so that a command line written for `dig_tpu.cli.run_predict` parses the
 same here, the reference CLIs' own spellings included (`--use_cls`,
 `--decoder_type`, `--use_seq_cls_token`, `--moco_m_cos`: see
-`_REF_FLAG_ALIASES`).  The one option the port does not run yet, FSDP /
-tensor sharding (`--n_fsdp` / `--n_tensor` above 1), parses as in the JAX
-package and is refused by the CLIs with a message.
+`_REF_FLAG_ALIASES`).  `--n_fsdp` / `--n_tensor` lay the ranks out as the
+JAX package's (data, fsdp, tensor) mesh (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -189,8 +188,8 @@ def config_to_json(cfg) -> str:
 @dataclasses.dataclass
 class PretrainConfig:
     """`dig_tpu.config.PretrainConfig`: the same fields and defaults, parsed
-    by `dig_tpu_torch.cli.run_pretrain`, which refuses with a message only
-    `n_fsdp` / `n_tensor` above 1 (parameter sharding is not ported yet)."""
+    by `dig_tpu_torch.cli.run_pretrain`; `n_fsdp` / `n_tensor` shard the
+    parameters (`parallel/sharding.py`)."""
 
     # model
     model: str = "pretrain_simmim_moco_ori_vit_small_patch4_32x128"

@@ -8,7 +8,9 @@ in rank order (`parallel.dist.concat_all_gather`, the reference's
 positive (:453), so the mean over the ranks of their losses is the JAX
 package's loss on the global batch; top-1/5 accuracy is over this rank's
 queries against the global keys.  Alone, the keys are this process's and
-row i's positive is key i.
+row i's positive is key i.  Under a mesh the keys come from the
+data-parallel ranks only, and the offset is this rank's data-parallel
+index: tensor peers hold the same rows (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from dig_tpu_torch.parallel.dist import concat_all_gather, get_rank
+from dig_tpu_torch.parallel.mesh import current_mesh
 
 
 def label_smooth_softmax_ce(logits, labels, smoothing: float = 0.0):
@@ -41,10 +44,12 @@ def info_nce_loss(q, k, temperature: float, smoothing: float = 0.0, return_acc: 
     momentum branch)."""
     q = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
     k = k / (torch.linalg.vector_norm(k, dim=-1, keepdim=True) + 1e-12)
-    k = concat_all_gather(k)
+    mesh = current_mesh()
+    k = concat_all_gather(k, None if mesh is None else mesh.dp_group)
     logits = torch.einsum("nc,mc->nm", q, k) / temperature
     n = logits.shape[0]
-    labels = torch.arange(n, device=logits.device) + n * get_rank()
+    labels = torch.arange(n, device=logits.device) + n * (get_rank() if mesh is None
+                                                          else mesh.dp_index)
     loss = label_smooth_softmax_ce(logits, labels, smoothing) * (2.0 * temperature)
     if return_acc:
         return loss, tuple(topk_accuracy(logits, labels, ks=(1, 5)))

@@ -43,6 +43,13 @@ Two variants (`dig_tpu/models/decoder.py:573-783`):
   is computed once per image (`_vision_branch`) and the decode loops run
   the token branch alone.
 
+Under a mesh with tensor peers (`parallel/sharding.py`) `DecoderMHA`,
+`TextConditionalMHA` and `PositionwiseFeedForward` run split when they
+hold a `TensorParallel` (``self.tp``): linear_q/k/v and w_1 column-parallel
+on this rank's heads and columns, fc and w_2 row-parallel; their dropout
+masks are drawn whole and sliced.  The decode loops run in the eval pass,
+where every layer runs whole.
+
 None of this reaches a kernel: the self-attention is masked and the
 cross-attention has Lq <= 25 < 128, so both take `_ref_attention`, as on
 the TPU, or under dropout the unfused `attention_with_dropout`.  Dropout
@@ -58,6 +65,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dig_tpu_torch.models.layers import (
@@ -66,13 +74,17 @@ from dig_tpu_torch.models.layers import (
     attention_with_dropout,
     dropout,
     embedding,
+    column_bias,
     make_causal_mask,
     make_pad_mask,
+    row_parallel,
     sinusoid_position_table,
+    split_active,
     training_generator,
 )
 from dig_tpu_torch.ops.activations import gelu
 from dig_tpu_torch.ops.attention import multi_head_attention
+from dig_tpu_torch.parallel.tensor import copy_to_region
 
 
 
@@ -88,27 +100,43 @@ class DecoderMHA(nn.Module):
         self.linear_k = Dense(d_model, n_head * d_k, bias=False, dtype=dtype)
         self.linear_v = Dense(d_model, n_head * d_v, bias=False, dtype=dtype)
         self.fc = Dense(n_head * d_v, d_model, bias=False, dtype=dtype)
+        self.tp = None  # a TensorParallel when split (parallel/sharding.py)
+
+    def _heads(self):
+        """(heads this rank computes, the TensorParallel when split)."""
+        tp = self.tp if split_active(self.tp) else None
+        return (self.n_head if tp is None else self.n_head // tp.size), tp
 
     def project_q(self, q_inp):
         b, lq, _ = q_inp.shape
-        return self.linear_q(q_inp).reshape(b, lq, self.n_head, self.d_k)
+        h, tp = self._heads()
+        if tp is not None:
+            q_inp = copy_to_region(q_inp, tp)
+        return self.linear_q(q_inp).reshape(b, lq, h, self.d_k)
 
     def project_kv(self, k_inp, v_inp):
         b, lk, _ = k_inp.shape
-        k = self.linear_k(k_inp).reshape(b, lk, self.n_head, self.d_k)
-        v = self.linear_v(v_inp).reshape(b, lk, self.n_head, self.d_v)
+        h, tp = self._heads()
+        if tp is not None:
+            same = v_inp is k_inp
+            k_inp = copy_to_region(k_inp, tp)
+            v_inp = k_inp if same else copy_to_region(v_inp, tp)
+        k = self.linear_k(k_inp).reshape(b, lk, h, self.d_k)
+        v = self.linear_v(v_inp).reshape(b, lk, h, self.d_v)
         return k, v
 
     def attend(self, q, k, v, mask=None, generator=None):
         """q [B, Lq, H, Dk]; k/v [B, Lk, H, D*]; mask broadcastable to
-        [B, H, Lq, Lk] (True = attend)."""
-        b, lq = q.shape[:2]
+        [B, H, Lq, Lk] (True = attend).  Split, H is this rank's heads."""
+        b, lq, h = q.shape[:3]
+        _, tp = self._heads()
         scale = self.d_k**-0.5
         if self.dropout > 0.0 and generator is not None:
-            out = attention_with_dropout(q, k, v, mask, scale, self.dropout, generator)
+            out = attention_with_dropout(q, k, v, mask, scale, self.dropout, generator, tp)
         else:
             out = multi_head_attention(q, k, v, mask=mask, scale=scale)
-        out = self.fc(out.reshape(b, lq, self.n_head * self.d_v))
+        out = out.reshape(b, lq, h * self.d_v)
+        out = self.fc(out) if tp is None else row_parallel(self.fc, out, tp)
         return dropout(out, self.dropout, generator)
 
     def forward(self, q, k, v, mask=None, generator=None):
@@ -122,10 +150,18 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = Dense(d_in, d_inner, dtype=dtype)
         self.w_2 = Dense(d_inner, d_in, dtype=dtype)
         self.dropout = dropout
+        self.tp = None  # a TensorParallel when split (parallel/sharding.py)
 
     def forward(self, x, generator=None):
-        x = dropout(gelu(self.w_1(x)), self.dropout, generator)
-        return dropout(self.w_2(x), self.dropout, generator)
+        tp = self.tp
+        if not split_active(tp):
+            x = dropout(gelu(self.w_1(x)), self.dropout, generator)
+            return dropout(self.w_2(x), self.dropout, generator)
+        w_1, dt = self.w_1, self.w_1.compute_dtype
+        h = F.linear(copy_to_region(x, tp).to(dt), w_1.weight.to(dt),
+                     column_bias(w_1.bias, tp).to(dt))
+        h = dropout(gelu(h), self.dropout, generator, (h.dim() - 1, tp.rank, tp.size))
+        return dropout(row_parallel(self.w_2, h, tp), self.dropout, generator)
 
 
 class TextConditionalMHA(nn.Module):
@@ -150,22 +186,29 @@ class TextConditionalMHA(nn.Module):
         self.linear_k = Dense(dim_k, dim_k, bias=False, dtype=dtype)
         self.linear_v = Dense(dim_k, dim_v, bias=False, dtype=dtype)
         self.fc = Dense(dim_v, d_model, bias=False, dtype=dtype)
+        self.tp = None  # a TensorParallel when split (parallel/sharding.py)
 
     def forward(self, q, k, v, mask=None, generator=None):
         b, lq, _ = q.shape
         lk = k.shape[1]
+        tp = self.tp if split_active(self.tp) else None
+        h = self.n_head if tp is None else self.n_head // tp.size
         gammas, betas = torch.tanh(self.gamma_decode(q)[:, :, None, :]).chunk(2, dim=-1)
         cond = gammas * self.vis_norm(self.vis_proj(k))[:, None] + betas  # [B, Lq, Lk, dk]
         cond = k[:, None] + self.vis_cond_norm(cond)
-        qh = self.linear_q(q).reshape(b, lq, self.n_head, self.d_k)
-        kh = self.linear_k(cond).reshape(b, lq, lk, self.n_head, self.d_k)
-        vh = self.linear_v(cond).reshape(b, lq, lk, self.n_head, self.d_v)
+        if tp is not None:
+            q, cond = copy_to_region(q, tp), copy_to_region(cond, tp)
+        qh = self.linear_q(q).reshape(b, lq, h, self.d_k)
+        kh = self.linear_k(cond).reshape(b, lq, lk, h, self.d_k)
+        vh = self.linear_v(cond).reshape(b, lq, lk, h, self.d_v)
         logits = torch.einsum("bqhd,bqkhd->bhqk", qh * self.d_k**-0.5, kh).float()
         if mask is not None:
             logits = logits.masked_fill(~mask, -1e30)
-        weights = dropout(torch.softmax(logits, dim=-1).to(vh.dtype), self.dropout, generator)
-        out = torch.einsum("bhqk,bqkhd->bqhd", weights, vh).reshape(b, lq, self.n_head * self.d_v)
-        return dropout(self.fc(out), self.dropout, generator)
+        weights = dropout(torch.softmax(logits, dim=-1).to(vh.dtype), self.dropout, generator,
+                          None if tp is None else (1, tp.rank, tp.size))
+        out = torch.einsum("bhqk,bqkhd->bqhd", weights, vh).reshape(b, lq, h * self.d_v)
+        out = self.fc(out) if tp is None else row_parallel(self.fc, out, tp)
+        return dropout(out, self.dropout, generator)
 
 
 class TransformerDecoderLayer(nn.Module):

@@ -9,6 +9,13 @@ through the kernel pairs of `ops.attention` and `ops.layernorm` and, under
 `DIG_TPU_FUSED_BIAS_GRAD=1`, `Mlp.fc1`'s `ops.fused_dense`, whose backward
 passes are kernels too.
 
+Under a mesh with tensor peers (`parallel/sharding.py`), `Attention` and
+`Mlp` run split when they hold a `TensorParallel` (``self.tp``): the fused
+qkv and fc1 column-parallel on this rank's heads and columns (the kernels
+see H / n_tensor heads), proj and fc2 row-parallel with their bias added
+once after the reduction; the replicated q/v biases and fc1's bias enter
+through `copy_to_region`, so their gradient sums over the peers.
+
 Dropout and drop-path follow flax's `nn.Dropout` and `drop_path`: a
 training pass draws its masks from an explicit `torch.Generator` handed
 down through `forward`; without one (`generator=None`) the pass is
@@ -35,6 +42,8 @@ from dig_tpu_torch.ops.attention import (
 )
 from dig_tpu_torch.ops.fused_dense import fused_bias_grad_enabled, fused_dense
 from dig_tpu_torch.ops.layernorm import layer_norm as fused_layer_norm
+from dig_tpu_torch.parallel.sharding import gathered_linear, param_value
+from dig_tpu_torch.parallel.tensor import copy_to_region, reduce_from_region
 
 
 def sinusoid_position_table(n_position: int, dim: int) -> np.ndarray:
@@ -70,13 +79,22 @@ def training_generator(deterministic: bool, generator: Optional[torch.Generator]
     return generator
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
+def dropout(x, rate: float, generator: Optional[torch.Generator], split=None):
     """flax `nn.Dropout`: with a generator each element is kept with
-    probability 1 - rate and scaled to x / (1 - rate); without one, x."""
+    probability 1 - rate and scaled to x / (1 - rate); without one, x.
+    `split` (dim, rank, size): `x` is piece `rank` along `dim` of a tensor
+    `size` times as wide, whose mask is drawn whole and sliced, so tensor
+    peers draw from one stream what one process draws."""
     if generator is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = list(x.shape)
+    if split is not None:
+        dim, rank, size = split
+        shape[dim] *= size
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if split is not None:
+        mask = mask.narrow(dim, rank * x.shape[dim], x.shape[dim])
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -92,17 +110,39 @@ def drop_path(x, rate: float, generator: Optional[torch.Generator]):
 
 
 def attention_with_dropout(q, k, v, mask, scale: float, rate: float,
-                           generator: torch.Generator):
+                           generator: torch.Generator, tp=None):
     """The unfused attention that dropout on the weights forces
     (`dig_tpu/models/layers.py:148-159`, `models/decoder.py:83-90`): fp32
     softmax of the masked logits, cast to v's dtype, dropout, second
-    product.  q [B, Lq, H, D], k/v [B, Lk, H, D] -> [B, Lq, H, D]."""
+    product.  q [B, Lq, H, D], k/v [B, Lk, H, D] -> [B, Lq, H, D].  With
+    `tp` the heads are this tensor rank's: the mask is drawn for all heads
+    and sliced to them."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k).float()
     if mask is not None:
         # a scalar fill: a tensor made from a host value would wait for the card
         logits = logits.masked_fill(~mask, -1e30)
-    weights = dropout(torch.softmax(logits, dim=-1).to(v.dtype), rate, generator)
+    split = None if tp is None else (1, tp.rank, tp.size)
+    weights = dropout(torch.softmax(logits, dim=-1).to(v.dtype), rate, generator, split)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+def split_active(tp) -> bool:
+    """Whether a layer holding `tp` runs split now."""
+    return tp is not None and tp.active
+
+
+def column_bias(bias: torch.Tensor, tp) -> torch.Tensor:
+    """This tensor rank's piece of a replicated bias of a column-parallel
+    output, whose gradient sums over the peers."""
+    return copy_to_region(bias, tp)[tp.piece(bias.shape[0])]
+
+
+def row_parallel(dense: "Dense", x: torch.Tensor, tp) -> torch.Tensor:
+    """A row-parallel `Dense` on this rank's features `x`: the peers'
+    partial products summed, then the bias added once."""
+    dt = dense.compute_dtype
+    y = reduce_from_region(F.linear(x.to(dt), dense.weight.to(dt)), tp)
+    return y if dense.bias is None else y + dense.bias.to(dt)
 
 
 class _EmbeddingRows(torch.autograd.Function):
@@ -130,7 +170,9 @@ def embedding(weight: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 
 class Dense(nn.Linear):
-    """`nn.Linear` with fp32 parameters that computes in `dtype`."""
+    """`nn.Linear` with fp32 parameters that computes in `dtype`.  A weight
+    sharded over fsdp (or over tensor outside a split layer) is gathered
+    for the forward and again for the backward (`gathered_linear`)."""
 
     def __init__(self, in_features, out_features, bias=True, dtype=torch.float32):
         super().__init__(in_features, out_features, bias=bias)
@@ -139,7 +181,13 @@ class Dense(nn.Linear):
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        w = self.weight
+        spec = getattr(w, "shard_spec", None)
+        if spec is not None:
+            if spec.gathers:
+                return gathered_linear(x.to(dt), w, bias, spec, dt)
+            w = spec.full(w)
+        return F.linear(x.to(dt), w.to(dt), bias)
 
 
 def _exact_conv(dtype):
@@ -241,14 +289,26 @@ class Mlp(nn.Module):
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype)
         self.dropout = dropout
+        self.tp = None  # a TensorParallel when split (parallel/sharding.py)
 
     def forward(self, x, generator=None):
-        fc1 = self.fc1
+        fc1, tp = self.fc1, self.tp
+        split = split_active(tp)
+        if split:
+            x = copy_to_region(x, tp)
+            bias = column_bias(fc1.bias, tp)
+        else:
+            bias = fc1.bias
         if fused_bias_grad_enabled():
-            h = fused_dense(x, fc1.weight, fc1.bias, fc1.compute_dtype)
+            h = fused_dense(x, param_value(fc1.weight), bias, fc1.compute_dtype)
+        elif split:
+            dt = fc1.compute_dtype
+            h = F.linear(x.to(dt), fc1.weight.to(dt), bias.to(dt))
         else:
             h = fc1(x)
-        return dropout(self.fc2(gelu(h)), self.dropout, generator)
+        h = gelu(h)
+        y = row_parallel(self.fc2, h, tp) if split else self.fc2(h)
+        return dropout(y, self.dropout, generator)
 
 
 class Attention(nn.Module):
@@ -270,21 +330,32 @@ class Attention(nn.Module):
         else:
             self.q_bias = self.v_bias = None
         self.proj = Dense(dim, dim, dtype=dtype)
+        self.tp = None  # a TensorParallel when split (parallel/sharding.py)
 
     def forward(self, x, generator=None):
+        tp = self.tp
+        split = split_active(tp)
+        heads = self.num_heads // tp.size if split else self.num_heads
+        if split:  # this rank's heads: [q, k, v] of them, [B, L, 3C / n_tensor]
+            x = copy_to_region(x, tp)
         qkv = self.qkv(x)
         if self.q_bias is not None:
-            bias = torch.cat([self.q_bias, torch.zeros_like(self.q_bias), self.v_bias])
+            q_bias, v_bias = self.q_bias, self.v_bias
+            if split:
+                q_bias, v_bias = column_bias(q_bias, tp), column_bias(v_bias, tp)
+            bias = torch.cat([q_bias, torch.zeros_like(q_bias), v_bias])
             qkv = qkv + bias.to(qkv.dtype)
         if self.attn_drop > 0.0 and generator is not None:
             b, n, c3 = qkv.shape
-            out = attention_with_dropout(*split_heads(qkv, self.num_heads), None, self.scale,
-                                         self.attn_drop, generator).reshape(b, n, c3 // 3)
+            out = attention_with_dropout(*split_heads(qkv, heads), None, self.scale,
+                                         self.attn_drop, generator,
+                                         tp if split else None).reshape(b, n, c3 // 3)
         else:
             # the kernels read q, k, v as column slices of the packed projection
             # and write their gradients into one [B, L, 3C] tensor the same way
-            out = multi_head_attention_qkv(qkv, self.num_heads, self.scale)
-        return dropout(self.proj(out), self.proj_drop, generator)
+            out = multi_head_attention_qkv(qkv, heads, self.scale)
+        out = row_parallel(self.proj, out, tp) if split else self.proj(out)
+        return dropout(out, self.proj_drop, generator)
 
 
 class Block(nn.Module):
@@ -409,5 +480,6 @@ class PatchEmbed(nn.Module):
         x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 5, 2, 4)
         x = x.reshape(b, gh * gw, c * p * p)
         dt = self.compute_dtype
-        weight = self.proj.weight.reshape(self.proj.weight.shape[0], -1)
+        weight = self.proj.weight
+        weight = weight.reshape(weight.shape[0], -1)
         return F.linear(x.to(dt), weight.to(dt), self.proj.bias.to(dt))

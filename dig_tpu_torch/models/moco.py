@@ -28,6 +28,7 @@ from dig_tpu_torch.models.registry import register_model
 from dig_tpu_torch.models.vit import PretrainViTEncoder
 from dig_tpu_torch.ops.activations import gelu
 from dig_tpu_torch.parallel.dist import all_reduce_sum, get_world_size
+from dig_tpu_torch.parallel.mesh import current_mesh
 
 
 class BatchStatsNorm(nn.Module):
@@ -41,7 +42,9 @@ class BatchStatsNorm(nn.Module):
     over every rank's rows over their count, then the variance as the mean
     of (x - mean)^2 (`dig_tpu/models/moco.py:59-61`), never E[x^2] - E[x]^2.
     The ranks hold equal batches (the training loaders drop the last
-    partial one), so the count is the local count times the world size."""
+    partial one), so the count is the local count times the world size.
+    Under a mesh the sums run over the data-parallel ranks only: tensor
+    peers hold the same rows and must not count them twice."""
 
     def __init__(self, dim: int, affine: bool = True, eps: float = 1e-5):
         super().__init__()
@@ -55,9 +58,11 @@ class BatchStatsNorm(nn.Module):
     def forward(self, x):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
-        count = xf[..., 0].numel() * get_world_size()
-        mean = all_reduce_sum(xf.sum(dim=axes, keepdim=True)) / count
-        var = all_reduce_sum(((xf - mean) ** 2).sum(dim=axes, keepdim=True)) / count
+        mesh = current_mesh()
+        group = None if mesh is None else mesh.dp_group
+        count = xf[..., 0].numel() * get_world_size(group)
+        mean = all_reduce_sum(xf.sum(dim=axes, keepdim=True), group) / count
+        var = all_reduce_sum(((xf - mean) ** 2).sum(dim=axes, keepdim=True), group) / count
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         if self.weight is not None:
             y = y * self.weight + self.bias

@@ -169,7 +169,8 @@ class VisionTransformer(nn.Module):
         if self.num_mem_slots > 0:
             mem = self.mem_bank.detach().to(x.dtype).expand(b, -1, -1)
             x = torch.cat([x, mem], dim=1)
-        pos = self.pos_embed if hasattr(self, "pos_embed") else self.pos_table
+        # a membership test, not hasattr: reading a sharded parameter gathers it
+        pos = self.pos_embed if "pos_embed" in self._parameters else self.pos_table
         x = dropout(x + pos.to(x.dtype), self.drop_rate, generator)
         if self.use_seq_cls_token:
             cls = (self.cls_token.to(x.dtype) + self.cls_pos_table.to(x.dtype)
@@ -245,7 +246,7 @@ class PretrainViTEncoder(nn.Module):
         if mask is not None:
             m = mask.to(x.dtype)[..., None]
             x = x * (1.0 - m) + self.mask_token.to(x.dtype) * m
-        pos = self.pos_embed if hasattr(self, "pos_embed") else self.pos_table
+        pos = self.pos_embed if "pos_embed" in self._parameters else self.pos_table
         x = x + pos.to(x.dtype)
         x = run_blocks(self.blocks, x, generator, self.remat)
         if self.norm is not None:

@@ -36,7 +36,18 @@ Shared by every name, as the AdamW path has always had them:
   (`parallel.dist.GradientReducer`) before the global norm and clipping:
   by the step, through `reduce_gradients`, right after its backward; under
   `update_freq` > 1, once, on the running mean, at the micro-step that
-  applies it (the mean of the ranks' means is the global mean).
+  applies it (the mean of the ranks' means is the global mean);
+* sharded parameters (a mesh with fsdp or tensor axes, `parallel/sharding.py`):
+  the optimizer holds this rank's pieces and their state.  A piece's
+  gradient, already reduce-scattered over fsdp, is summed over ``data``,
+  every other gradient over (data, fsdp), each divided once by the number
+  of data-parallel ranks.  Every global quantity counts each element once:
+  the global norm (clipping and the steps' ``grad_norm``), the trust ratio
+  of LAMB and LARS, AdamP's and SGDP's row norms, NovoGrad's norms and
+  Adafactor's factored means sum a piece's share over its group.
+  `state_dict()` holds the whole tensors (a collective: every rank calls
+  it) and `load_state_dict` takes them whole, so a checkpoint is the same
+  whatever the mesh.
 
 Two classes build them.  "adam" and "adamw" (and their fused aliases; one
 transform in `dig_tpu`) without lookahead keep `AdamW`, on
@@ -71,7 +82,14 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from dig_tpu_torch.parallel.dist import GradientReducer, is_distributed
+from dig_tpu_torch.parallel.dist import (
+    GradientReducer,
+    all_gather_axis,
+    all_reduce_copy,
+    is_distributed,
+    shard_of,
+)
+from dig_tpu_torch.parallel.mesh import current_mesh
 
 NO_DECAY_NAMES = ("pos_embed", "cls_token", "mask_token")
 _EMBED_NAMES = ("cls_token", "mask_token", "pos_embed", "patch_embed")
@@ -137,6 +155,59 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
 
 
+def _spec(p):
+    return getattr(p, "shard_spec", None)
+
+
+def whole_sums(values, params, op: str = "sum"):
+    """Per-parameter values of this rank's pieces -> those of the whole
+    tensors: each sharded parameter's value reduced (`op` "sum" or "max")
+    over its group, one collective a mesh axis; the rest as they are."""
+    out = list(values)
+    by_axis = {}
+    for i, p in enumerate(params):
+        spec = _spec(p)
+        if spec is not None:
+            by_axis.setdefault(spec.placement.mesh_axis, (spec.group, []))[1].append(i)
+    for group, idx in by_axis.values():
+        reduced = all_reduce_copy(torch.stack([out[i] for i in idx]), group, op)
+        for j, i in enumerate(idx):
+            out[i] = reduced[j]
+    return out
+
+
+def norms(tensors, params):
+    """The norm of each whole tensor of which `tensors` are this rank's
+    pieces (aligned with `params`)."""
+    local = torch._foreach_norm(list(tensors))
+    if not any(_spec(p) is not None for p in params):
+        return local
+    return [torch.sqrt(v) for v in whole_sums([n * n for n in local], params)]
+
+
+def sharded_global_norm(tensors, params) -> torch.Tensor:
+    """`global_norm` of the whole tensors of which `tensors` are pieces."""
+    tensors = list(tensors)
+    if not any(_spec(p) is not None for p in params):
+        return global_norm(tensors)
+    return torch.linalg.vector_norm(torch.stack(norms(tensors, params)))
+
+
+class _MeshReducer:
+    """`GradientReducer.reduce` over several groups of the parameters:
+    [(parameter indices, their GradientReducer)]."""
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def reduce(self, grads):
+        out = list(grads)
+        for idx, reducer in self.parts:
+            for i, g in zip(idx, reducer.reduce([grads[i] for i in idx])):
+                out[i] = g
+        return out
+
+
 class _Factory:
     """What every optimizer of the factory shares: the parameters and their
     names, lr scales and decay mask, the schedules, accumulation, the
@@ -154,16 +225,43 @@ class _Factory:
         self.wd = None if wd_schedule is None else np.asarray(wd_schedule, np.float32)
         self.clip_grad = clip_grad
         self.count = 0
-        self.reducer = GradientReducer(self.params) if is_distributed() else None
+        self.reducer = self._make_reducer() if is_distributed() else None
         scales = (layer_scales(self.names, layer_decay, num_layers)
                   if layer_decay < 1.0 else {})
         self.lr_scales = [0.0 if frozen is not None and frozen(n) else scales.get(n, 1.0)
                           for n in self.names]
         self.no_decay = [is_no_decay(n, p) for n, p in named]
 
+    def _make_reducer(self):
+        """Without a mesh, every gradient over the world; under one
+        (`_MeshReducer`) the fsdp pieces' over ``data`` and the rest over
+        (data, fsdp), both divided by the data-parallel ranks."""
+        mesh = current_mesh()
+        if mesh is None:
+            return GradientReducer(self.params)
+        fsdp = [i for i, p in enumerate(self.params)
+                if _spec(p) is not None and _spec(p).placement.mesh_axis == "fsdp"]
+        rest = [i for i in range(len(self.params)) if i not in set(fsdp)]
+        parts = [(rest, GradientReducer([self.params[i] for i in rest], mesh.dp_group,
+                                        mesh.n_dp))]
+        if fsdp:
+            parts.append((fsdp, GradientReducer([self.params[i] for i in fsdp],
+                                                mesh.data_group, mesh.n_dp)))
+        return _MeshReducer(parts)
+
     def zero_grad(self):
         for p in self.params:
             p.grad = None
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The global norm of `grads` (aligned with the parameters, None
+        counting as zero) over the whole tensors."""
+        pairs = [(g, p) for g, p in zip(grads, self.params) if g is not None]
+        return sharded_global_norm([g for g, _ in pairs], [p for _, p in pairs])
+
+    def grad_norm(self) -> torch.Tensor:
+        """The global norm of the parameters' gradients (the steps' metric)."""
+        return self.global_norm([p.grad for p in self.params])
 
     def reduce_gradients(self):
         """Make every parameter's `.grad` the data-parallel gradient (a
@@ -197,7 +295,7 @@ class _Factory:
         for p, g in zip(self.params, grads):
             p.grad = g
         if self.clip_grad is not None:
-            factor = torch.clamp(self.clip_grad / (global_norm(grads) + 1e-6), max=1.0)
+            factor = torch.clamp(self.clip_grad / (self.global_norm(grads) + 1e-6), max=1.0)
             torch._foreach_mul_(grads, factor)
         return grads
 
@@ -208,10 +306,12 @@ class _Factory:
 
     def state_dict(self) -> dict:
         """{"inner": the rule's state, "count"} and, under accumulation,
-        the running mean and its count ("acc", "mini_step")."""
+        the running mean and its count ("acc", "mini_step"); sharded
+        parameters' state whole (a collective)."""
         out = {"inner": self._inner_state(), "count": int(self.count)}
         if self.acc is not None:
-            out.update(acc=self.acc, mini_step=int(self.mini_step))
+            out.update(acc=[_whole(p, a) for p, a in zip(self.params, self.acc)],
+                       mini_step=int(self.mini_step))
         return out
 
     def load_state_dict(self, saved: dict) -> None:
@@ -221,8 +321,26 @@ class _Factory:
         self.count = int(saved["count"])
         if "acc" in saved:
             device = self.params[0].device
-            self.acc = [a.to(device) for a in saved["acc"]]
+            self.acc = [_piece(p, a.to(device)) for p, a in zip(self.params, saved["acc"])]
             self.mini_step = int(saved["mini_step"])
+
+
+@torch.no_grad()
+def _whole(p, t):
+    """A state tensor of sharded parameter `p` whole (a collective), when it
+    has the piece's shape; else as it is."""
+    spec = _spec(p)
+    if spec is None or not torch.is_tensor(t) or tuple(t.shape) != tuple(p.shape):
+        return t
+    return spec.gather_full(t)
+
+
+def _piece(p, t):
+    """This rank's piece of a whole state tensor of parameter `p`."""
+    spec = _spec(p)
+    if spec is None or not torch.is_tensor(t) or tuple(t.shape) != spec.full_shape:
+        return t
+    return spec.local(t)
 
 
 class AdamW(_Factory):
@@ -260,15 +378,26 @@ class AdamW(_Factory):
         self.count += 1
         return True
 
+    def _ordered_params(self):
+        """The parameters in the order of the inner state dict's indices."""
+        return [p for g in self.inner.param_groups for p in g["params"]]
+
     def _inner_state(self):
-        return self.inner.state_dict()
+        sd = self.inner.state_dict()
+        order = self._ordered_params()
+        sd["state"] = {i: {k: _whole(order[i], v) for k, v in st.items()}
+                       for i, st in sd["state"].items()}
+        return sd
 
     def _load_inner_state(self, saved):
         groups = self.inner.state_dict()["param_groups"]
         if [len(g["params"]) for g in saved["param_groups"]] != [len(g["params"]) for g in groups]:
             raise ValueError("the checkpoint's optimizer groups its parameters differently from "
                              "this run's (another model, layer decay or frozen layers)")
-        self.inner.load_state_dict({"state": saved["state"], "param_groups": groups})
+        order = self._ordered_params()
+        state = {i: {k: _piece(order[int(i)], v) for k, v in st.items()}
+                 for i, st in saved["state"].items()}
+        self.inner.load_state_dict({"state": state, "param_groups": groups})
 
 
 def _factored_dims(shape, min_dim: int = 128):
@@ -282,14 +411,57 @@ def _factored_dims(shape, min_dim: int = 128):
     return int(order[-2]), int(order[-1])
 
 
-def _projection(p, g, u, delta: float, wd_ratio: float, eps: float):
+def _full_shape(p):
+    spec = _spec(p)
+    return tuple(p.shape) if spec is None else spec.full_shape
+
+
+def _sharded_projection(p, g, u, delta: float, wd_ratio: float, eps: float, spec):
+    """`_projection` of a sharded parameter's piece, its row sums over the
+    whole rows: summed over the group where the piece splits a row (every
+    row of the layer view; the channel view's rows unless the piece splits
+    the rows themselves, whose maximum cosine is then the group's)."""
+    full = spec.full_shape
+    numel = int(np.prod(full))
+
+    def view(channel):
+        rows = p.shape[0] if channel else 1
+        pv, gv, uv = p.reshape(rows, -1), g.reshape(rows, -1), u.reshape(rows, -1)
+        within = not (channel and spec.dim == 0)  # the piece splits each row
+        sums = torch.stack([(pv * pv).sum(dim=1), (gv * gv).sum(dim=1), (pv * gv).sum(dim=1)])
+        if within:
+            sums = all_reduce_copy(sums, spec.group)
+        pn, gn = torch.sqrt(sums[0]), torch.sqrt(sums[1])
+        cos_max = (sums[2].abs() / (pn * gn + eps)).max()
+        if not within:
+            cos_max = all_reduce_copy(cos_max, spec.group, "max")
+        hit = cos_max < delta / math.sqrt(numel / (full[0] if channel else 1))
+        p_n = pv / (pn[:, None] + eps)
+        dot = (p_n * uv).sum(dim=1, keepdim=True)
+        if within:
+            dot = all_reduce_copy(dot, spec.group)
+        return hit, (uv - p_n * dot).reshape(u.shape)
+
+    hit_c, proj_c = view(True)
+    hit_l, proj_l = view(False)
+    out = torch.where(hit_c, proj_c, torch.where(hit_l, proj_l, u))
+    ratio = torch.where(hit_c | hit_l,
+                        torch.full((), wd_ratio, dtype=torch.float32, device=p.device),
+                        torch.ones((), dtype=torch.float32, device=p.device))
+    return out, ratio
+
+
+def _projection(p, g, u, delta: float, wd_ratio: float, eps: float, spec=None):
     """AdamP / SGDP's tangent-space projection (`dig_tpu/optim.py:116-145`):
     where the parameter looks scale-invariant under the channel view (else
     the layer view), the radial part of `u` is removed and the weight decay
     scaled by `wd_ratio`.  Both views are computed and selected on the
-    device, with no wait for it.  Returns (u, ratio or None for 1)."""
+    device, with no wait for it.  Returns (u, ratio or None for 1).  `spec`:
+    `p` is a sharded parameter's piece (`_sharded_projection`)."""
     if p.dim() < 2:
         return u, None
+    if spec is not None:
+        return _sharded_projection(p, g, u, delta, wd_ratio, eps, spec)
 
     def view(rows):
         pv, gv, uv = p.reshape(rows, -1), g.reshape(rows, -1), u.reshape(rows, -1)
@@ -339,7 +511,7 @@ class OptaxOptimizer(_Factory):
         if rule == "adafactor":
             self.state.update(v_row=[], v_col=[], v=[])
             for p in self.params:
-                dims = _factored_dims(p.shape)
+                dims = _factored_dims(_full_shape(p))
                 one = torch.zeros((1,), dtype=p.dtype, device=p.device)
                 if dims is None:
                     self.state["v_row"].append(one)
@@ -379,8 +551,8 @@ class OptaxOptimizer(_Factory):
 
     def _trust_ratio(self, u):
         """optax's `scale_by_trust_ratio`: u * ||p|| / ||u||, 1 where either is 0."""
-        pn = torch.stack(torch._foreach_norm(self.params))
-        un = torch.stack(torch._foreach_norm(u))
+        pn = torch.stack(norms(self.params, self.params))
+        un = torch.stack(norms(u, self.params))
         ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn), pn / un)
         return torch._foreach_mul(u, list(ratio.unbind()))
 
@@ -437,6 +609,8 @@ class OptaxOptimizer(_Factory):
             return u, None
         if rule == "novograd":
             sq = [torch.linalg.vector_norm(x) ** 2 for x in g]
+            if any(_spec(p) is not None for p in self.params):
+                sq = whole_sums(sq, self.params)
             st["nu"] = sq if c == 1 else self._ema(sq, st["nu"], self.b2)
             den = torch._foreach_sqrt(st["nu"])
             torch._foreach_add_(den, self.eps)
@@ -486,7 +660,7 @@ class OptaxOptimizer(_Factory):
         `ratio_div` (SGDP's 1 - momentum), as float32 arithmetic gives it."""
         out, ratios = [], []
         for p, gi, ui in zip(self.params, g, u):
-            o, r = _projection(p.detach(), gi, ui, delta, wd_ratio, eps)
+            o, r = _projection(p.detach(), gi, ui, delta, wd_ratio, eps, _spec(p))
             out.append(o)
             ratios.append(r / ratio_div if r is not None else
                           float(np.float32(1.0) / np.float32(ratio_div)))
@@ -500,17 +674,26 @@ class OptaxOptimizer(_Factory):
         decay, keep = float(decay_t), float(1.0 - decay_t)
         out = []
         for i, (p, gi) in enumerate(zip(self.params, g)):
-            dims = _factored_dims(p.shape)
+            spec = _spec(p)
+            dims = _factored_dims(_full_shape(p))
             sq = gi * gi + 1e-30
             if dims is None:
                 st["v"][i] = decay * st["v"][i] + keep * sq
                 out.append(gi * st["v"][i] ** -0.5)
                 continue
             d1, d0 = dims
-            st["v_row"][i] = decay * st["v_row"][i] + keep * sq.mean(dim=d0)
-            st["v_col"][i] = decay * st["v_col"][i] + keep * sq.mean(dim=d1)
+
+            def mean(x, dim, orig, keepdim=False):
+                # the mean over original axis `orig`: over the group where the piece splits it
+                if spec is None or spec.dim != orig:
+                    return x.mean(dim=dim, keepdim=keepdim)
+                total = all_reduce_copy(x.sum(dim=dim, keepdim=keepdim), spec.group)
+                return total / spec.full_shape[orig]
+
+            st["v_row"][i] = decay * st["v_row"][i] + keep * mean(sq, d0, d0)
+            st["v_col"][i] = decay * st["v_col"][i] + keep * mean(sq, d1, d1)
             reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_col_mean = st["v_row"][i].mean(dim=reduced_d1, keepdim=True)
+            row_col_mean = mean(st["v_row"][i], reduced_d1, d1, keepdim=True)
             row_factor = (st["v_row"][i] / row_col_mean) ** -0.5
             col_factor = st["v_col"][i] ** -0.5
             out.append(gi * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1))
@@ -546,8 +729,35 @@ class OptaxOptimizer(_Factory):
         self.count += 1
         return True
 
+    def _factored_axis(self, key, p):
+        """The axis of Adafactor's factored moment `key` along which a
+        sharded parameter's piece splits it; None where the moment is the
+        same on every rank (its mean ran over the split axis)."""
+        dims = _factored_dims(_spec(p).full_shape)
+        if dims is None:
+            return None
+        removed = dims[1] if key == "v_row" else dims[0]
+        a = _spec(p).dim
+        return None if a == removed else (a if a < removed else a - 1)
+
+    def _whole_state(self, key, p, t):
+        spec = _spec(p)
+        if spec is not None and key in ("v_row", "v_col"):
+            axis = self._factored_axis(key, p)
+            return t if axis is None else all_gather_axis(t, axis, spec.group, spec.parts)
+        return _whole(p, t)
+
+    def _piece_state(self, key, p, t):
+        spec = _spec(p)
+        if spec is not None and key in ("v_row", "v_col"):
+            axis = self._factored_axis(key, p)
+            return t if axis is None else shard_of(t, axis, spec.index, spec.size, spec.parts)
+        return _piece(p, t)
+
     def _inner_state(self):
-        return {"rule": self.rule, "state": {k: list(v) for k, v in self.state.items()}}
+        return {"rule": self.rule, "state": {k: [self._whole_state(k, p, t)
+                                                 for p, t in zip(self.params, v)]
+                                             for k, v in self.state.items()}}
 
     def _load_inner_state(self, saved):
         if saved.get("rule") != self.rule or sorted(saved["state"]) != sorted(self.state):
@@ -557,7 +767,8 @@ class OptaxOptimizer(_Factory):
             if len(tensors) != len(self.params):
                 raise ValueError("the checkpoint's optimizer holds state for "
                                  f"{len(tensors)} parameters, this run has {len(self.params)}")
-            self.state[k] = [t.to(p.device) for t, p in zip(tensors, self.params)]
+            self.state[k] = [self._piece_state(k, p, t.to(p.device))
+                             for t, p in zip(tensors, self.params)]
 
 
 def create_optimizer(opt_name: str, named_params, lr_schedule, wd_schedule=None,

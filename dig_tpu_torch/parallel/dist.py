@@ -15,7 +15,12 @@ modeling_pretrain_moco_mim_ori.py:581-593):
 * `concat_all_gather` (no gradient), `all_reduce_sum` (an autograd
   Function whose backward is an all-reduce-sum too), `all_reduce_floats`,
   `mean_over_ranks` and `broadcast_floats` on the host, `broadcast_module` (rank 0's weights
-  at start-up), and `GradientReducer`.
+  at start-up), and `GradientReducer`; each over the world, or over the
+  process `group` given (a mesh axis, `parallel/mesh.py`);
+* `all_gather_axis`, `reduce_scatter_axis` and `all_reduce_copy`, the
+  collectives of sharded parameters and split layers
+  (`parallel/{sharding,tensor}.py`): NCCL keeps the tensors on the card,
+  gloo copies them through the host itself.
 
 Every collective is a no-op without a process group, so one process runs
 exactly the arithmetic it ran before this module existed; at world size 1
@@ -59,8 +64,15 @@ def get_rank() -> int:
     return dist.get_rank() if is_distributed() else 0
 
 
-def get_world_size() -> int:
-    return dist.get_world_size() if is_distributed() else 1
+def get_world_size(group=None) -> int:
+    """The ranks of `group` (the world by default); 1 alone."""
+    return dist.get_world_size(group) if is_distributed() else 1
+
+
+def _skip(group) -> bool:
+    """Whether a collective over `group` has nothing to do: no process
+    group, or a group of one rank."""
+    return not is_distributed() or dist.get_world_size(group) == 1
 
 
 def is_main_process() -> bool:
@@ -157,13 +169,13 @@ def destroy() -> None:
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def concat_all_gather(x: torch.Tensor) -> torch.Tensor:
+def concat_all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's `x` concatenated along dim 0 in rank order, without a
     gradient (the reference's `concat_all_gather`, for the momentum keys)."""
-    if not is_distributed():
+    if _skip(group):
         return x
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, x.contiguous())
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=0)
 
 
@@ -172,34 +184,97 @@ class _AllReduceSum(torch.autograd.Function):
     over ranks of the gradient of y, since every rank's loss reads y."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of `x` over the ranks, differentiable (its backward is an
-    all-reduce-sum as well); `x` itself alone."""
-    if not is_distributed():
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, differentiable (its
+    backward is an all-reduce-sum as well); `x` itself alone."""
+    if _skip(group):
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, group)
 
 
-def all_reduce_floats(values: Sequence[float], op: str = "sum") -> List[float]:
-    """Host numbers reduced over the ranks ("sum" or "max"), in float64;
-    the same numbers alone."""
-    if not is_distributed():
+def all_reduce_copy(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """The sum (or with `op` "max" the maximum) over `group` of `x`, as a new
+    tensor on x's device.  A tensor on the card goes to the backend as it
+    is: NCCL reduces it there, gloo through host memory of its own, four
+    times as fast for two ranks on one H100 as a float32 copy reduced on
+    the host (`tools/time_gloo_collectives.py`, PERF.md §5)."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=red, group=group)
+    return y
+
+
+@torch.no_grad()
+def all_gather_axis(x: torch.Tensor, dim: int, group=None, parts: int = 1) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim` in rank order; with `parts`
+    > 1, `x` along `dim` is `parts` equal pieces, and each piece is
+    gathered on its own (the result's piece i is the ranks' pieces i).
+    Without a gradient; on `x`'s device.  Floats go to the backend where
+    they are; other types (a batch's uint8 images and bool masks), which
+    gloo takes only on the host, through the host."""
+    if _skip(group):
+        return x
+    n = dist.get_world_size(group)
+    if x.is_floating_point() or dist.get_backend(group) == "nccl":
+        src = x.contiguous()
+    else:
+        src = x.detach().to("cpu").contiguous()
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, group=group)
+    if parts == 1:
+        full = torch.cat(out, dim=dim)
+    else:
+        pieces = [t.chunk(parts, dim=dim) for t in out]
+        full = torch.cat([pieces[r][i] for i in range(parts) for r in range(n)], dim=dim)
+    return full.to(x.device)
+
+
+def shard_of(full: torch.Tensor, dim: int, index: int, size: int, parts: int = 1) -> torch.Tensor:
+    """Rank `index`'s piece of `full` along `dim` among `size` ranks, the
+    inverse of `all_gather_axis` (a copy)."""
+    if size == 1:
+        return full
+    return torch.cat([piece.chunk(size, dim=dim)[index]
+                      for piece in full.chunk(parts, dim=dim)], dim=dim).contiguous()
+
+
+@torch.no_grad()
+def reduce_scatter_axis(x: torch.Tensor, dim: int, group=None, parts: int = 1) -> torch.Tensor:
+    """The sum over the ranks of `x`, of which this rank keeps its piece
+    along `dim` (`shard_of`).  Over gloo, an all-reduce on the host and a
+    slice (gloo has no reduce-scatter); over NCCL, a reduce-scatter."""
+    if _skip(group):
+        return x
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if dist.get_backend(group) == "nccl":
+        src = torch.stack([shard_of(x, dim, i, n, parts) for i in range(n)])
+        out = torch.empty_like(src[0])
+        dist.reduce_scatter_tensor(out, src, group=group)
+        return out
+    return shard_of(all_reduce_copy(x, group), dim, r, n, parts)
+
+
+def all_reduce_floats(values: Sequence[float], op: str = "sum", group=None) -> List[float]:
+    """Host numbers reduced over the ranks of `group` ("sum" or "max"), in
+    float64; the same numbers alone."""
+    if _skip(group):
         return [float(v) for v in values]
     t = torch.tensor([float(v) for v in values], dtype=torch.float64)
     t = t.to(_collective_device())
-    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op])
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
     return [float(v) for v in t.cpu()]
 
 
@@ -234,7 +309,11 @@ def broadcast_module(module: torch.nn.Module, src: int = 0) -> None:
 
 class GradientReducer:
     """The data-parallel gradient: for a fixed list of parameters, the sum
-    of every rank's gradients divided once by the world size.  One flat
+    of the gradients of `group`'s ranks (the world by default) divided once
+    by `divisor`, by default the group's size: the number of data-parallel
+    ranks, which under a mesh is not the world (`parallel/mesh.py`: the
+    FSDP-sharded parameters sum over ``data`` after their reduce-scatter
+    over ``fsdp`` and divide by both).  One flat
     buffer and one all-reduce per (dtype, device) group, the parameters in
     their fixed order, so every rank issues the same collectives.  The
     buffers and each parameter's view into them are made once and kept:
@@ -252,9 +331,11 @@ class GradientReducer:
 
     ALIGN_BYTES = 256
 
-    def __init__(self, params: Sequence[torch.Tensor]):
+    def __init__(self, params: Sequence[torch.Tensor], group=None,
+                 divisor: Optional[int] = None):
         self.params = list(params)
-        self.world = get_world_size()
+        self.group = group
+        self.divisor = get_world_size(group) if divisor is None else int(divisor)
         groups = {}
         for i, p in enumerate(self.params):
             groups.setdefault((p.dtype, p.device), []).append(i)
@@ -283,9 +364,9 @@ class GradientReducer:
                 torch._foreach_copy_([v for v, _ in given], [g for _, g in given])
             if missing:
                 torch._foreach_zero_(missing)
-            if is_distributed():
-                dist.all_reduce(flat)
-            flat.div_(self.world)
+            if not _skip(self.group):
+                dist.all_reduce(flat, group=self.group)
+            flat.div_(self.divisor)
             for i, v in zip(idx, views):
                 out[i] = v
         return out

@@ -40,7 +40,6 @@ from dig_tpu_torch.losses.seq_ce import (
 )
 from dig_tpu_torch.ops.images import to_model_images
 from dig_tpu_torch.ops.patchify import mim_pixel_targets
-from dig_tpu_torch.optim import global_norm
 from dig_tpu_torch.train.state import TrainState
 
 
@@ -70,8 +69,7 @@ def _backward_and_update(state: TrainState, loss, with_norm: bool = True):
     opt.zero_grad()
     loss.backward()
     opt.reduce_gradients()  # across data-parallel ranks, before the norm
-    grad_norm = (global_norm(p.grad for p in opt.params if p.grad is not None)
-                 if with_norm else None)
+    grad_norm = opt.grad_norm() if with_norm else None  # over the whole tensors under a mesh
     opt.step()
     state.step += 1
     return grad_norm

@@ -33,7 +33,6 @@ import torch
 from dig_tpu_torch.losses.infonce import info_nce_loss
 from dig_tpu_torch.ops.images import to_model_images
 from dig_tpu_torch.ops.patchify import mim_pixel_targets
-from dig_tpu_torch.optim import global_norm
 from dig_tpu_torch.train.state import TrainState, ema_update
 
 
@@ -117,7 +116,7 @@ def make_pretrain_step(model, momentum_schedule, contrast_weight_schedule,
         opt.zero_grad()
         loss.backward()
         opt.reduce_gradients()  # across data-parallel ranks, before the norm
-        metrics["grad_norm"] = global_norm(p.grad for p in opt.params if p.grad is not None)
+        metrics["grad_norm"] = opt.grad_norm()  # over the whole tensors under a mesh
         # filled on the device: torch.tensor(m, device=...) would copy from
         # pageable host memory, which waits for the card once a step
         metrics["moco_m"] = torch.full((), m, dtype=torch.float32, device=device)

@@ -30,7 +30,8 @@ def ema_update(pairs, momentum: float) -> None:
     """ema = m * ema + (1 - m) * param for every (student, momentum) module
     pair, in place (reference: modeling_pretrain_moco_mim_ori.py:428-442);
     the two products are rounded apart before the sum, as the JAX package
-    computes them."""
+    computes them.  Elementwise, so under a mesh it runs on each rank's
+    pieces: the momentum branch is sharded as the student is."""
     for student, ema in pairs:
         e = list(ema.parameters())
         p = [t.to(et.dtype) for t, et in zip(student.parameters(), e)]

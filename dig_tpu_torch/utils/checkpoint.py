@@ -28,7 +28,12 @@ Across data-parallel ranks `save_checkpoint` and `prune_checkpoints` are
 collectives: every rank calls them at the same point, rank 0 alone writes
 or deletes, and the others wait at a barrier until it has; so every rank
 that then lists `output_dir` (`--auto_resume`) or reads a path
-(`--resume`) finds the same checkpoint.
+(`--resume`) finds the same checkpoint.  Under a mesh that shards the
+parameters (`parallel/sharding.py`) every rank first gathers its pieces of
+the parameters and of the optimizer state (`full_state_dict`, the
+optimizer's `state_dict`), so rank 0 writes the whole tensors: the file is
+the one an unsharded run writes, byte for byte in its layout, and it
+restores into any mesh, each rank taking its pieces.
 
 Restoring puts back everything a step reads: the parameters, the momentum
 modules, AdamW's moments and step tensors, the optimizer's schedule index
@@ -72,6 +77,7 @@ import numpy as np
 import torch
 
 from dig_tpu_torch.parallel.dist import barrier, is_main_process
+from dig_tpu_torch.parallel.sharding import full_state_dict, load_full_state_dict
 from dig_tpu_torch.utils import native_ckpt
 
 PAYLOAD = "checkpoint.pth"
@@ -137,22 +143,23 @@ def save_checkpoint(output_dir: str, tag, state, extra: Optional[dict] = None) -
         path = _join(output_dir, f"checkpoint-{tag}")
     else:
         path = os.path.abspath(os.path.join(output_dir, f"checkpoint-{tag}"))
+    # every rank: the sharded pieces are gathered collectively
+    payload = {"model": full_state_dict(state.model), "optimizer": state.optimizer.state_dict(),
+               "step": int(state.step)}
     if is_main_process():
-        _write_checkpoint(path, state, extra)
+        _write_checkpoint(path, payload, extra)
     barrier()
     return path
 
 
-def _write_checkpoint(path: str, state, extra: Optional[dict]) -> None:
+def _write_checkpoint(path: str, payload: dict, extra: Optional[dict]) -> None:
     if is_remote(path):
         fs, root = _fs(path)
         fs.makedirs(root, exist_ok=True)
     else:
         os.makedirs(path, exist_ok=True)
-    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-               "step": int(state.step)}
     _write(path, PAYLOAD, lambda f: torch.save(payload, f))
-    meta = {"step": int(state.step)}
+    meta = {"step": payload["step"]}
     if extra:
         meta["extra"] = extra
     _write(path, "meta.json", lambda f: f.write(json.dumps(meta).encode()))  # last: the commit marker
@@ -189,7 +196,7 @@ def load_into_state(state, payload: dict):
     holds none: the flags of the resuming run decide."""
     if "native" in payload:
         return native_ckpt.load_into_state(state, payload)
-    state.model.load_state_dict(payload["model"])
+    load_full_state_dict(state.model, payload["model"])  # a sharded parameter takes its piece
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state

@@ -21,6 +21,7 @@ The sinusoid tables are recomputed at construction and never stored.
 
 from __future__ import annotations
 
+import re
 
 import numpy as np
 import torch
@@ -270,3 +271,136 @@ def load_pth(path: str, model_key: str = "model|module", model_prefix: str = "")
     return {k[len(model_prefix):]: v.float()
             for k, v in load_torch_checkpoint(path, model_key).items()
             if k.startswith(model_prefix)}
+
+
+# ---------------------------------------------------------------------------
+# the same mapping read backwards, for the sharding rules
+# ---------------------------------------------------------------------------
+
+# the pre-training model's top-level modules -> the JAX tree's subtree
+# (`moco_params_from_jax`'s two tables: the momentum copies sit at the same
+# paths of the EMA tree)
+_MOCO_TOPS = {"encoder": "encoder", "momentum_encoder": "encoder",
+              "encoder_projection_layer": "projection", "momentum_projection_layer": "projection",
+              "predictor": "predictor", "pix_projector": "pix_projector",
+              "pix_projector_m": "pix_projector", "patch_extractor": "patch_extractor",
+              "momentum_patch_extractor": "patch_extractor", "pix_decoder": "pix_decoder"}
+_TOKENS = ("mask_token", "pos_embed", "cls_token", "cls_type_emb", "vis_type_emb", "mem_bank")
+_GRU_DENSE = {"attention_unit.sEmbed": "s_embed", "attention_unit.xEmbed": "x_embed",
+              "attention_unit.wEmbed": "w_embed", "fc": "fc"}
+_PIX_DECODER = {"0": "fc0", "1": "fc1", "4": "head"}
+
+
+def _subtree_path(kind: str, rest: str):
+    """(path below the subtree, layout) of a >= 2-D leaf `rest` of a
+    subtree converted by `kind`'s function above; layout is "dense" (torch
+    [out, in] of flax's [in, out] kernel), "same", "patch", "conv" or "gru";
+    None where the key has no counterpart."""
+    if kind == "encoder":
+        if rest == "patch_embed.proj.weight":
+            return ("patch_embed", "proj", "kernel"), "patch"
+        if rest in _TOKENS:
+            return (rest,), "same"
+        if rest == "head.weight":
+            return ("head", "kernel"), "dense"
+        m = re.fullmatch(r"blocks\.(\d+)\.(attn\.qkv|attn\.proj|mlp\.fc1|mlp\.fc2)\.weight", rest)
+        if m:
+            sub = {"attn.qkv": ("attn", "qkv_kernel"), "attn.proj": ("attn", "proj", "kernel"),
+                   "mlp.fc1": ("mlp", "Dense_0", "kernel"),
+                   "mlp.fc2": ("mlp", "Dense_1", "kernel")}[m.group(2)]
+            return (f"blocks_{m.group(1)}",) + sub, "dense"
+        return None
+    if kind == "mlp_head":
+        m = re.fullmatch(r"(\d+)\.weight", rest)
+        return ((f"dense_{int(m.group(1)) // 3}", "kernel"), "dense") if m else None
+    if kind == "patch_extractor":
+        m = re.fullmatch(r"blocks\.(\d+)\.(attn\.linear_[qkv]|attn\.proj|mlp\.fc[12])\.weight",
+                         rest)
+        if m:
+            mod = m.group(2)
+            sub = ((f"{mod[-1]}_kernel",) if mod.startswith("attn.linear_") else
+                   ("proj", "kernel") if mod == "attn.proj" else
+                   ("mlp", f"Dense_{int(mod[-1]) - 1}", "kernel"))
+            return (f"blocks_{m.group(1)}",) + sub, "dense"
+        m = re.fullmatch(r"conv_layers\.(\d+)\.0\.weight", rest)
+        if m:
+            return (f"c{int(m.group(1)) // 2}_conv", "kernel"), "conv"
+        m = re.fullmatch(r"patches2global\.([03])\.weight", rest)
+        return ((f"p2g_dense{int(m.group(1)) // 3}", "kernel"), "dense") if m else None
+    if kind == "pix_decoder":
+        m = re.fullmatch(r"(\d)\.weight", rest)
+        return ((_PIX_DECODER[m.group(1)], "kernel"), "dense") if m else None
+    if kind == "linear_norm":
+        return (("dense", "kernel"), "dense") if rest == "0.weight" else None
+    if kind == "sequential":
+        m = re.fullmatch(r"(\d+)\.weight", rest)
+        return ((f"layers_{m.group(1)}", "kernel"), "dense") if m else None
+    if kind == "multi_label":
+        if rest == "cls_queries":
+            return ("cls_queries",), "same"
+        return (("presence", "kernel"), "dense") if rest == "presence.weight" else None
+    if kind == "decoder":
+        if rest.startswith("decoder."):  # the GRU head (`attn_head_from_jax`)
+            rest = rest[len("decoder."):]
+            if rest == "tgt_embedding.weight":
+                return ("tgt_embedding", "embedding"), "same"
+            if rest in ("gru.weight_ih_l0", "gru.weight_hh_l0"):
+                return ("gru", "ir" if "_ih_" in rest else "hr", "kernel"), "gru"
+            name = rest[:-len(".weight")]
+            return ((_GRU_DENSE[name], "kernel"), "dense") if name in _GRU_DENSE else None
+        if rest in ("trg_word_emb.weight", "order_enc.weight"):
+            return (rest.split(".")[0], "embedding"), "same"
+        if rest == "classifier.weight":
+            return ("classifier", "kernel"), "dense"
+        m = re.fullmatch(r"layer_stack\.(\d+)\.(.+)\.weight", rest)
+        if not m:
+            return None
+        i, mod = m.groups()
+        m2 = re.fullmatch(r"mlp_order2cls_attn\.([03])", mod)
+        if m2:
+            return (f"order2cls_{i}", f"Dense_{int(m2.group(1)) // 3}", "kernel"), "dense"
+        if mod == "new_linear_v":
+            return (f"new_linear_v_{i}", "kernel"), "dense"
+        return (f"layers_{i}",) + tuple(mod.split(".")) + ("kernel",), "dense"
+    return None
+
+
+def _subtree_kind(top: str) -> str:
+    if top in ("projection", "predictor", "pix_projector", "feat_proj"):
+        return "mlp_head"
+    if top in ("pix_head", "mim_proj"):
+        return "sequential"
+    return top
+
+
+def jax_leaf(key: str, shape):
+    """Where a >= 2-D port parameter comes from in the JAX package's tree,
+    read backwards off the converters above: (JAX path, JAX shape, the port
+    axis of each JAX axis, parts).  The path starts at the parameter tree's
+    top (the momentum branch's keys at their place in the EMA tree, whose
+    paths are the student's).  An axis that the port splits into several
+    (the patch projection's flattened p * p * C) maps to None.  `parts` is 3
+    for the GRU's gate matrices, the concatenation of three JAX leaves
+    along port axis 0 (the path is the first gate's), else 1.  Raises
+    KeyError for a key with no counterpart."""
+    shape = tuple(int(s) for s in shape)
+    top, _, rest = key.partition(".")
+    jtop = _MOCO_TOPS.get(top, top)
+    if rest == "weight" and len(shape) == 2:  # a Dense at the top: fc0, head
+        found = ("kernel",), "dense"
+    else:
+        found = _subtree_path(_subtree_kind(jtop), rest)
+    if found is None:
+        raise KeyError(f"no JAX counterpart for the port parameter {key!r} {list(shape)}")
+    path, layout = found
+    path = (jtop,) + path
+    if layout == "dense":
+        return path, (shape[1], shape[0]), (1, 0), 1
+    if layout == "same":
+        return path, shape, tuple(range(len(shape))), 1
+    if layout == "patch":  # [D, C, p, p] <- [p * p * C, D]
+        return path, (shape[1] * shape[2] * shape[3], shape[0]), (None, 0), 1
+    if layout == "conv":  # [out, in, 3, 3] <- [3, 3, in, out]
+        return path, (shape[2], shape[3], shape[1], shape[0]), (2, 3, 1, 0), 1
+    # gru: [3 h, in] <- three [in, h]
+    return path, (shape[1], shape[0] // 3), (1, 0), 3

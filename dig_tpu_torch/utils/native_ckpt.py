@@ -193,10 +193,11 @@ def load_into_state(state, payload: dict, patch_size: int = 4):
     concatenations carry them too) and step tensors, the optimizer's count,
     under `--update_freq` its running mean, and the step counter."""
     from dig_tpu_torch.optim import AdamW
+    from dig_tpu_torch.parallel.sharding import load_full_state_dict, local_view
 
     trees = payload["native"]
     pretrain = hasattr(state.model, "reset_momentum")
-    state.model.load_state_dict(model_state_dict(trees, pretrain, patch_size))
+    load_full_state_dict(state.model, model_state_dict(trees, pretrain, patch_size))
     opt = state.optimizer
     inner, count, multi = _adam_state(trees["opt_state"])
     if not isinstance(opt, AdamW):
@@ -209,12 +210,13 @@ def load_into_state(state, payload: dict, patch_size: int = 4):
     for name, p in zip(opt.names, opt.params):
         opt.inner.state[p] = {"step": torch.tensor(float(np.asarray(inner.field("count"))),
                                                    dtype=step_dtype),
-                              "exp_avg": mu[name].to(p.device, p.dtype),
-                              "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+                              "exp_avg": local_view(p, mu[name].to(p.device, p.dtype)),
+                              "exp_avg_sq": local_view(p, nu[name].to(p.device, p.dtype))}
     opt.count = count
     if multi is not None and opt.update_freq > 1:
         acc = to_sd(multi.field("acc_grads"))
-        opt.acc = [acc[name].to(p.device, p.dtype) for name, p in zip(opt.names, opt.params)]
+        opt.acc = [local_view(p, acc[name].to(p.device, p.dtype))
+                   for name, p in zip(opt.names, opt.params)]
         opt.mini_step = int(np.asarray(multi.field("mini_step")))
     state.step = int(payload["step"])
     return state

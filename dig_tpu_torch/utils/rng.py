@@ -12,6 +12,11 @@ Streams as the pre-training CLI uses them: 0 = the train step (drop-path),
 Data-parallel ranks draw from streams of their own: the rank enters the
 key's high word (`_RANK`), so ranks drop out, drop paths, mask and augment
 differently, and rank 0's key is the single process's, word for word.
+Under a mesh (`parallel/mesh.py`) the CLIs key the step's stream (0) by the
+data-parallel index, so tensor peers, which compute on the same rows, draw
+the same dropout and drop-path masks (a split layer draws the whole mask
+and keeps its heads' or columns' slice, `models/layers.py::dropout`); the
+view generators' stream (1) stays keyed by the rank, on its own rows.
 
 torch's Philox and JAX's threefry are different generators: the two
 packages agree on the *key*, not on the numbers drawn from it.

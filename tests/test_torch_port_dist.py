@@ -4,9 +4,10 @@ step jitted over a 2-device CPU mesh (the conftest gives JAX 8 host
 devices).
 
 Each scenario launches its two ranks once, as subprocesses
-(`tests/_torch_port_dist_worker.py`, a free port, a time limit, one retry
-when gloo's rendezvous misses its own deadline, as tests/test_multiprocess.py
-launches its hosts), and the tests below read the results it saved:
+(`tests/_torch_port_dist_worker.py`, through tests/_torch_port_ranks.py: a
+free port, a time limit, one retry when gloo's rendezvous misses its own
+deadline, as tests/test_multiprocess.py launches its hosts), and the tests
+below read the results it saved:
 
 * ``steps``: the pre-training step (2 ranks x 4 images against 8), the
   fine-tuning step (2 x 2 against 4) and two fine-tuning micro-steps under
@@ -28,8 +29,6 @@ JAX the tolerances are those of the one-process parity tests
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import jax
@@ -39,6 +38,7 @@ import optax
 import pytest
 import torch
 
+import _torch_port_ranks as launch
 from dig_tpu.losses import infonce as jinfonce
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
@@ -62,10 +62,6 @@ from dig_tpu_torch.utils.rng import step_generator
 
 WORLD = 2
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_port_dist_worker.py")
-LAUNCH_TIMEOUT = 240  # seconds a scenario's ranks may take
-# gloo's rendezvous has a fixed internal deadline; on a loaded box the two
-# ranks can miss it: retry the whole launch once
-INFRA_FLAKE = "Gloo context initialization failed"
 
 # a pre-training model of one block, width 64 (the micro encoder's), and
 # the fine-tuning recognizer vit_micro + small_tf_decoder
@@ -78,48 +74,14 @@ LAYER_DECAY, FROZEN, SMOOTHING, CLIP = 0.75, 1, 0.1, 0.5
 ONE_PROCESS_RTOL = 1e-5
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _start(scenario, root):
-    port = _free_port()
-    env = dict(os.environ)
-    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
-        env.pop(var, None)
-    return [subprocess.Popen([sys.executable, WORKER, scenario, str(root), str(rank),
-                              str(WORLD), str(port)], env=env, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True)
-            for rank in range(WORLD)]
-
-
-def _wait(procs):
-    outputs = []
-    try:
-        for p in procs:
-            outputs.append(p.communicate(timeout=LAUNCH_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return outputs
+    return launch.start(scenario, root, WORLD, WORKER)
 
 
 def _finish(scenario, root, procs):
     """Wait for the ranks (relaunching once after gloo's rendezvous flake)
     and load what each saved."""
-    for attempt in range(2):
-        outputs = _wait(procs)
-        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
-        if attempt == 0 and failed and any(INFRA_FLAKE in o for o in outputs):
-            procs = _start(scenario, root)
-            continue
-        assert not failed, "\n".join(f"rank {r}:\n{outputs[r][-4000:]}" for r in failed)
-        return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False)
-                for r in range(WORLD)]
+    return launch.finish(scenario, root, procs, WORKER)
 
 
 def _perturb(tree, seed, scale=0.05):

@@ -548,8 +548,9 @@ REFUSALS = {
     "distill_kind": (["--use_feat_distill", "--teacher_ckpt", "t", "--model_kind", "ctc"],
                      ValueError, "requires --model_kind rec"),
     "opt": (["--opt", "lamb_x"], ValueError, "Invalid optimizer 'lamb_x'"),  # as dig_tpu
-    "n_fsdp": (["--n_fsdp", "2"], NotImplementedError, "n_fsdp"),
-    "n_tensor": (["--n_tensor", "2"], NotImplementedError, "n_tensor"),
+    # a mesh the world (one process here) does not divide, as dig_tpu's assert
+    "n_fsdp": (["--n_fsdp", "2"], ValueError, r"mesh \?x2x1 does not divide 1 devices"),
+    "n_tensor": (["--n_tensor", "2"], ValueError, r"mesh \?x1x2 does not divide 1 devices"),
     "resume_pth": (["--resume", "x.pth"], ValueError, "--finetune"),
 }
 
@@ -560,6 +561,41 @@ def test_cli_refuses_what_is_not_ported(what, data, tmp_path):
     with pytest.raises(exc, match=word):
         tcli.main(_port_cfg(data, tmp_path / "out", *argv), device="cpu")
     assert not os.path.exists(tmp_path / "out")  # refused before anything is written
+
+
+SHARDED = {"n_fsdp": ["--n_fsdp", "2"], "n_tensor": ["--n_tensor", "2", "--dist_eval"]}
+
+
+@pytest.mark.parametrize("what", sorted(SHARDED))
+def test_cli_shards_on_two_gloo_ranks(what, data, tmp_path):
+    """`--n_fsdp 2` / `--n_tensor 2` under torchrun on two gloo ranks on
+    the CPU (tests/_torch_port_ranks.py): an epoch of 2 steps at 2 x 4 rows and
+    its eval pass (the sharded parameters gathered, every layer whole;
+    under `--dist_eval` each data-parallel rank scores its share).  The
+    eval's accuracy and loss are one process's `--eval` of the checkpoint
+    the run wrote, to the 4 decimals the line prints."""
+    import _torch_port_ranks as launch
+
+    out = tmp_path / "out"
+    argv = MODEL + RECIPE + [
+        "--data_path", data["train"], "--eval_data_path", data["eval"], "--finetune",
+        data["pth"], "--batch_size", "4", "--epochs", "1", "--output_dir", str(out),
+        *SHARDED[what]]
+    torch.save({"runs": [("finetune", argv)]}, tmp_path / "inputs.pt")
+    ranks = launch.torchrun("cli", tmp_path, 2)
+    assert [r["steps"] for r in ranks] == [[N_TRAIN // GLOBAL_BATCH]] * 2
+    screen = (out / "screen.txt").read_text()
+    fsdp, tensor = (2, 1) if what == "n_fsdp" else (1, 2)
+    assert f"mesh: {{'data': 1, 'fsdp': {fsdp}, 'tensor': {tensor}}}" in screen
+    line = [x for x in screen.splitlines() if x.startswith(f"* {data['eval']}:")][-1]
+    one = tmp_path / "one"
+    results = tcli.main(_port_cfg(data, one, "--eval", "--resume", str(out / "checkpoint-0"),
+                                  "--finetune", "", "--exact_gelu", "true"), device="cpu")
+    assert results[0]["n"] == N_EVAL
+    assert results[0]["acc"] == _log(out)[-1]["val_acc"]
+    want = [x for x in (one / "screen.txt").read_text().splitlines()
+            if x.startswith(f"* {data['eval']}:")][-1]
+    assert line == want
 
 
 def test_cli_refuses_dist_eval_across_processes(data, tmp_path, monkeypatch):

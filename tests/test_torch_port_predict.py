@@ -245,6 +245,7 @@ def test_port_imports_neither_jax_nor_dig_tpu():
             "dig_tpu_torch/utils/profiling.py", "dig_tpu_torch/metrics/text.py",
             "dig_tpu_torch/models/decoder.py", "dig_tpu_torch/ops/images.py",
             "dig_tpu_torch/parallel/dist.py", "dig_tpu_torch/parallel/mesh.py",
+            "dig_tpu_torch/parallel/sharding.py", "dig_tpu_torch/parallel/tensor.py",
             "dig_tpu_torch/cli/run_pretrain_multihost.py"} <= names
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "dig_tpu")]

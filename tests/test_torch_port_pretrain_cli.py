@@ -313,21 +313,55 @@ def test_cli_sigterm_checkpoints_at_the_step_boundary_and_exits_0(lmdb_path, tmp
 
 
 REFUSALS = {
-    "n_fsdp": (["--n_fsdp", "2"], NotImplementedError, "(?s)n_fsdp.*ROADMAP.md"),
-    "n_tensor": (["--n_tensor", "2"], NotImplementedError, "(?s)n_tensor.*ROADMAP.md"),
+    # a mesh the world (one process here) does not divide, as dig_tpu's assert
+    "n_fsdp": (["--n_fsdp", "2"], ValueError, r"mesh \?x2x1 does not divide 1 devices"),
+    "n_tensor": (["--n_tensor", "2"], ValueError, r"mesh \?x1x2 does not divide 1 devices"),
     "opt": (["--opt", "lamb_x"], ValueError, "Invalid optimizer 'lamb_x'"),  # as dig_tpu
 }
 
 
 @pytest.mark.parametrize("what", sorted(REFUSALS))
 def test_cli_refuses_what_is_not_ported(what, lmdb_path, tmp_path):
-    """Parameter sharding is not ported; an optimizer name `dig_tpu` does
-    not know is refused as `dig_tpu` refuses it.  Every other option runs
-    (`test_cli_runs_the_options_dig_tpu_runs`)."""
+    """What `dig_tpu` refuses is refused as it refuses it: a mesh the world
+    does not divide, an optimizer name it does not know.  Every other
+    option runs (`test_cli_runs_the_options_dig_tpu_runs`, and the mesh
+    axes on two ranks: `test_cli_shards_on_two_gloo_ranks`)."""
     argv, exc, word = REFUSALS[what]
     with pytest.raises(exc, match=word):
         tcli.main(_port_cfg(lmdb_path, tmp_path / "out", *argv), device="cpu")
     assert not os.path.exists(tmp_path / "out")  # refused before anything is written
+
+
+# --moco_mlp_dim 256: the projection's 256 x 256 kernel reaches the FSDP
+# rule's 2**16 elements (nothing else of the micro model does)
+SHARDED = {"n_fsdp": ["--n_fsdp", "2", "--moco_mlp_dim", "256"], "n_tensor": ["--n_tensor", "2"]}
+
+
+@pytest.mark.parametrize("what", sorted(SHARDED))
+def test_cli_shards_on_two_gloo_ranks(what, lmdb_path, tmp_path):
+    """`--n_fsdp 2` / `--n_tensor 2` under torchrun on two gloo ranks on
+    the CPU (tests/_torch_port_ranks.py): an epoch of 4 steps at 2 x 4 rows,
+    the mesh in screen.txt, a finite loss, and a checkpoint of whole
+    tensors that one process restores."""
+    import _torch_port_ranks as launch
+
+    out = tmp_path / "out"
+    argv = COMMON + ["--image_alone_path", lmdb_path, "--batch_size", "4", "--epochs", "1",
+                     "--output_dir", str(out)] + SHARDED[what]
+    torch.save({"runs": [("pretrain", argv)]}, tmp_path / "inputs.pt")
+    ranks = launch.torchrun("cli", tmp_path, 2)
+    assert [r["steps"] for r in ranks] == [[4], [4]]
+    fsdp, tensor = (2, 1) if what == "n_fsdp" else (1, 2)
+    assert (f"mesh: {{'data': 1, 'fsdp': {fsdp}, 'tensor': {tensor}}}"
+            in (out / "screen.txt").read_text())
+    assert all(np.isfinite(line["train_loss"]) for line in _log(out))
+    cfg = _port_cfg(lmdb_path, tmp_path / "one", *SHARDED[what][2:])
+    model = build_pretrain_model(NAME, seed=0, device="cpu", mlp_dim=cfg.moco_mlp_dim, dim=16,
+                                 num_windows=4)
+    state = init_pretrain_state(model, create_optimizer("adamw", model.named_parameters(),
+                                                        [1e-3], [0.05]))
+    ckpt.load_into_state(state, ckpt.restore_checkpoint(str(out / "checkpoint-0")))
+    assert state.step == 4
 
 
 OPTIONS = ["--opt", "lamb", "--patchnet_name", "conv", "--remat"]
