@@ -36,17 +36,19 @@
 5. Runs the pre-training step (`make_pretrain_step`) at full width
    (pretrain_simmim_moco_ori_vit_small_patch4_32x128, bf16, batch 128,
    random weights from a seed, the CLI's default schedules): 3 warm-up
-   steps, 10 timed; asserts the launches per step of every kernel (24 / 12
+   steps, then 10 (timed by item 15's `[bench_torch pretrain]`, not here);
+   asserts the launches per step of every kernel (24 / 12
    stored-statistics attention forward / backward, 48 / 24 LayerNorm
    forward / backward), a finite loss, a finite gradient on every student
    parameter, and that the parameters and the momentum branch moved.  Then
    the same under the JAX package's opt-in switches
    DIG_TPU_ATTN_STORE_LSE=0 and DIG_TPU_FUSED_BIAS_GRAD=1, with
    DIG_TPU_ATTN_BF16_EXP off and on: 24 / 12 recompute attention forward /
-   backward and 14 column sums a step instead.
+   backward and 14 column sums a step instead, the switches' steps timed
+   and profiled (with the bf16 exponent: checked only).
 6. Checks one fp32 pre-training step of the full-width model at batch 2
    on the card against the same step on the CPU, as is and under the
-   switches, and profiles one bf16 step.
+   switches.
 7. Runs the fine-tuning step (`make_finetune_step`) at the FinetuneConfig
    defaults (vit_small_patch4_32x128 + tf_decoder, bf16, batch 256,
    dropout, attention dropout and drop-path on, label smoothing 0.1, AdamW
@@ -162,7 +164,19 @@
    for 2 epochs, its last checkpoint resumed by one process bit for bit;
    `run_finetune.main --n_tensor 2` from item 9's checkpoint, 1 epoch +
    eval, its eval line equal to one process's `--eval` of its checkpoint.
-15. Prints one JSON line describing every kernel, then as the last line
+15. `[export pth]` (in item 10's directory): `dig_tpu_torch.tools.export_pth`
+   on item 9's last pre-training checkpoint (`--encoder_only`, and with
+   `--ema`) and item 10's fine-tuning checkpoint, every tensor equal to the
+   checkpoint's; each .pth fed back through `run_finetune --eval --finetune`
+   (and the recognizer's through `run_predict --finetune`), its ids equal
+   to its source's.  `[bench_torch]`: `python bench_torch.py` as a child in
+   each of its four modes at its defaults: bench.py's keys and the card's
+   name and power limit, value > 0, 0 < mfu <= 1 (pretrain, finetune), each
+   part of the breakdown > 0 and the step's busy time within its wall
+   time (the step time and idle share of item 5's step), and the launches a step
+   each child reports (pretrain and input's bare step 24 / 12 / 48 / 24,
+   finetune at attention dropout 0 12 / 12 / 24 / 24, an eval batch 12 / 24).
+16. Prints one JSON line describing every kernel, then as the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
@@ -428,6 +442,7 @@ def phase_predict(torch, np):
     from dig_tpu_torch.cli.run_predict import make_predict_fn, predict_batches
     from dig_tpu_torch.models.rec_model import build_rec_model
     from dig_tpu_torch.utils.charset import build_charset
+    from dig_tpu_torch.utils.profiling import profile_fn
 
     charset = build_charset("ALLCASES_SYMBOLS", 25)
     model = build_rec_model("vit_small_patch4_32x128", "tf_decoder", charset.num_classes, 25,
@@ -466,7 +481,7 @@ def phase_predict(torch, np):
         enc_ms = time_ms(lambda: model.linear_norm(model.encoder(x)), iters=3, warmup=1)
         feats = model.linear_norm(model.encoder(x))
         dec_ms = time_ms(lambda: model.decoder.greedy_decode(feats), iters=3, warmup=1)
-    top, busy_ms, wall_ms = profile_fn(torch, lambda: predict_fn(x_u8))
+    top, busy_ms, wall_ms = profile_fn(lambda: predict_fn(x_u8))
     for name, ms in top:
         print(f"[profile] {ms:9.3f} ms  {name[:100]}")
     print(f"[profile] one batch: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
@@ -602,6 +617,7 @@ def phase_device_view(torch, np, db):
     from dig_tpu_torch.data.device_aug import affine_mats, batched_affine_warp, draw_augment_params
     from dig_tpu_torch.data.pipeline import make_train_loader
     from dig_tpu_torch.train.pretrain import make_device_view_fn
+    from dig_tpu_torch.utils.profiling import profile_fn
     from dig_tpu_torch.utils.rng import step_generator
 
     ds = build_pretraining_dataset([db], num_view=1, rng=np.random.default_rng(0))
@@ -642,7 +658,7 @@ def phase_device_view(torch, np, db):
 
     steps = iter(range(1, 1000))
     ms = time_ms(lambda: view_fn(step_generator(1, 1, next(steps), "cuda"), x), iters=20)
-    _, busy_ms, wall_ms = profile_fn(torch, lambda: view_fn(step_generator(1, 1, 0, "cuda"), x))
+    _, busy_ms, wall_ms = profile_fn(lambda: view_fn(step_generator(1, 1, 0, "cuda"), x))
     print(f"[device view] batch {PRE_BATCH}, uint8 -> images, aug_images, mask [{PRE_BATCH}, 2, {L}] "
           f"with {PRE_MASKED} masked a view; {changed} views changed; fp32 card vs CPU under one "
           f"set of draws (gates on: {gates}): max abs err {err:.3e} (atol {VIEW_ATOL}; the "
@@ -882,6 +898,7 @@ def phase_finetune_data(torch, np, d, paths, pre_ckpt, db, pre_ref):
     phase_finetune_cli_opt(torch, d, pre_ckpt)
     paths["finetune_eval_sweep"] = phase_finetune_eval_sweep(torch, np, d, ft_out)
     paths["kinds_cli"] = phase_kinds_cli(torch, np, d, ft_out)
+    phase_export_pth(torch, d, pre_ckpt, ft_out)
     paths["ddp_pretrain_cli"], paths["ddp_finetune_cli"] = phase_ddp_clis(
         torch, d, db, pre_ckpt, pre_ref, ft_ref)
     phase_sharded_cli(torch, d, db, pre_ckpt)
@@ -1913,6 +1930,7 @@ def phase_device_abi_aug(torch, np, d):
     from dig_tpu_torch.data.dataset import build_dataset
     from dig_tpu_torch.data.pipeline import make_train_loader
     from dig_tpu_torch.ops.images import to_model_images
+    from dig_tpu_torch.utils.profiling import profile_fn
     from dig_tpu_torch.utils.rng import step_generator
 
     ds = build_dataset([os.path.join(d, "labelled")], is_train=True)
@@ -1946,7 +1964,7 @@ def phase_device_abi_aug(torch, np, d):
     steps = iter(range(1, 1000))
     ms = time_ms(lambda: aug.device_abi_augment(step_generator(1, 1, next(steps), "cuda"), x),
                  iters=20)
-    _, busy_ms, wall_ms = profile_fn(torch, lambda: aug.device_abi_augment(
+    _, busy_ms, wall_ms = profile_fn(lambda: aug.device_abi_augment(
         step_generator(1, 1, 0, "cuda"), x))
     print(f"[device abi aug] batch {FT_BATCH} of word images: {changed} views changed; card vs "
           f"CPU under one set of draws, fp32, on smooth images: max abs err {errs[0]:.3e} "
@@ -2097,6 +2115,111 @@ def phase_finetune_eval_sweep(torch, np, d, ft_out):
     return counts_all
 
 
+@contextlib.contextmanager
+def eval_ids(log):
+    """Wrap `run_finetune.make_eval_step` so that the ids of every eval
+    batch it returns are appended to `log`, on the host."""
+    from dig_tpu_torch.cli import run_finetune
+
+    real = run_finetune.make_eval_step
+
+    def factory(*a, **k):
+        fn = real(*a, **k)
+
+        def run(batch):
+            out = fn(batch)
+            log.append(out[0].cpu())
+            return out
+        return run
+
+    run_finetune.make_eval_step = factory
+    try:
+        yield log
+    finally:
+        run_finetune.make_eval_step = real
+
+
+def eval_run_ids(torch, d, tag, source_argv):
+    """`run_finetune.main --eval` on the eval LMDB with `source_argv` (the
+    weights' flags): the ids of its eval batches, concatenated."""
+    ids = []
+    argv = ["--eval", "--eval_data_path", os.path.join(d, "labelled_eval"), "--output_dir",
+            os.path.join(d, "export", tag.replace(" ", "_")), *source_argv]
+    with eval_ids(ids):
+        _, _, evals, _, _ = run_finetune_cli(torch, f"export pth {tag}", argv)
+    check_each(f"export pth {tag}", "eval batch", evals, FT_EVAL_BATCH)
+    return torch.cat(ids)
+
+
+def phase_export_pth(torch, d, pre_ckpt, ft_out):
+    """`python -m dig_tpu_torch.tools.export_pth` as a user runs it, on the
+    pre-training CLI's last checkpoint (`--encoder_only`, and `--encoder_only
+    --ema`) and on the fine-tuning CLI's: the tensors against the
+    checkpoint's, then each .pth fed back through `run_finetune --finetune`
+    (and the recognizer's through `run_predict --finetune`), its ids against
+    those of the source checkpoint (tanh GELU kept with `--exact_gelu
+    false`: the source runs trained under it)."""
+    from dig_tpu_torch.cli.run_predict import main as predict_main
+    from dig_tpu_torch.config import parse_config
+    from dig_tpu_torch.tools import export_pth
+    from dig_tpu_torch.utils.checkpoint import _write_checkpoint, restore_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(d, "export")
+    os.makedirs(root, exist_ok=True)
+    pths = {name: os.path.join(root, f"{name}.pth") for name in ("encoder", "ema", "recognizer")}
+    t0 = time.perf_counter()
+    export_pth.main([pre_ckpt, pths["encoder"], "--encoder_only"])
+    export_pth.main([pre_ckpt, pths["ema"], "--encoder_only", "--ema"])
+    ft_ckpt = os.path.join(ft_out, f"checkpoint-{FT_CLI_EPOCHS - 1}")
+    export_pth.main([ft_ckpt, pths["recognizer"]])
+    export_s = time.perf_counter() - t0
+    pre, ft = restore_checkpoint(pre_ckpt)["model"], restore_checkpoint(ft_ckpt)["model"]
+    wants = {"encoder": {k: v for k, v in pre.items() if k.startswith("encoder.")},
+             "ema": {k[len("momentum_"):]: v for k, v in pre.items()
+                     if k.startswith("momentum_encoder.")},
+             "recognizer": ft}
+    sizes = {}
+    for name, want in wants.items():
+        got = torch.load(pths[name], weights_only=True)["model"]
+        check(sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want),
+              f"[export pth] {name}.pth: {len(got)} tensors, not the checkpoint's {len(want)}")
+        sizes[name] = len(got)
+    # the momentum encoder as a directory's encoder: the source the --ema .pth is held to
+    momentum_dir = os.path.join(root, "momentum_as_encoder")
+    _write_checkpoint(momentum_dir, {"model": wants["ema"], "step": 0}, None)
+    tanh = ["--exact_gelu", "false"]
+    pairs = {"encoder": (["--finetune", pre_ckpt], ["--finetune", pths["encoder"], *tanh]),
+             "ema": (["--finetune", momentum_dir], ["--finetune", pths["ema"], *tanh]),
+             "recognizer": (["--resume", ft_ckpt], ["--finetune", pths["recognizer"], *tanh])}
+    rows = {}
+    for name, (source, exported) in pairs.items():
+        a = eval_run_ids(torch, d, f"{name} source", source)
+        b = eval_run_ids(torch, d, f"{name} pth", exported)
+        check(torch.equal(a, b), f"[export pth] {name}: the .pth's eval ids differ from the "
+              f"source's in {int((a != b).any(1).sum())} of {len(a)} rows")
+        rows[name] = len(a)
+    tsvs = []
+    for flags in (["--resume", ft_ckpt], ["--finetune", pths["recognizer"], *tanh]):
+        tsv = os.path.join(root, f"predict{len(tsvs)}.tsv")
+        predict_main(parse_config(argv=["--data_path", os.path.join(d, "labelled_eval"),
+                                        "--output", tsv, *flags]))
+        with open(tsv) as f:
+            tsvs.append(f.read())
+    check(tsvs[0] == tsvs[1] and tsvs[0].count("\n") == FT_CLI_EVAL_RECORDS,
+          "[export pth] run_predict --finetune of the .pth differs from --resume of its source")
+    print(f"[export pth] dig_tpu_torch.tools.export_pth: the pre-training CLI's "
+          f"{os.path.basename(pre_ckpt)} --encoder_only ({sizes['encoder']} tensors) and "
+          f"--encoder_only --ema ({sizes['ema']}), the fine-tuning CLI's "
+          f"checkpoint-{FT_CLI_EPOCHS - 1} ({sizes['recognizer']}) in {export_s:.2f} s, each "
+          f"tensor equal to the checkpoint's; run_finetune --eval --finetune <.pth> "
+          f"--exact_gelu false: the ids of {rows} eval rows equal to the source's (--finetune "
+          f"the pre-training directory, a directory of its momentum encoder, --resume the "
+          f"fine-tuning checkpoint); run_predict --finetune <recognizer .pth>: the TSV of "
+          f"{FT_CLI_EVAL_RECORDS} records equal to --resume's; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def sync_sites(caught):
     """{file:line of the Python call: count} of the host waits that
     `torch.cuda.set_sync_debug_mode("warn")` reported in `caught`."""
@@ -2225,40 +2348,6 @@ def stop_children(wait_s=10.0):
         with contextlib.suppress(OSError):
             os.kill(int(proc.split()[0]), 9)
     return left
-
-
-PROFILE_TRIES = 3  # profiler sessions a profiled call may take (see profile_fn)
-
-
-def profile_fn(torch, fn, n_top=10):
-    """Device time by kernel over one call of `fn` (torch.profiler, CUPTI):
-    the top kernels, the device's busy time and the host wall time.  A
-    session that records no device event at all is taken again, up to
-    PROFILE_TRIES sessions: on an NVIDIA H100 one session in a whole run of
-    this script has come back without any device event (the `[device
-    view]` profile, which passes in other runs), a fault of the tracer and
-    not of the call, which runs its kernels either way."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device-side events only: a host op's device time repeats its
-        # kernels', and so does the optimizer's annotation, which the trace
-        # mirrors onto the device's timeline
-        rows = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-                and not e.key.startswith("Optimizer.")]
-        if rows:
-            break
-    check(rows, f"the profiler saw no device time in {PROFILE_TRIES} sessions")
-    rows.sort(key=lambda r: -r[1])
-    return rows[:n_top], sum(ms for _, ms in rows), wall_ms
 
 
 def phase_cpu_parity(torch, np):
@@ -2569,14 +2658,19 @@ def check_trained(torch, model, before, tag):
 
 
 def print_profile(torch, tag, fn):
-    top, busy_ms, wall_ms = profile_fn(torch, fn)
+    from dig_tpu_torch.utils.profiling import profile_fn
+
+    top, busy_ms, wall_ms = profile_fn(fn)
     for name, ms in top:
         print(f"[profile {tag}] {ms:9.3f} ms  {name[:100]}")
     print(f"[profile {tag}] one step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
           f"(idle share {1 - busy_ms / wall_ms:.3f}, profiler on)")
 
 
-def phase_pretrain(torch, np, tag, want, profile=True):
+def phase_pretrain(torch, np, tag, want, measure=True):
+    """The bf16 step at PRE_BATCH: launches, losses and moved tensors
+    checked; with `measure`, its time on the host's and the card's clock
+    and one profiled step printed."""
     model, state, step, batch_np = pretrain_setup(torch, np, torch.bfloat16, PRE_BATCH, "cuda")
     # the batch moves to the card once, as a prefetching loader would hand it over
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch_np.items()}
@@ -2601,18 +2695,18 @@ def phase_pretrain(torch, np, tag, want, profile=True):
                  and not torch.equal(p.detach(), momentum[n])]
     check(len(ema_moved) == len(momentum),
           f"{len(momentum) - len(ema_moved)} momentum parameters did not move")
-    step_ms = dt / PRE_STEPS * 1e3
-    ips = PRE_BATCH * PRE_STEPS / dt
+    timing = (f"{PRE_STEPS} steps in {dt:.3f} s = {dt / PRE_STEPS * 1e3:.2f} ms/step, "
+              f"{PRE_BATCH * PRE_STEPS / dt:.1f} images/s on this card (per step on the card's "
+              f"clock: {step_times_text(step_times)})" if measure
+              else f"{PRE_STEPS} steps, untimed")
     last = {k: round(float(v), 5) for k, v in metrics.items()}
     print(f"[{tag}] pretrain_simmim_moco_ori_vit_small_patch4_32x128 bf16 batch {PRE_BATCH} "
-          f"({n_params / 1e6:.2f} M student params): {PRE_STEPS} steps in {dt:.3f} s = "
-          f"{step_ms:.2f} ms/step, {ips:.1f} images/s on this card (per step on the card's "
-          f"clock: {step_times_text(step_times)}); launches per step "
+          f"({n_params / 1e6:.2f} M student params): {timing}; launches per step "
           f"{ {k: v // PRE_STEPS for k, v in counts.items()} }; losses "
           f"{[round(x, 5) for x in losses.tolist()]}; last metrics {last}; "
           f"{moved} student and {len(ema_moved)} momentum tensors moved; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if profile:
+    if measure:
         print_profile(torch, tag, lambda: step(state, batch))
     del model, state, batch, student, momentum, results
     torch.cuda.empty_cache()
@@ -3802,6 +3896,59 @@ def phase_determinism(torch, np):
         torch.cuda.empty_cache()
 
 
+# bench_torch.py's modes at their defaults, each a child process, with the
+# launches each must make a step (an eval batch) of its timed window; the
+# input mode's demand is the bare pre-training step's
+BENCH_LAUNCHES = {"pretrain": PER_STEP, "finetune": FT_PER_STEP_RESUME, "eval": FT_EVAL_BATCH,
+                  "input": PER_STEP}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device"}
+BENCH_MODE_KEYS = {
+    "pretrain": BENCH_KEYS | {"step_ms", "mfu", "step_tflops", "breakdown_ms"},
+    "finetune": BENCH_KEYS | {"step_ms", "mfu", "step_tflops"},
+    "eval": BENCH_KEYS,
+    "input": BENCH_KEYS | {"host_cores", "workers", "pretrain_seqclr_aug", "finetune_abi_aug",
+                           "finetune_plain", "per_core", "device_demand_pretrain"}}
+BENCH_TIMEOUT = 300  # seconds a mode's child may take, its start included
+
+
+def phase_bench_torch(smi):
+    """`python bench_torch.py` in each mode at its defaults, as a user runs
+    it: the keys of bench.py's line and the card's name and power limit,
+    value > 0, 0 < mfu <= 1, every part of the breakdown > 0 and the
+    step's busy time within its wall time, and the launches a step the
+    child reports from the port's counters.  The pretrain line is the
+    pre-training step's time and idle share; `[pretrain]` only checks it."""
+    t_phase = time.perf_counter()
+    for mode, want in BENCH_LAUNCHES.items():
+        env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+        env["BENCH_MODE"] = mode
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.join(ROOT, "bench_torch.py")], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+        dt = time.perf_counter() - t0
+        tag = f"[bench_torch {mode}]"
+        check(proc.returncode == 0, f"{tag} exit {proc.returncode}: {proc.stderr[-3000:]}")
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(set(line) == BENCH_MODE_KEYS[mode], f"{tag} keys {sorted(line)}")
+        check(line["value"] > 0 and line["device"] == smi, f"{tag} {line}")
+        if mode in ("pretrain", "finetune"):
+            check(0 < line["mfu"] <= 1, f"{tag} mfu {line['mfu']}")
+        if mode == "pretrain":
+            b = line["breakdown_ms"]
+            check(min(b["student_fwd"], b["key_fwd"], b["bwd_opt"]) > 0
+                  and b["step_device"] <= line["step_ms"], f"{tag} breakdown_ms {b}")
+            print(f"{tag} a step: {line['step_ms']} ms wall, {b['step_device']} ms busy "
+                  f"(idle share {1 - b['step_device'] / line['step_ms']:.3f})")
+        reported = [x for x in proc.stderr.splitlines()
+                    if x.startswith("bench_torch: launches per step ")]
+        check(reported, f"{tag} reported no launches")
+        launches = json.loads(reported[-1][len("bench_torch: launches per step "):])
+        check(launches == want, f"{tag} launches a step {launches} != {want}")
+        print(f"{tag} {smi}: {json.dumps(line)}; launches a step {launches_text(want)}, "
+              f"asserted; the child took {dt:.1f} s")
+    print(f"[bench_torch] four modes in {time.perf_counter() - t_phase:.1f} s")
+
+
 def ptxas_kernels(log):
     """[(kernel, registers, spill store bytes, spill load bytes)] of one
     build's ptxas report, an attention body's name as
@@ -3909,14 +4056,14 @@ def main():
     phase_host_images(np)
     paths["predict_cli"] = phase_predict_cli(torch, np)
     phase_cpu_parity(torch, np)
-    paths["pretrain"] = phase_pretrain(torch, np, "pretrain", PER_STEP)
+    paths["pretrain"] = phase_pretrain(torch, np, "pretrain", PER_STEP, measure=False)
     phase_pretrain_cpu_parity(torch, np, "pretrain cpu parity", PER_STEP)
     with switches(store_lse=False, fused_bias_grad=True):
         paths["pretrain_switches"] = phase_pretrain(torch, np, "pretrain switches",
                                                     PER_STEP_SWITCHES)
         with switches(store_lse=False, fused_bias_grad=True, bf16_exp=True):
             phase_pretrain(torch, np, "pretrain switches bf16_exp", PER_STEP_SWITCHES,
-                           profile=False)
+                           measure=False)
         phase_pretrain_cpu_parity(torch, np, "pretrain switches cpu parity", PER_STEP_SWITCHES_B2)
     paths["finetune"] = phase_finetune(torch, np, "finetune", FT_PER_STEP)
     with switches(fused_bias_grad=True):
@@ -3942,6 +4089,8 @@ def main():
     split_rows = phase_attention_at(torch, attn, gen, "attention at the tensor split", PRE_B, L,
                                     H // 2)
     phase_sharded_steps(torch, np)
+    phase_bench_torch(smi)
+    paths.update({f"bench_torch {mode}, a step": want for mode, want in BENCH_LAUNCHES.items()})
 
     def row(name, source, replaces, measured, path):
         return dict(name=name, route="cuda", source=f"dig_tpu_torch/ops/csrc/{source}.cu",

@@ -276,8 +276,9 @@ def auto_resume(output_dir: str, state):
 # Weights from reference checkpoints and from the port's pre-training
 # ---------------------------------------------------------------------------
 
-# the encoder tensors `dig_tpu/utils/checkpoint.py::convert_torch_encoder` maps
-_ENCODER_KEY = re.compile(
+# the encoder tensors `dig_tpu/utils/checkpoint.py::convert_torch_encoder` maps,
+# which are those `dig_tpu/utils/export_torch.py::export_torch_encoder` writes
+ENCODER_KEY = re.compile(
     r"patch_embed\.proj\.(weight|bias)|mask_token|pos_embed|(fc_)?norm\.(weight|bias)"
     r"|blocks\.\d+\.(attn\.(qkv\.weight|q_bias|v_bias|proj\.(weight|bias))"
     r"|norm[12]\.(weight|bias)|mlp\.fc[12]\.(weight|bias)|gamma_[12])")
@@ -314,7 +315,7 @@ def convert_torch_encoder(state_dict: dict, prefix: str = "encoder.") -> dict:
         if stripped:
             sd = stripped
             break
-    return {k: v for k, v in sd.items() if _ENCODER_KEY.fullmatch(k)}
+    return {k: v for k, v in sd.items() if ENCODER_KEY.fullmatch(k)}
 
 
 def convert_torch_attn_head(state_dict: dict, prefix: str = "decoder.") -> dict:
