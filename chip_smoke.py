@@ -5,7 +5,11 @@
 
 1. Prints the card's name and power limit, builds every CUDA kernel of
    the port from `dig_tpu_torch/ops/csrc/` (one nvcc per source, all
-   started together) and prints each build's ptxas summary.
+   started together) and prints each build's ptxas summary: the bf16
+   attention bodies' registers, shared memory, spills, and whether ptxas
+   serialised their wgmma products.  `[logits probe]` says whether the
+   forward's wgmma logits and the backward's mma.sync logits of the same
+   bf16 q and k are equal bit for bit (`csrc/attention_probe.cu`).
 2. Holds each kernel against its plain PyTorch version, in bf16 and fp32
    (the attention kernels' bf16 bodies, forward and backward, run on the
    tensor cores, their fp32 bodies on the FMA pipes; the recompute backward
@@ -245,7 +249,7 @@ FT_PER_STEP_SWITCH = dict(FT_PER_STEP, column_sum=12)
 # rates 0 (the card-vs-CPU check): the encoder's attention takes the stored-statistics pair
 FT_PER_STEP_RATES0 = dict(FT_PER_STEP_SWITCH, attention_lse_fwd=12, attention_lse_bwd=12)
 SOURCES = ["attention_lse_fwd", "attention_lse_bwd", "attention_fwd", "attention_bwd",
-           "layernorm_fwd", "layernorm_bwd", "colsum"]
+           "layernorm_fwd", "layernorm_bwd", "colsum", "attention_probe"]
 FT_BATCH = 256
 FT_WARMUP, FT_STEPS = 3, 10
 # the fine-tuning CLI's LMDBs: 4 steps an epoch, 2 eval batches (the second
@@ -280,6 +284,10 @@ FLIP_SHARE = 1e-4
 FMA_BODY_MS = {"attention_lse_fwd": 2.8060, "attention_fwd": 1.5702,
                "attention_fwd_bf16_exp": 1.5991, "attention_lse_bwd": 5.4234,
                "attention_bwd": 5.5640}
+# the bf16 attention forward's times on its earlier tensor-core body
+# (mma.sync, cp.async, two sweeps over K; NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md), printed beside the TMA / wgmma body's
+MMA_SYNC_BODY_MS = {"attention_lse_fwd": 0.3407, "attention_fwd": 0.1769}
 # the LayerNorm backward's bf16 time before its redesign: one launch of 512
 # blocks and two torch sums over its partial rows (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md), printed beside the new one
@@ -287,7 +295,10 @@ LN_BWD_FIRST_BODY_MS = 0.0944
 # shapes beside the pre-training one: rows that are no multiple of a block's
 # 8, fewer rows than the persistent grid has warps, the widest row
 LN_BWD_EDGE_SHAPES = ((1000, 384), (512, 1024))
-DESIGN = {"attention_lse_fwd": "mma.sync bf16 / FMA fp32", "attention_fwd": "mma.sync bf16 / FMA fp32",
+DESIGN = {"attention_lse_fwd": "TMA + wgmma bf16, warp-specialised and persistent, one sweep over "
+                               "K up to 4 key tiles resident / FMA fp32",
+          "attention_fwd": "TMA + wgmma bf16, warp-specialised and persistent, one sweep over K up "
+                           "to 4 key tiles resident / FMA fp32",
           "attention_lse_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
           "attention_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
           "layer_norm_fwd": "warp per row, two-pass variance",
@@ -346,9 +357,12 @@ def bound(nbytes, flops, dtype_name):
 
 
 def fma_body_text(name, key):
-    """The bf16 FMA body's time beside the new one, as text."""
+    """The bf16 FMA body's time (and the forward's mma.sync body's) beside
+    the new one, as text."""
     old = FMA_BODY_MS.get(name + key[len("bfloat16"):]) if key.startswith("bfloat16") else None
-    return f"; the FMA body took {old:.4f} ms (PERF.md)" if old else ""
+    text = f"; the FMA body took {old:.4f} ms (PERF.md)" if old else ""
+    mma = MMA_SYNC_BODY_MS.get(name) if key == "bfloat16" else None
+    return text + (f", the mma.sync body {mma:.4f} ms (PERF.md)" if mma else "")
 
 
 def max_err(a, b):
@@ -3427,12 +3441,15 @@ def phase_kinds_cli(torch, np, d, ft_out):
 
 
 FWD_MODES = ("kStats", "kPlain", "kBf16Exp")
+FWD_SWEEPS = ("two sweeps", "resident")
 BWD_MODES = ("stored statistics", "kRecompute")
 
 
 # an attention body's mangled name -> its template arguments as text
 PTXAS_NAMES = [
-    (r"(attn_fwd_(?:mma|fma)_kernel)ILi(\d+)ELNS_7FwdModeE(\d)E",
+    (r"(attn_fwd_wgmma_kernel)ILi(\d+)ELNS_7FwdModeE(\d)ELb([01])E",
+     lambda m: f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}, {FWD_SWEEPS[int(m[4])]}>"),
+    (r"(attn_fwd_fma_kernel)ILi(\d+)ELNS_7FwdModeE(\d)E",
      lambda m: f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}>"),
     (r"(attn_bwd_dq_mma_kernel)ILi(\d+)ELb([01])E",
      lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}>"),
@@ -3949,21 +3966,23 @@ def phase_bench_torch(smi):
     print(f"[bench_torch] four modes in {time.perf_counter() - t_phase:.1f} s")
 
 
+def kernel_text(name):
+    """A mangled kernel name as its template arguments, for an attention body."""
+    for pattern, text in PTXAS_NAMES:
+        m = re.search(pattern, name)
+        if m:
+            return text(m)
+    return name[name.find("attn") if "attn" in name else 0:][:60]
+
+
 def ptxas_kernels(log):
     """[(kernel, registers, spill store bytes, spill load bytes)] of one
     build's ptxas report, an attention body's name as
-    attn_fwd_mma_kernel<D=64, kStats>."""
+    attn_fwd_wgmma_kernel<D=64, kStats, resident>."""
     kernels, name, spills = [], "", (0, 0)
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = line.split("'")[1]
-            for pattern, text in PTXAS_NAMES:
-                m = re.search(pattern, name)
-                if m:
-                    name = text(m)
-                    break
-            else:
-                name = name[name.find("attn") if "attn" in name else 0:][:60]
+            name = kernel_text(line.split("'")[1])
         elif "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             spills = (int(m[1]), int(m[2]))
@@ -3973,20 +3992,30 @@ def ptxas_kernels(log):
 
 
 # the tensor-core instantiations at the model's head_dim, by source
-MMA_D64 = {"attention_lse_fwd": ["attn_fwd_mma_kernel<D=64, kStats>"],
-           "attention_fwd": ["attn_fwd_mma_kernel<D=64, kPlain>",
-                             "attn_fwd_mma_kernel<D=64, kBf16Exp>"],
+MMA_D64 = {"attention_lse_fwd": ["attn_fwd_wgmma_kernel<D=64, kStats, resident>",
+                                 "attn_fwd_wgmma_kernel<D=64, kStats, two sweeps>"],
+           "attention_fwd": ["attn_fwd_wgmma_kernel<D=64, kPlain, resident>",
+                             "attn_fwd_wgmma_kernel<D=64, kPlain, two sweeps>",
+                             "attn_fwd_wgmma_kernel<D=64, kBf16Exp, resident>",
+                             "attn_fwd_wgmma_kernel<D=64, kBf16Exp, two sweeps>"],
            "attention_lse_bwd": ["attn_bwd_dq_mma_kernel<D=64, stored statistics>",
                                  "attn_bwd_dkdv_mma_kernel<D=64>"],
            "attention_bwd": ["attn_bwd_dq_mma_kernel<D=64, kRecompute>",
                              "attn_bwd_dkdv_mma_kernel<D=64>"]}
 
 
+def serialised(log):
+    """The kernels whose wgmma products ptxas serialised (its C7510-C7518
+    "Potential Performance Loss" reports), by name."""
+    return {kernel_text(m[2]) for m in re.finditer(r"\((C751[0-8])\).*function '(\S+)'", log)}
+
+
 def print_ptxas():
     """Each build's registers, shared memory and spills; every attention
     instantiation by name.  Fails if a source has no report, if a bf16
     (tensor-core) attention body at D=64, the model's head_dim, forward or
-    backward, is missing from its source's report, or if it spills."""
+    backward, is missing from its source's report, if it spills, or if
+    ptxas serialised its wgmma products."""
     from dig_tpu_torch.ops import _build
 
     for name in SOURCES:
@@ -4006,9 +4035,47 @@ def print_ptxas():
                 print(f"[ptxas {name}]   {k}: {r} registers, {st} / {ld} bytes spilled "
                       f"(stores / loads)")
         found = {k: st + ld for k, _, st, ld in kernels}
+        serial = serialised(log)
+        if serial:
+            print(f"[ptxas {name}]   wgmma serialised in {sorted(serial)}")
         for k in MMA_D64.get(name, []):
             check(k in found, f"{k} is not in the ptxas report of {name}")
             check(found[k] == 0, f"{k} spills")
+            check(k not in serial, f"{k}: ptxas serialised its wgmma products")
+
+
+def phase_logits_probe(torch, build):
+    """The forward's wgmma logits against the backward's mma.sync logits
+    of the same bf16 q and k (64 x 64 tiles at D=64, q scaled as the
+    kernels scale it): equal or not, and by how many ulp; and the forward
+    body's dynamic shared memory a block.  Not a wrapper: no launch is
+    counted."""
+    import ctypes
+
+    lib = build.load("attention_probe")
+    fn = lib.dig_attn_logits_probe
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.dig_attn_fwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dig_attn_fwd_smem_bytes.restype = ctypes.c_longlong
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n = 4096
+    q, k = (torch.randn(n, 64, 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    wg, mma = (torch.empty(n, 64, 64, device="cuda") for _ in range(2))
+    qscale = torch.tensor(64**-0.5 * 1.4426950408889634, dtype=torch.bfloat16).item()
+    build.check(lib, fn(q.data_ptr(), k.data_ptr(), wg.data_ptr(), mma.data_ptr(), n, qscale,
+                        build.stream_ptr(q)), "attention logits probe")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(wg).all()), "logits probe: non-finite wgmma logits")
+    bits, ref = wg.view(torch.int32), mma.view(torch.int32)
+    differ = int((bits != ref).sum())
+    ulps = int((bits.long() - ref.long()).abs().max())
+    print(f"[logits probe] wgmma vs mma.sync logits of {wg.numel()} (q, k) pairs at D=64: "
+          f"{'equal bit for bit' if differ == 0 else 'NOT equal'} ({differ} differ, at most "
+          f"{ulps} ulp apart)")
+    smem = {d: lib.dig_attn_fwd_smem_bytes(d) for d in (32, 64, 128)}
+    print(f"[ptxas attention fwd] the TMA / wgmma body's dynamic shared memory a block: "
+          f"{smem} bytes (one block an SM)")
 
 
 def main():
@@ -4041,6 +4108,7 @@ def main():
     _build.build_all(SOURCES)
     print(f"[build] {len(SOURCES)} kernels in {time.perf_counter() - t_start:.1f} s")
     print_ptxas()
+    phase_logits_probe(torch, _build)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     attn_rows = phase_attention(torch, attn, gen)

@@ -20,8 +20,9 @@
 // FlashAttention-2, and neither uses atomics (the same bits every run):
 //  1. dq pass, one CTA per (b, h, 64 query rows) against all Lk keys: dq,
 //     and c into a small fp32 [B, Lq, H] scratch for the second pass.  With
-//     kRecompute it first takes m and s itself, in the forward kernel's
-//     order, and writes them beside c; otherwise it reads the forward's.
+//     kRecompute it first takes m and s itself, through the forward
+//     kernel's own statistics functions, and writes them beside c;
+//     otherwise it reads the forward's.
 //  2. dk/dv pass, one CTA per (b, h, 64 keys) that walks the queries in
 //     64-row chunks, forms the 64 x 64 tiles of e and ds0 again from m, s
 //     and c, and sums dk and dv in registers.
@@ -40,12 +41,18 @@
 //    from ldmatrix, fp32 accumulators); operands stay bf16 and move by
 //    16-byte cp.async into tiles padded 16 bytes a row, through a ring, so
 //    copies overlap products;
-//  * the logits come from chunk_logits with q scaled by scale_a_rows, the
-//    forward's own functions with q as the A operand and K as stored in both
-//    passes: they are the forward's logits bit for bit, so m is their exact
-//    max (e <= 1), and kRecompute, which takes m with the forward's sweep
-//    and s in the forward's order, gives the stored-statistics results bit
-//    for bit.  dw = do . v^T is the same function on the dO and V tiles;
+//  * the logits come from chunk_logits (mma.sync m16n8k16) with q scaled by
+//    the forward's scale_a_rows, q as the A operand and K as stored in both
+//    passes.  The forward takes its logits by wgmma (wg_logits); on the
+//    H100 the two instructions give the same bits for the same bf16 q and
+//    k (chip_smoke.py's [logits probe]: 16.7M logits, none differ), so m
+//    is the exact max of these logits (e <= 1).  kRecompute takes m with
+//    the forward's chunk_row_max and s, in sweep 1, with the forward's
+//    tile_exp_sum in the forward's key order, so its statistics are the
+//    ones #3 stores and #2 equals #4 bit for bit (checked with torch.equal
+//    on the card).  Taking the logits by wgmma here too put the dq pass
+//    over its 168 registers.  dw = do . v^T is chunk_logits on the dO and
+//    V tiles;
 //  * no score tile in the dq pass: a warp keeps 16 query rows' q and do as
 //    A fragments and sweeps the keys twice.  Sweep 1 takes each chunk's
 //    logits and dw and keeps only the rows' running rowsum(dw * e) (and s);
@@ -588,9 +595,10 @@ attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // sweep 1: rowsum(dw * e), and with kRecompute s, per-thread partials in
-  // key order and then over the quad, as the forward sums s.  32 keys at a
-  // time: half the accumulators of a whole chunk live at once.
+  // sweep 1: rowsum(dw * e), and with kRecompute s: e and the per-thread
+  // partials of s by the forward's tile_exp_sum in key order, then over
+  // the quad, as the forward sums s.  32 keys at a time: half the
+  // accumulators of a whole chunk live at once.
   float sum[2] = {0.f, 0.f}, c[2] = {0.f, 0.f};
   for (int j = 0; j < nk; ++j) {
     const uint32_t k_tile = next_tile();
@@ -601,14 +609,11 @@ attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       chunk_logits<D, 2>(qa, k_tile + hf * kHalf, lane, s);
       mask_keys(s, j * kBwdKC + hf * 32, col0, Lk);
       chunk_logits<D, 2>(ga, v_tile + hf * kHalf, lane, w);  // dw: V rows past Lk are zeros
+      tile_exp_sum<FwdMode::kStats>(s, mx, sum);  // s: e from here on
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float e = exp2f(s[n][i] - mx[i >> 1]);
-          if constexpr (kRecompute) sum[i >> 1] += e;
-          c[i >> 1] += w[n][i] * e;
-        }
+        for (int i = 0; i < 4; ++i) c[i >> 1] += w[n][i] * s[n][i];
     }
   }
 #pragma unroll
@@ -641,7 +646,7 @@ attn_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float ds[4];  // a key past Lk: e = 0, so ds0 = 0
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          ds[i] = exp2f(s[n][i] - mx[i >> 1]) * (w[n][i] - c[i >> 1]);
+          ds[i] = exp_centred<FwdMode::kStats>(s[n][i], mx[i >> 1]) * (w[n][i] - c[i >> 1]);
         da[n >> 1][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);      // row g
         da[n >> 1][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);  // row g + 8
       }

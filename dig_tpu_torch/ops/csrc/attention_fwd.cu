@@ -16,11 +16,11 @@
 //
 // Bound: at the pre-training shapes (B = 256 sequences, L = 256, H = 6,
 // D = 64, bf16) the function reads q, k, v and writes o, 4 x 50.3 MB ~
-// 201 MB, 0.060 ms at 3.35 TB/s, against 38.7 GFLOP (three products with
-// the design's second q . k^T), 0.039 ms on the bf16 tensor cores: bytes
-// bound it.  bf16 runs the tensor-core body (mma.sync, cp.async ring, no
-// score tile, query blocks of one (b, h) side by side: see the header);
-// fp32 the FMA body, the parity path.
+// 201 MB, 0.060 ms at 3.35 TB/s, against 25.8 GFLOP (two products), 0.026
+// ms on the bf16 tensor cores: bytes bound it.  bf16 runs the TMA / wgmma
+// body (a persistent, warp-specialised block an SM; one sweep over K with
+// the logits of up to 256 keys in registers: see the header); fp32 the FMA
+// body, the parity path.
 
 #include "attention_fwd.cuh"
 

@@ -9,12 +9,13 @@
 //
 // Bound: at the predict shapes (B = 512, L = 256, H = 6, D = 64, bf16) the
 // function moves 409 MB (q, k, v read, o written, m and s written), 0.122
-// ms at 3.35 TB/s, against 77 GFLOP (three products with the design's
-// second q . k^T), 0.078 ms on the bf16 tensor cores: bytes bound it.
-// bf16 runs the tensor-core body (mma.sync on bf16 fragments, a cp.async
-// ring of K and V tiles, no score tile, the query blocks of one (b, h)
-// side by side so K and V leave device memory once: see the header); fp32
-// the FMA body, the parity path.
+// ms at 3.35 TB/s, against 51.5 GFLOP (two products), 0.052 ms on the bf16
+// tensor cores: bytes bound it.  bf16 runs the TMA / wgmma body (a
+// persistent, warp-specialised block an SM: a producer warpgroup loads Q, K
+// and V tiles by TMA through an mbarrier ring, two consumer warpgroups take
+// 128 query rows of one (b, h) with one sweep over K, the logits of up to
+// 256 keys in registers: see the header); fp32 the FMA body, the parity
+// path.
 
 #include "attention_fwd.cuh"
 

@@ -421,6 +421,83 @@ def test_bf16_forward_refuses_misaligned_rows(cuda, monkeypatch, variant, fault)
     assert fn.launches == n
 
 
+# the bf16 forward body's tile walk and tensor maps
+
+def _packed_qkv(b, l, h, d, gen, row_pad=0, extra_rows=0):
+    """q, k, v at column offsets 0, C and 2C of one packed bf16 projection;
+    its rows row_pad elements longer than 3C and its batch extra_rows rows
+    longer than L, so that the row and batch strides are not the natural
+    ones."""
+    c = h * d
+    x = torch.randn(b, l + extra_rows, 3 * c + row_pad, generator=gen, device="cuda")
+    x = x.bfloat16()[:, :l]
+    return [x[..., i * c:(i + 1) * c].view(b, l, h, d) for i in range(3)]
+
+
+FWD_WALK = {
+    # each key tile raises every row's max: logits grow with the key's index
+    "rising-keys": (2, 256, 2, 64, "rising"),
+    "rising-keys-l281": (2, 281, 2, 64, "rising"),  # a fifth, ragged tile beyond the four kept
+    "seq-cls": (256, 281, 12, 64, "packed"),  # the sequence-class encoder's attention
+    "packed-offsets": (3, 256, 4, 64, "packed"),  # q, k, v at columns 0, C, 2C of one tensor
+    "padded-strides": (3, 200, 2, 64, "padded"),  # row stride 3C + 8, batch stride 205 rows
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FWD_WALK))
+def test_bf16_forward_tile_walk_and_tensor_maps(cuda, monkeypatch, case):
+    """#3 and #1 (both modes) against their plain versions
+    (`_assert_fwd_close`; m and s within 1e-4), #1's o equal to #3's and #2
+    equal to #4 bit for bit: with keys whose logits rise tile by tile (the
+    row max moves with every tile the body takes), at the sequence-class
+    shape (B=256, L=281, H=12: four key tiles held, a fifth swept twice),
+    and with q, k, v read by the tensor maps from one packed tensor at
+    column offsets 0, C and 2C, with natural and with padded strides."""
+    b, l, h, d, kind = FWD_WALK[case]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    if kind == "rising":
+        # logits rise by ~2 from one 64-key tile to the next (a steeper ramp
+        # makes one or two keys carry each row, where the flipped roundings
+        # of the plain version's other sum order exceed FLIP_SHARE in the
+        # earlier mma.sync body as in this one)
+        u = torch.randn(d, generator=gen, device="cuda")
+        q = u + 0.3 * torch.randn(b, l, h, d, generator=gen, device="cuda")
+        ramp = torch.linspace(-0.5, 0.5, l, device="cuda").view(1, l, 1, 1)
+        k = ramp * u + 0.3 * torch.randn(b, l, h, d, generator=gen, device="cuda")
+        v = torch.randn(b, l, h, d, generator=gen, device="cuda")
+        q, k, v = (t.bfloat16() for t in (q, k, v))
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())[..., :l // 64 * 64]
+        tile_max = logits.unflatten(-1, (l // 64, 64)).amax(-1)
+        rising = (tile_max[..., 1:] > tile_max[..., :-1]).all(-1)
+        assert float(rising.float().mean()) > 0.99  # every whole tile raises the row's max
+    elif kind == "packed":
+        q, k, v = _packed_qkv(b, l, h, d, gen)
+    else:
+        q, k, v = _packed_qkv(b, l, h, d, gen, row_pad=8, extra_rows=5)
+        assert q.stride()[:2] == (205 * (3 * h * d + 8), 3 * h * d + 8)
+    scale = scale_of(d)
+    o, m, s = tattn.attention_lse_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    ro, rm, rs = tattn.attention_lse_fwd_ref(q, k, v, scale)
+    _assert_fwd_close(o, ro, torch.bfloat16)
+    torch.testing.assert_close(m, rm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, rs, rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(tattn, "BF16_EXP", False)
+    assert torch.equal(tattn.attention_fwd(q, k, v, scale), o)
+    monkeypatch.setattr(tattn, "BF16_EXP", True)
+    _assert_fwd_close(tattn.attention_fwd(q, k, v, scale), tattn.attention_fwd_ref(q, k, v, scale),
+                      torch.bfloat16, bf16_exp=True)
+    do = torch.randn(b, l, h, d, generator=gen, device="cuda").bfloat16()
+    lse = tattn.attention_lse_bwd(q, k, v, do, m, s, scale)
+    for g, r in zip(tattn.attention_bwd(q, k, v, do, scale), lse):
+        assert torch.equal(g, r), "attention_bwd differs from attention_lse_bwd"
+
+
+def scale_of(d):
+    return d**-0.5
+
+
 # the backward bodies at the edges of what the wrapper takes
 
 def _longest_bwd_lk(d):
