@@ -7,9 +7,9 @@
    the port from `dig_tpu_torch/ops/csrc/` (one nvcc per source, all
    started together) and prints each build's ptxas summary: the bf16
    attention bodies' registers, shared memory, spills, and whether ptxas
-   serialised their wgmma products.  `[logits probe]` says whether the
-   forward's wgmma logits and the backward's mma.sync logits of the same
-   bf16 q and k are equal bit for bit (`csrc/attention_probe.cu`).
+   serialised their wgmma products.  `[logits probe]` holds the logits of
+   every operand form the backward takes equal to the forward's wgmma
+   logits of the same bf16 q and k bit for bit (`csrc/attention_probe.cu`).
 2. Holds each kernel against its plain PyTorch version, in bf16 and fp32
    (the attention kernels' bf16 bodies, forward and backward, run on the
    tensor cores, their fp32 bodies on the FMA pipes; the recompute backward
@@ -288,6 +288,10 @@ FMA_BODY_MS = {"attention_lse_fwd": 2.8060, "attention_fwd": 1.5702,
 # (mma.sync, cp.async, two sweeps over K; NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md), printed beside the TMA / wgmma body's
 MMA_SYNC_BODY_MS = {"attention_lse_fwd": 0.3407, "attention_fwd": 0.1769}
+# the bf16 attention backward's times on its earlier tensor-core body
+# (mma.sync, cp.async, a dq pass sweeping the keys twice; NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md), printed beside the TMA / wgmma body's
+MMA_SYNC_BWD_BODY_MS = {"attention_lse_bwd": 0.5703, "attention_bwd": 0.6347}
 # the LayerNorm backward's bf16 time before its redesign: one launch of 512
 # blocks and two torch sums over its partial rows (NVIDIA H100 80GB HBM3,
 # 700.00 W; PERF.md), printed beside the new one
@@ -299,8 +303,12 @@ DESIGN = {"attention_lse_fwd": "TMA + wgmma bf16, warp-specialised and persisten
                                "K up to 4 key tiles resident / FMA fp32",
           "attention_fwd": "TMA + wgmma bf16, warp-specialised and persistent, one sweep over K up "
                            "to 4 key tiles resident / FMA fp32",
-          "attention_lse_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
-          "attention_bwd": "mma.sync bf16 (dq pass, dk/dv pass) / FMA fp32",
+          "attention_lse_bwd": "TMA + wgmma bf16, warp-specialised and persistent: a row pass (dq, "
+                               "4 key tiles of logits resident) and a column pass (dk, dv, keys "
+                               "as rows) / FMA fp32",
+          "attention_bwd": "TMA + wgmma bf16, warp-specialised and persistent: a row pass (dq, m, "
+                           "s, 4 key tiles of logits resident) and a column pass (dk, dv, keys as "
+                           "rows) / FMA fp32",
           "layer_norm_fwd": "warp per row, two-pass variance",
           "layer_norm_bwd": "persistent grid, next row's loads ahead of the reductions, "
                             "partial dgamma / dbeta rows summed by a finishing kernel",
@@ -357,11 +365,11 @@ def bound(nbytes, flops, dtype_name):
 
 
 def fma_body_text(name, key):
-    """The bf16 FMA body's time (and the forward's mma.sync body's) beside
-    the new one, as text."""
+    """The bf16 FMA body's time (and the mma.sync body's) beside the new
+    one, as text."""
     old = FMA_BODY_MS.get(name + key[len("bfloat16"):]) if key.startswith("bfloat16") else None
     text = f"; the FMA body took {old:.4f} ms (PERF.md)" if old else ""
-    mma = MMA_SYNC_BODY_MS.get(name) if key == "bfloat16" else None
+    mma = {**MMA_SYNC_BODY_MS, **MMA_SYNC_BWD_BODY_MS}.get(name) if key == "bfloat16" else None
     return text + (f", the mma.sync body {mma:.4f} ms (PERF.md)" if mma else "")
 
 
@@ -2404,6 +2412,12 @@ def rel_err(got, ref):
     return max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
 
 
+def repeats(torch, first, second):
+    """Whether two calls' gradients are equal bit for bit: the backward
+    kernels use no atomics."""
+    return all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+
+
 def phase_attention_bwd(torch, attn, gen):
     rows = {}
     scale = D**-0.5
@@ -2429,6 +2443,8 @@ def phase_attention_bwd(torch, attn, gen):
             check(rel <= BWD_RTOL[dn], f"attention_lse_bwd {dn} {name}: max abs err "
                                        f"{errs[name]} = {rel:.2e} of max |ref| > {BWD_RTOL[dn]}")
         del ref
+        check(repeats(torch, out, attn.attention_lse_bwd(q, k, v, do, m, s, scale)),
+              f"attention_lse_bwd {dn}: a second call gave other bits")
         ms = time_ms(lambda: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out), iters=5)
         plain_ms = time_ms(lambda: attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale),
                            iters=2, warmup=1)
@@ -2443,9 +2459,10 @@ def phase_attention_bwd(torch, attn, gen):
         rows[dn] = dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bms,
                         bound_by=by, library_ms=lib_ms)
         print(f"[attention_lse_bwd {dn}] B={b} L={L} H={H} D={D}: max_abs_err "
-              f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
-              f"{bms / ms:.3f} of the bound{fma_body_text('attention_lse_bwd', dn)}")
+              f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}, a second call equal "
+              f"bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+              f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.3f} of the bound"
+              f"{fma_body_text('attention_lse_bwd', dn)}")
         del qkv, q, k, v, do, m, s, dqkv, out, qt, kt, vt, o, dot
         torch.cuda.empty_cache()
     return rows
@@ -2809,8 +2826,8 @@ def phase_attention_recompute(torch, attn, gen):
 def phase_attention_bwd_recompute(torch, attn, gen):
     """#2 at the pretrain shapes against its plain version, timed beside
     SDPA's backward; it must equal #4 on the same inputs bit for bit, in
-    both dtypes: its dq pass takes m and s from the forward's logits, in the
-    forward's order."""
+    both dtypes: its row (bf16) or dq (fp32) pass takes m and s from the
+    forward's logits, in the forward's order."""
     rows = {}
     scale = D**-0.5
     b = PRE_B
@@ -2838,6 +2855,8 @@ def phase_attention_bwd_recompute(torch, attn, gen):
         to_lse = max(rel_err(a, c) for a, c in zip(out, lse))
         check(same, f"attention_bwd {dn}: not bitwise equal to attention_lse_bwd "
                     f"({to_lse:.2e} of max |grad| apart)")
+        check(repeats(torch, out, attn.attention_bwd(q, k, v, do, scale)),
+              f"attention_bwd {dn}: a second call gave other bits")
         del lse, m, s
         ms = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale, out=out), iters=5)
         plain_ms = time_ms(lambda: attn.attention_bwd_ref(q, k, v, do, scale), iters=2, warmup=1)
@@ -2852,7 +2871,7 @@ def phase_attention_bwd_recompute(torch, attn, gen):
                         bound_by=by, library_ms=lib_ms)
         print(f"[attention_bwd {dn}] B={b} L={L} H={H} D={D}: max_abs_err "
               f"dq={errs['dq']:.3e} dk={errs['dk']:.3e} dv={errs['dv']:.3e}; bitwise equal to "
-              f"attention_lse_bwd: {same}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+              f"attention_lse_bwd: {same}, a second call equal bit for bit; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
               f"backward {lib_ms:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.3f} of the bound"
               f"{fma_body_text('attention_bwd', dn)}")
         del qkv, q, k, v, do, dqkv, out, qt, kt, vt, o, dot
@@ -3341,12 +3360,16 @@ def phase_attention_at(torch, attn, gen, tag, b, l, h):
         check(all(bool(torch.isfinite(g.float()).all()) for g in out) and rel4 <= BWD_RTOL[dn],
               f"attention_lse_bwd L={l} {dn}: {rel4:.2e} of max |ref| > {BWD_RTOL[dn]}")
         del ref
+        check(repeats(torch, out, attn.attention_lse_bwd(q, k, v, do, m, s, scale)),
+              f"attention_lse_bwd L={l} H={h} {dn}: a second call gave other bits")
         ms4 = time_ms(lambda: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out), iters=5)
         plain4 = time_ms(lambda: attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale),
                          iters=2, warmup=1)
         rec = attn.attention_bwd(q, k, v, do, scale)
         check(all(bool(torch.equal(a, r)) for a, r in zip(out, rec)),
               f"attention_bwd L={l} {dn}: not bitwise equal to attention_lse_bwd")
+        check(repeats(torch, rec, attn.attention_bwd(q, k, v, do, scale)),
+              f"attention_bwd L={l} H={h} {dn}: a second call gave other bits")
         ms2 = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale), iters=5)
         # #1 recompute forward: o equal to #3's bit for bit
         with switches(store_lse=False):
@@ -3354,15 +3377,15 @@ def phase_attention_at(torch, attn, gen, tag, b, l, h):
             ms1 = time_ms(lambda: attn.attention_fwd(q, k, v, scale), iters=5)
         check(bool(torch.equal(o1, o)), f"attention_fwd L={l} {dn}: o differs from #3's")
         torch.cuda.synchronize()
-        rows[dn] = dict(ms3=ms3, sdpa=sdpa_ms, ms4=ms4, sdpa_bwd=sdpa_bwd_ms, fwd_bound=fwd_bound,
-                        bwd_bound=bwd_bound)
+        rows[dn] = dict(ms3=ms3, sdpa=sdpa_ms, ms4=ms4, ms2=ms2, sdpa_bwd=sdpa_bwd_ms,
+                        fwd_bound=fwd_bound, bwd_bound=bwd_bound)
         print(f"[{tag}] {dn} B={b} L={l} H={h} D={d}: #3 attention_lse_fwd max_abs_err "
               f"o={err3:.3e}{flips}, {ms3:.4f} ms (plain {plain3:.4f}, sdpa {sdpa_ms:.4f}, bound "
               f"{fwd_bound:.4f} ({fwd_by}), {fwd_bound / ms3:.3f} of it); #4 attention_lse_bwd "
               f"{rel4:.2e} of max |ref|, {ms4:.4f} ms (plain {plain4:.4f}, sdpa backward "
               f"{sdpa_bwd_ms:.4f}, bound {bwd_bound:.4f} ({bwd_by}), {bwd_bound / ms4:.3f} of it); "
               f"#1 attention_fwd {ms1:.4f} ms, o equal to #3's; #2 attention_bwd {ms2:.4f} ms, "
-              f"equal to #4 bit for bit")
+              f"equal to #4 bit for bit; #4 and #2 each equal to a second call bit for bit")
         del qkv, q, k, v, do, o, m, s, dqkv, out, rec, o1
         torch.cuda.empty_cache()
     return rows
@@ -3451,9 +3474,9 @@ PTXAS_NAMES = [
      lambda m: f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}, {FWD_SWEEPS[int(m[4])]}>"),
     (r"(attn_fwd_fma_kernel)ILi(\d+)ELNS_7FwdModeE(\d)E",
      lambda m: f"{m[1]}<D={m[2]}, {FWD_MODES[int(m[3])]}>"),
-    (r"(attn_bwd_dq_mma_kernel)ILi(\d+)ELb([01])E",
-     lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}>"),
-    (r"(attn_bwd_dkdv_mma_kernel)ILi(\d+)E", lambda m: f"{m[1]}<D={m[2]}>"),
+    (r"(attn_bwd_rows_kernel)ILi(\d+)ELb([01])ELb([01])E",
+     lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}, {FWD_SWEEPS[int(m[4])]}>"),
+    (r"(attn_bwd_cols_kernel)ILi(\d+)E", lambda m: f"{m[1]}<D={m[2]}>"),
     (r"(attn_bwd_dq_kernel)ILi(\d+)ELb([01])E",
      lambda m: f"{m[1]}<D={m[2]}, {BWD_MODES[int(m[3])]}>"),
     (r"(attn_bwd_dkdv_kernel)ILi(\d+)E", lambda m: f"{m[1]}<D={m[2]}>"),
@@ -3998,10 +4021,12 @@ MMA_D64 = {"attention_lse_fwd": ["attn_fwd_wgmma_kernel<D=64, kStats, resident>"
                              "attn_fwd_wgmma_kernel<D=64, kPlain, two sweeps>",
                              "attn_fwd_wgmma_kernel<D=64, kBf16Exp, resident>",
                              "attn_fwd_wgmma_kernel<D=64, kBf16Exp, two sweeps>"],
-           "attention_lse_bwd": ["attn_bwd_dq_mma_kernel<D=64, stored statistics>",
-                                 "attn_bwd_dkdv_mma_kernel<D=64>"],
-           "attention_bwd": ["attn_bwd_dq_mma_kernel<D=64, kRecompute>",
-                             "attn_bwd_dkdv_mma_kernel<D=64>"]}
+           "attention_lse_bwd": ["attn_bwd_rows_kernel<D=64, stored statistics, resident>",
+                                 "attn_bwd_rows_kernel<D=64, stored statistics, two sweeps>",
+                                 "attn_bwd_cols_kernel<D=64>"],
+           "attention_bwd": ["attn_bwd_rows_kernel<D=64, kRecompute, resident>",
+                             "attn_bwd_rows_kernel<D=64, kRecompute, two sweeps>",
+                             "attn_bwd_cols_kernel<D=64>"]}
 
 
 def serialised(log):
@@ -4045,37 +4070,45 @@ def print_ptxas():
 
 
 def phase_logits_probe(torch, build):
-    """The forward's wgmma logits against the backward's mma.sync logits
-    of the same bf16 q and k (64 x 64 tiles at D=64, q scaled as the
-    kernels scale it): equal or not, and by how many ulp; and the forward
-    body's dynamic shared memory a block.  Not a wrapper: no launch is
-    counted."""
+    """The logits of every operand form the bf16 attention bodies take, on
+    the same bf16 q and k (64 x 64 tiles at D=64, q scaled as the kernels
+    scale it), against the forward's wgmma logits: the backward row pass's
+    (A fragments by 32-bit shared loads) and column pass's (both operands
+    from shared memory, keys as rows) must equal them bit for bit; the
+    earlier backward's mma.sync logits are reported.  And each body's
+    dynamic shared memory a block.  Not a wrapper: no launch is counted."""
     import ctypes
 
     lib = build.load("attention_probe")
-    fn = lib.dig_attn_logits_probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn = lib.dig_attn_logits_forms
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.dig_attn_fwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.dig_attn_fwd_smem_bytes.restype = ctypes.c_longlong
+    lib.dig_attn_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.dig_attn_smem_bytes.restype = ctypes.c_longlong
     gen = torch.Generator(device="cuda").manual_seed(3)
     n = 4096
     q, k = (torch.randn(n, 64, 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
-    wg, mma = (torch.empty(n, 64, 64, device="cuda") for _ in range(2))
+    outs = [torch.empty(n, 64, 64, device="cuda") for _ in range(4)]
     qscale = torch.tensor(64**-0.5 * 1.4426950408889634, dtype=torch.bfloat16).item()
-    build.check(lib, fn(q.data_ptr(), k.data_ptr(), wg.data_ptr(), mma.data_ptr(), n, qscale,
+    build.check(lib, fn(q.data_ptr(), k.data_ptr(), *(o.data_ptr() for o in outs), n, qscale,
                         build.stream_ptr(q)), "attention logits probe")
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(wg).all()), "logits probe: non-finite wgmma logits")
-    bits, ref = wg.view(torch.int32), mma.view(torch.int32)
-    differ = int((bits != ref).sum())
-    ulps = int((bits.long() - ref.long()).abs().max())
-    print(f"[logits probe] wgmma vs mma.sync logits of {wg.numel()} (q, k) pairs at D=64: "
-          f"{'equal bit for bit' if differ == 0 else 'NOT equal'} ({differ} differ, at most "
-          f"{ulps} ulp apart)")
-    smem = {d: lib.dig_attn_fwd_smem_bytes(d) for d in (32, 64, 128)}
-    print(f"[ptxas attention fwd] the TMA / wgmma body's dynamic shared memory a block: "
-          f"{smem} bytes (one block an SM)")
+    check(all(bool(torch.isfinite(o).all()) for o in outs), "logits probe: non-finite logits")
+    fwd = outs[0].view(torch.int32)
+    differ = {}
+    for name, o in zip(("mma.sync", "backward rows", "backward columns"), outs[1:]):
+        bits = o.view(torch.int32)
+        differ[name] = int((bits != fwd).sum())
+        ulps = int((bits.long() - fwd.long()).abs().max())
+        print(f"[logits probe] {name} vs the forward's wgmma logits of {fwd.numel()} (q, k) pairs "
+              f"at D=64: {'equal bit for bit' if differ[name] == 0 else 'NOT equal'} "
+              f"({differ[name]} differ, at most {ulps} ulp apart)")
+    for name in ("backward rows", "backward columns"):
+        check(differ[name] == 0, f"logits probe: the {name} form differs from the forward's logits")
+    for which, body in enumerate(("fwd", "bwd row pass", "bwd column pass")):
+        smem = {d: lib.dig_attn_smem_bytes(which, d) for d in (32, 64, 128)}
+        print(f"[ptxas attention {body}] the TMA / wgmma body's dynamic shared memory a block: "
+              f"{smem} bytes (one block an SM)")
 
 
 def main():
@@ -4142,7 +4175,7 @@ def main():
         paths["eval_switch"] = phase_eval(torch, np, "eval switch",
                                           per_step(attention_fwd=12, layer_norm_fwd=24))
     phase_finetune_cpu_parity(torch, np)
-    phase_attention_l281(torch, attn, gen)
+    l281_rows = phase_attention_l281(torch, attn, gen)
     phase_kinds_step(torch, np, paths)
     phase_memory_bank(torch, np)
     phase_kinds_cpu_parity(torch, np)
@@ -4172,13 +4205,19 @@ def main():
                  float32=rec_rows["float32"]),
             "pretrain_switches"),
         row("attention_bwd", "attention_bwd", "dig_tpu/ops/attention.py:111",
-            rec_bwd_rows["bfloat16"], "pretrain_switches"),
+            dict(rec_bwd_rows["bfloat16"],
+                 seq_cls={k: {"ms": v["ms2"], "sdpa_backward_ms": v["sdpa_bwd"]}
+                          for k, v in l281_rows.items()},
+                 tensor_split={k: {"ms": v["ms2"], "sdpa_backward_ms": v["sdpa_bwd"]}
+                               for k, v in split_rows.items()}), "pretrain_switches"),
         row("attention_lse_fwd", "attention_lse_fwd", "dig_tpu/ops/attention.py:275",
             dict(attn_rows["bfloat16"], float32=attn_rows["float32"],
                  tensor_split={k: {"ms": v["ms3"], "sdpa_ms": v["sdpa"]}
                                for k, v in split_rows.items()}), "pretrain"),
         row("attention_lse_bwd", "attention_lse_bwd", "dig_tpu/ops/attention.py:299",
             dict(attn_bwd_rows["bfloat16"],
+                 seq_cls={k: {"ms": v["ms4"], "sdpa_backward_ms": v["sdpa_bwd"]}
+                          for k, v in l281_rows.items()},
                  tensor_split={k: {"ms": v["ms4"], "sdpa_backward_ms": v["sdpa_bwd"]}
                                for k, v in split_rows.items()}), "pretrain"),
         row("layer_norm_fwd", "layernorm_fwd", "dig_tpu/ops/layernorm.py:44", ln_rows["bfloat16"],

@@ -151,8 +151,9 @@ def _smem_bytes(head_dim: int, lk: int) -> int:
 
 
 def _bwd_smem_bytes(head_dim: int, lk: int) -> int:
-    """Shared memory of the backward's dq pass (the larger of its two):
-    mirror of `dq_smem_bytes` in csrc/attention_bwd.cuh."""
+    """Shared memory of the fp32 backward's dq pass (the larger of its
+    two): mirror of `dq_smem_bytes` in csrc/attention_bwd.cuh.  It sets
+    the Lk limit of both dtypes."""
     return 4 * (_BQ * (head_dim + 1) + head_dim * (_KC + 1) + 2 * _BQ * (lk + 1) + 2 * _BQ)
 
 

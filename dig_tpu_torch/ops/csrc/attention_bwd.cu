@@ -18,8 +18,9 @@
 // D = 64, bf16) the function reads q, k, v, do (4 x 50.3 MB) and writes
 // dq, dk, dv (3 x 50.3 MB): ~352 MB, ~0.105 ms at 3.35 TB/s, against 5
 // products of 2*B*H*L*L*D = 6.4e10 flop, ~0.065 ms on the bf16 tensor
-// cores: bytes bound it.  In bf16 every product is an mma.sync on the
-// tensor cores; fp32 keeps FMAs from shared memory (attention_bwd.cuh).
+// cores: bytes bound it.  In bf16 every product is a wgmma on tiles that
+// TMA brings into shared memory, in two warp-specialised persistent passes;
+// fp32 keeps FMAs from shared memory (attention_bwd.cuh).
 
 #include "attention_bwd.cuh"
 

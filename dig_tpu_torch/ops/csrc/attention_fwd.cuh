@@ -54,8 +54,8 @@
 // bf16 against a max that is not yet the final one: on random inputs 3% of
 // o then lies outside the tolerance the port holds the kernel to, against
 // 4.5e-6 with the exact max (tools/attention_online_rounding.py, on the
-// CPU).  The forward's wgmma logits equal the backward's mma.sync ones bit
-// for bit on the card (chip_smoke.py's [logits probe]).
+// CPU).  The backward (attention_bwd.cuh) takes its logits in the operand
+// forms that chip_smoke.py's [logits probe] holds equal to these bit for bit.
 //
 // fp32: attn_fwd_fma_kernel, the port's parity path (a tensor-core fp32
 // product runs in TF32, about three digits).  One CTA of 256 threads owns
@@ -66,8 +66,8 @@
 // (attention_bwd.cuh).  Its shared memory sets the Lk limit the wrapper
 // checks (fwd_smem_bytes).
 //
-// Also here: the mma.sync pieces (chunk_logits, chunk_pv, load_rows, ...)
-// of the backward's tensor-core bodies (attention_bwd.cuh).
+// Also here: the pieces the backward's bf16 bodies share with the forward
+// (attention_bwd.cuh): the masks, exponentials, sums and wgmma logits.
 #pragma once
 
 #include <limits.h>
@@ -245,68 +245,9 @@ attn_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: pieces shared with the backward's mma.sync bodies -------------
+// ---- bf16: pieces shared with the backward's bodies ----------------------
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kMmaThreads = 128;  // one warpgroup: 4 warps x 16 rows = kFwdBQ query rows
-static_assert(kMmaThreads / 32 * 16 == kFwdBQ, "one 16-row tile a warp");
-
-// row stride of a padded shared-memory tile (the backward's), in elements:
-// 16 bytes of padding put the 8 rows an ldmatrix reads on 8 different
-// groups of 4 banks
-template <int D> __host__ __device__ constexpr int mma_ld() { return D + 8; }
-
-// The log2-domain logits of one chunk of 16 * NP keys (64 by default) for a
-// warp's 16 query rows by mma.sync: s[n] is the 16 x 8 tile of keys
-// 8n..8n+7, summed over D in ascending k16 steps from zero.  qa holds the
-// scaled q as A fragments; k_tile is the shared-memory address of the
-// chunk's first key row in a padded tile.  The backward's sweeps take
-// their logits and dw here; an element's sum does not depend on NP.
-template <int D, int NP = 4>
-__device__ __forceinline__ void chunk_logits(const uint32_t (&qa)[D / 16][4], uint32_t k_tile,
-                                             int lane, float (&s)[2 * NP][4]) {
-  constexpr int kRow = mma_ld<D>() * 2;  // bytes
-  // lanes 0-7: keys 0-7, d 0-7; 8-15: keys 0-7, d 8-15; 16-23: keys 8-15,
-  // d 0-7; 24-31: keys 8-15, d 8-15 -> b0, b1 of two adjacent key tiles
-  const uint32_t base = k_tile + ((lane & 7) + ((lane >> 4) << 3)) * kRow + ((lane >> 3) & 1) * 16;
-#pragma unroll
-  for (int n = 0; n < 2 * NP; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4(b, base + np * 16 * kRow + kk * 32);
-      mma_bf16_16816(s[2 * np], qa[kk], b[0], b[1]);
-      mma_bf16_16816(s[2 * np + 1], qa[kk], b[2], b[3]);
-    }
-  }
-}
-
-// o[n] += p . v over one chunk of 16 * NKB keys (64 by default): pa the k16
-// A fragments of p, v_tile the shared-memory address of the chunk's first V
-// row
-template <int D, int NKB = 4>
-__device__ __forceinline__ void chunk_pv(const uint32_t (&pa)[NKB][4], uint32_t v_tile, int lane,
-                                         float (&o)[D / 8][4]) {
-  constexpr int kRow = mma_ld<D>() * 2;
-  // transposed: lanes 0-7: keys 0-7, d 0-7; 8-15: keys 8-15, d 0-7;
-  // 16-23: keys 0-7, d 8-15; 24-31: keys 8-15, d 8-15
-  const uint32_t base = v_tile + ((lane & 7) + ((lane >> 3) & 1) * 8) * kRow + (lane >> 4) * 16;
-#pragma unroll
-  for (int kb = 0; kb < NKB; ++kb) {
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, base + kb * 16 * kRow + dp * 32);
-      mma_bf16_16816(o[2 * dp], pa[kb], b[0], b[1]);
-      mma_bf16_16816(o[2 * dp + 1], pa[kb], b[2], b[3]);
-    }
-  }
-}
 
 // -inf at the keys at or past Lk of a chunk of 8 * NT keys starting at key
 // k0; col0 is the thread's first key in each 8-key tile
@@ -338,16 +279,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The A fragments of a warp's 16 rows (rows 16 * warp ... + 15) of a padded
-// [64, D] tile at shared-memory address `tile`, one k16 step each
-template <int D>
-__device__ __forceinline__ void load_a_rows(uint32_t (&a)[D / 16][4], uint32_t tile, int warp,
-                                            int lane) {
-  const uint32_t base = tile + ((warp * 16 + (lane & 15)) * mma_ld<D>() + (lane >> 4) * 8) * 2;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(a[kk], base + kk * 32);
-}
-
 // a * f rounded to bf16, element by element: q scaled in bf16 as the TPU
 // kernels scale it.  Forward and backward scale through this one function,
 // so their logits start from the same bits.
@@ -369,23 +300,6 @@ __device__ __forceinline__ void chunk_row_max(const float (&s)[8][4], float (&mx
   for (int n = 0; n < 8; ++n) {
     mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
     mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
-  }
-}
-
-// Copies rows [r0, r0 + 64) of a [L, D] bf16 operand (row stride rs
-// elements, 16-byte aligned) into a padded tile; rows at or past L are
-// zero-filled and not read.
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, long long rs, int r0,
-                                          int L, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte pieces a row
-#pragma unroll
-  for (int i = 0; i < kFwdBQ * kChunks / kMmaThreads; ++i) {
-    const int c = tid + i * kMmaThreads;
-    const int r = c / kChunks, p = c % kChunks;
-    const bool ok = r0 + r < L;
-    const bf16* g = src + (ok ? (r0 + r) * rs : 0) + p * 8;
-    cp_async_16(smem_addr(dst + r * mma_ld<D>() + p * 8), g, ok ? 16 : 0);
   }
 }
 
@@ -440,23 +354,28 @@ __device__ __forceinline__ void load_a_rows_sw(uint32_t (&a)[D / 16][4], uint32_
   for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(a[kk], tile + sw_chunk<D>(r, 2 * kk + (lane >> 4)));
 }
 
+// The descriptor of k16 step kk of a swizzled [64, D] tile read K-major, as
+// the A or the B operand
+template <int D>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
+  constexpr uint32_t kSbo = D == 32 ? 512 : 1024;  // 8 rows
+  constexpr uint32_t kSwizzle = D == 32 ? 2 : 1;
+  return wgmma_desc(tile + (kk >> 2) * (64 * 128) + (kk & 3) * 32, 16, kSbo, kSwizzle);
+}
+
 // The log2-domain logits of one 64-key tile for a warpgroup's 64 query rows
 // by wgmma, issued and committed as one group (the caller fences the
-// registers before and waits after): s in chunk_logits' layout (each warp
-// its 16 rows), summed over D in ascending k16 steps from zero.  qa: the
-// warp's rows of the scaled q as A fragments; k_tile: a swizzled K tile,
-// read K-major.  On the H100 these are chunk_logits' bits for the same
-// operands (chip_smoke.py's [logits probe]), which the backward relies on.
+// registers before and waits after): s in mma.m16n8k16's C layout, 8 keys
+// an entry (each warp its 16 rows), summed over D in ascending k16 steps
+// from zero.  qa: the warp's rows of the scaled q as A fragments; k_tile: a
+// swizzled K tile, read K-major.  The backward's logits are these bits
+// (chip_smoke.py's [logits probe]).
 template <int D>
 __device__ __forceinline__ void wg_logits_issue(const uint32_t (&qa)[D / 16][4], uint32_t k_tile,
                                                 float (&s)[8][4]) {
-  constexpr uint32_t kSbo = D == 32 ? 512 : 1024;  // 8 rows
-  constexpr uint32_t kSwizzle = D == 32 ? 2 : 1;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t at = k_tile + (kk >> 2) * (64 * 128) + (kk & 3) * 32;
-    WgmmaRS<64>::mma<0>(s, qa[kk], wgmma_desc(at, 16, kSbo, kSwizzle), kk > 0);
-  }
+  for (int kk = 0; kk < D / 16; ++kk)
+    WgmmaRS<64>::mma<0>(s, qa[kk], kmajor_desc<D>(k_tile, kk), kk > 0);
   wgmma_commit();
 }
 
@@ -469,26 +388,33 @@ __device__ __forceinline__ void wg_logits(const uint32_t (&qa)[D / 16][4], uint3
   fence_regs(s);
 }
 
-// o += p . v over one 64-key tile by wgmma, issued and committed: pa the
-// A fragments of p (16 keys each), v_tile a swizzled V tile read N-major
-// (the D = 128 halves 8 KB apart)
+// o += p . b over one 64-row tile by wgmma, issued into the caller's
+// group: pa the A fragments of p (16 rows of b each), b_tile a swizzled
+// [64, D] tile read N-major (the D = 128 halves 8 KB apart)
+template <int D>
+__device__ __forceinline__ void wg_pb_issue(const uint32_t (&pa)[4][4], uint32_t b_tile,
+                                            float (&o)[D / 8][4]) {
+  constexpr uint32_t kRow = (D > 64 ? 64 : D) * 2;  // bytes of one row
+  constexpr uint32_t kSwizzle = D == 32 ? 2 : 1;
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+    WgmmaRS<D>::template mma<1>(o, pa[kb], wgmma_desc(b_tile + kb * 16 * kRow, 64 * 128, 8 * kRow,
+                                                      kSwizzle), 1);
+}
+
+// o += p . v over one 64-key tile, fenced, issued and committed
 template <int D>
 __device__ __forceinline__ void wg_pv_issue(const uint32_t (&pa)[4][4], uint32_t v_tile,
                                             float (&o)[D / 8][4]) {
-  constexpr uint32_t kRow = (D > 64 ? 64 : D) * 2;  // bytes of one key's row
-  constexpr uint32_t kSwizzle = D == 32 ? 2 : 1;
   wgmma_fence();
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb)
-    WgmmaRS<D>::template mma<1>(o, pa[kb], wgmma_desc(v_tile + kb * 16 * kRow, 64 * 128, 8 * kRow,
-                                                      kSwizzle), 1);
+  wg_pb_issue<D>(pa, v_tile, o);
   wgmma_commit();
 }
 
 // e = exp_centred(logit, m) in place over NT 8-key tiles, and the thread's
 // row sums of e added key by key: the forward's statistics, and through the
-// same function the recompute backward's (attention_bwd.cuh, 32 keys at a
-// time, in the same key order), so their s agree bit for bit
+// same function the recompute backward's (attention_bwd.cuh, tile by tile
+// in the same key order), so their s agree bit for bit
 template <FwdMode M, int NT>
 __device__ __forceinline__ void tile_exp_sum(float (&s)[NT][4], const float (&mx)[2],
                                              float (&sum)[2]) {
@@ -508,6 +434,32 @@ __device__ __forceinline__ void pack_p(const float (&e)[8][4], uint32_t (&pa)[4]
   for (int n = 0; n < 8; ++n) {
     pa[n >> 1][(n & 1) * 2] = pack_bf16(e[n][0], e[n][1]);      // row g
     pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(e[n][2], e[n][3]);  // row g + 8
+  }
+}
+
+// a warp's 16 x D fp32 accumulator rows times f[0] (row g) and f[1] (row
+// g + 8) in bf16 into its own 16 rows of a swizzled tile, then one TMA store
+// of those rows (rows past the map's end are not written)
+template <int D>
+__device__ __forceinline__ void store_rows_tma(const float (&acc)[D / 8][4], const float (&f)[2],
+                                               unsigned char* tile_p, uint32_t tile,
+                                               const CUtensorMap* map, int h, int row, int b,
+                                               int warp, int lane) {
+  const int g = lane >> 2, col0 = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(tile_p + sw_chunk<D>(warp * 16 + g, n) + col0 * 2) =
+        pack_bf16(acc[n][0] * f[0], acc[n][1] * f[0]);
+    *reinterpret_cast<uint32_t*>(tile_p + sw_chunk<D>(warp * 16 + g + 8, n) + col0 * 2) =
+        pack_bf16(acc[n][2] * f[1], acc[n][3] * f[1]);
+  }
+  fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) {
+    constexpr uint32_t kRowBytes = (D > 64 ? 64 : D) * 2;
+#pragma unroll
+    for (int x = 0; x < (D > 64 ? 2 : 1); ++x)
+      tma_store_4d(map, tile + x * 8192 + warp * 16 * kRowBytes, 64 * x, h, row, b);
   }
 }
 
@@ -738,25 +690,10 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_const
         // of an item's time) into the warp's own rows of its Q tile, in the
         // tile's swizzled layout, then one TMA store of the warp's 16 rows
         // (rows past Lq are not written)
-        unsigned char* const stage = base_p + (q_tile - base);
-        const float rs0 = 1.f / sum[0], rs1 = 1.f / sum[1];
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          *reinterpret_cast<uint32_t*>(stage + sw_chunk<D>(warp * 16 + g, n) + col0 * 2) =
-              pack_bf16(acc[n][0] * rs0, acc[n][1] * rs0);
-          *reinterpret_cast<uint32_t*>(stage + sw_chunk<D>(warp * 16 + g + 8, n) + col0 * 2) =
-              pack_bf16(acc[n][2] * rs1, acc[n][3] * rs1);
-        }
-        fence_proxy_async();
-        __syncwarp();
-        if (lane == 0) {
-          constexpr uint32_t kRowBytes = (D > 64 ? 64 : D) * 2;
-#pragma unroll
-          for (int x = 0; x < kHalves; ++x)
-            tma_store_4d(&to, q_tile + x * 8192 + warp * 16 * kRowBytes, 64 * x, h,
-                         row_base + warp * 16, b);
-          bulk_commit();
-        }
+        const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+        store_rows_tma<D>(acc, inv, base_p + (q_tile - base), q_tile, &to, h, row_base + warp * 16,
+                          b, warp, lane);
+        if (lane == 0) bulk_commit();
         // m and s after the o store: the proxy fence above would wait on them
         const int row0 = row_base + warp * 16 + g;  // this thread's rows: row0 and row0 + 8
         if constexpr (M == FwdMode::kStats) {
@@ -801,11 +738,11 @@ bool mma_operands_ok(const void* q, const void* k, const void* v, const void* o,
 // budgets; a consumer asking for more than the block holds would wait
 // forever, so such a kernel is refused instead of launched.
 template <typename K>
-cudaError_t check_reg_budget(K kernel) {
+cudaError_t check_reg_budget(K kernel, int producer_regs, int consumer_regs) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  return (kFwdConsumers + 1) * attr.numRegs >= kProducerRegs + kFwdConsumers * kConsumerRegs
+  return (kFwdConsumers + 1) * attr.numRegs >= producer_regs + kFwdConsumers * consumer_regs
              ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
@@ -823,7 +760,7 @@ cudaError_t wgmma_launch(const void* q, const void* k, const void* v, void* o, f
                      static_cast<long long>(Lq) * H * D, 16))
     return cudaErrorInvalidValue;
   auto kernel = attn_fwd_wgmma_kernel<D, M, kResident>;
-  static const cudaError_t budget = check_reg_budget(kernel);
+  static const cudaError_t budget = check_reg_budget(kernel, kProducerRegs, kConsumerRegs);
   if (budget != cudaSuccess) return budget;
   constexpr size_t smem = wg_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,7 +1,8 @@
 // Inline-PTX building blocks of the port's Hopper (sm_90a) kernels that
 // use the Tensor Memory Accelerator and warpgroup products: mbarriers, TMA
-// tile loads, wgmma with A in registers and B in shared memory, its
-// shared-memory descriptors, setmaxnreg, and the host-side tensor map
+// tile loads and stores, wgmma with A in registers or in shared memory and B
+// in shared memory, its shared-memory descriptors, setmaxnreg, named
+// barriers, and the host-side tensor map
 // (cuTensorMapEncodeTiled, fetched from the driver at run time, so the
 // libraries link no -lcuda).
 //
@@ -259,6 +260,35 @@ template <> struct WgmmaRS<128> {
   }
 };
 
+// d (+)= a . b on a 64 x 64 x 16 tile with both operands in shared memory,
+// K-major (k contiguous in a row): a and b descriptors; d as WgmmaRS<64>.
+struct WgmmaSS64 {
+  static __device__ __forceinline__ void mma(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// named barrier `id` over `threads` threads (a multiple of 32)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
 
 // ---- host: tensor maps -------------------------------------------------
 

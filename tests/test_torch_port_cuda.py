@@ -128,7 +128,7 @@ def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
 @pytest.mark.parametrize("b,lq,lk,h,d", [
     (256, 256, 256, 6, 64),  # the pretrain step: 2 views x 128 images, ViT-S heads
     (3, 200, 130, 2, 32),   # ragged query and key blocks
-    (2, 128, 320, 4, 128),  # widest head and longest Lk the dq pass fits
+    (2, 128, 320, 4, 128),  # widest head and longest Lk the fp32 dq pass fits
 ])
 def test_attention_backward_kernel_matches_plain_version(cuda, dtype, b, lq, lk, h, d):
     """The backward on strided q, k, v column slices of packed projections,
@@ -261,7 +261,7 @@ def test_recompute_attention_bwd_matches_plain_version(cuda, dtype, b, lq, lk, h
     """`attention_bwd` writing into the column slices of one packed
     gradient, against its plain version (`BWD_RTOL`), and against the
     stored-statistics backward on the same inputs.  The two are equal bit
-    for bit in both dtypes: the dq pass takes m and s from the forward's
+    for bit in both dtypes: the first pass takes m and s from the forward's
     logits (one device function in bf16, the same FMA order in fp32), in
     the forward's order."""
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -534,6 +534,18 @@ BWD_EDGES = {
     "lq-longer-d128": lambda: (1, 200, 129, 2, 128),
     "one-block": lambda: (3, 50, 40, 2, 64),     # one query block and one key block
     "skewed": lambda: (2, 256, 256, 2, 64),      # q x 16: one or two keys carry a row
+    # the Hopper bodies' paths: a ragged fifth key tile past the four
+    # resident ones at the seq-cls width, one tensor rank's 3 heads, a
+    # ragged L, the resident row pass at D = 32 and the two-sweep one at
+    # D = 128 past 4 tiles, a single query row, and more work items than
+    # the persistent grid has blocks, with spare warpgroups among them
+    "seq-cls": lambda: (4, 281, 281, 12, 64),
+    "tensor-split": lambda: (8, 256, 256, 3, 64),
+    "ragged-137": lambda: (1, 137, 137, 2, 64),
+    "resident-d32": lambda: (2, 256, 256, 2, 32),
+    "l281-d128": lambda: (2, 281, 281, 2, 128),
+    "one-row": lambda: (2, 1, 129, 1, 64),
+    "many-items": lambda: (64, 281, 281, 3, 64),
 }
 
 

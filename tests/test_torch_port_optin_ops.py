@@ -95,14 +95,17 @@ def test_bf16_exp_branch_differs_from_the_fp32_tile_by_bf16_rounding(monkeypatch
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("packed", [False, True])
-def test_attention_bwd_matches_pallas_vjp(interpret, monkeypatch, dtype, packed):
+@pytest.mark.parametrize("packed,b,l", [pytest.param(False, 2, 128, id="False"),
+                                        pytest.param(True, 2, 128, id="True"),
+                                        pytest.param(False, 1, 137, id="False-137")])
+def test_attention_bwd_matches_pallas_vjp(interpret, monkeypatch, dtype, packed, b, l):
     """dq, dk, dv through the port's recompute autograd Functions (plain
     forward and backward on the CPU) against `jax.vjp` of
-    `_pallas_attention`, whose backward is `_attn_bwd_kernel`, at L=128,
-    H=2, D=64; packed: the ViT's [B, L, 3C] entry."""
+    `_pallas_attention`, whose backward is `_attn_bwd_kernel`, at H=2,
+    D=64 and L=128 or a ragged L=137 (no multiple of the CUDA bodies'
+    64-row tiles); packed: the ViT's [B, L, 3C] entry."""
     monkeypatch.setenv("DIG_TPU_ATTN_STORE_LSE", "0")
-    b, l, h, d = 2, 128, 2, 64
+    h, d = 2, 64
     scale = d**-0.5
     with jax.enable_x64(dtype == "float64"):
         (jq, jk, jv, jg), (q, k, v, g) = _inputs(32, (b, l, h, d), 4, dtype)

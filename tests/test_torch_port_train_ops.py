@@ -56,13 +56,16 @@ def _np(t):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("b,d", [(2, 64), (1, 32)])
-def test_attention_backward_matches_pallas_vjp(interpret, dtype, b, d):
+@pytest.mark.parametrize("b,l,d", [pytest.param(2, 128, 64, id="2-64"),
+                                   pytest.param(1, 128, 32, id="1-32"),
+                                   pytest.param(1, 137, 64, id="1-137-64")])
+def test_attention_backward_matches_pallas_vjp(interpret, dtype, b, l, d):
     """dq, dk, dv of the port's kernel-pair Function (plain forward and
     plain backward on the CPU) against `jax.vjp` of `_pallas_attention_lse`,
-    whose backward is `_attn_bwd_kernel_lse`, at L=128, H=2."""
+    whose backward is `_attn_bwd_kernel_lse`, at H=2 and L=128 or a ragged
+    L=137 (no multiple of the CUDA bodies' 64-row tiles)."""
     rng = np.random.default_rng(10 + d)
-    q, k, v, g = (rng.normal(size=(b, 128, 2, d)).astype(dtype) for _ in range(4))
+    q, k, v, g = (rng.normal(size=(b, l, 2, d)).astype(dtype) for _ in range(4))
     scale = d**-0.5
     with jax.enable_x64(dtype == "float64"):
         _, vjp = jax.vjp(lambda q, k, v: jattn._pallas_attention_lse(q, k, v, scale),

@@ -10,8 +10,9 @@ bodies, and checks #3 (`attention_lse_fwd`) and #1 (`attention_fwd`, both
 modes) against their plain versions at chip_smoke.py's tolerances on the
 path's shapes and at ragged edges, #1's o against #3's bit for bit and #2
 (`attention_bwd`) against #4 (`attention_lse_bwd`) bit for bit.  A root
-that has `csrc/attention_probe.cu` also reports whether the wgmma and the
-mma.sync logits of the same bf16 q and k agree bit for bit.  Then times
+that has `csrc/attention_probe.cu` also reports whether the wgmma logits
+of the same bf16 q and k agree bit for bit with the mma.sync logits and,
+where its probe has them, with the backward's operand forms.  Then times
 #3, #1 and SDPA (a yardstick) with CUDA events at the path's shapes:
 rounds of 30 launches, the roots taking turns inside each round, so that
 two bodies (this tree and a copy of an earlier commit's package, or a copy
@@ -127,27 +128,35 @@ def check(tag, attn, shape, gen):
 
 
 def probe(tag, build, gen):
-    """wgmma vs mma.sync logits of the same bf16 q, k; None without a probe."""
+    """The forward's wgmma logits against the other forms' (the mma.sync
+    logits, and where the root's probe has them the backward's row and
+    column pass forms) of the same bf16 q, k: {form: elements that
+    differ}, or None without a probe."""
     if not os.path.exists(os.path.join(os.path.dirname(build.__file__), "csrc",
                                        "attention_probe.cu")):
         return None
     lib = build.load("attention_probe")
-    fn = lib.dig_attn_logits_probe
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    forms = hasattr(lib, "dig_attn_logits_forms")
+    fn = lib.dig_attn_logits_forms if forms else lib.dig_attn_logits_probe
+    n_out = 4 if forms else 2
+    fn.argtypes = [ctypes.c_void_p] * (2 + n_out) + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     n = 4096
     q, k = (torch.randn(n, 64, 64, generator=gen, device="cuda").bfloat16() for _ in range(2))
-    wg, mma = (torch.empty(n, 64, 64, device="cuda") for _ in range(2))
+    outs = [torch.empty(n, 64, 64, device="cuda") for _ in range(n_out)]
     qscale = torch.tensor(64**-0.5 * 1.4426950408889634, dtype=torch.bfloat16).item()
-    build.check(lib, fn(q.data_ptr(), k.data_ptr(), wg.data_ptr(), mma.data_ptr(), n, qscale,
+    build.check(lib, fn(q.data_ptr(), k.data_ptr(), *(o.data_ptr() for o in outs), n, qscale,
                         build.stream_ptr(q)), "attention probe")
     torch.cuda.synchronize()
-    bits = (wg.view(torch.int32) ^ mma.view(torch.int32)).ne(0)
-    ulps = (wg.view(torch.int32) - mma.view(torch.int32)).abs().max()
-    print(f"[probe {tag}] wgmma vs mma.sync logits of {wg.numel()} (q, k) pairs at D=64: "
-          f"{int(bits.sum())} differ ({float(bits.float().mean()):.3e} of them), at most "
-          f"{int(ulps)} ulp apart")
-    return int(bits.sum())
+    fwd = outs[0].view(torch.int32)
+    differ = {}
+    for name, o in zip(("mma.sync", "bwd rows", "bwd columns"), outs[1:]):
+        bits = o.view(torch.int32)
+        differ[name] = int((bits != fwd).sum())
+        print(f"[probe {tag}] wgmma vs {name} logits of {fwd.numel()} (q, k) pairs at D=64: "
+              f"{differ[name]} differ ({differ[name] / fwd.numel():.3e} of them), at most "
+              f"{int((bits - fwd).abs().max())} ulp apart")
+    return differ
 
 
 def main():
