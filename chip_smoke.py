@@ -25,7 +25,12 @@
    a ragged row count); and times the
    kernel, the plain version and one PyTorch library call for the same
    function (a yardstick the port never calls), with the share of the
-   bound each kernel reaches.
+   bound each kernel reaches.  Every backward check's second call writes
+   into NaN-filled gradients.  `[attention_bwd stress]` launches the bf16
+   #4 and #2 2,000 times each at three of the path's shapes (NaN-filled
+   gradients and scratch, half beside a second stream's GEMMs) and fails
+   on any launch whose bits differ from the first's; the kernels line
+   carries the counts.
 3. Runs the predict path at full width (vit_small_patch4_32x128 +
    tf_decoder, bf16, batch 512, random weights from a seed) on synthetic
    uint8 batches through the entry points a user calls, and asserts from
@@ -2412,10 +2417,13 @@ def rel_err(got, ref):
     return max_err(got, ref) / max(float(ref.float().abs().max()), 1e-30)
 
 
-def repeats(torch, first, second):
-    """Whether two calls' gradients are equal bit for bit: the backward
-    kernels use no atomics."""
-    return all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+def repeats(torch, first, call):
+    """Whether a second call, `call(out)` into NaN-filled gradients `out`,
+    gives the first call's bits: the backward kernels use no atomics and
+    write every element."""
+    out = tuple(torch.full_like(t, math.nan) for t in first)
+    call(out)
+    return all(bool(torch.equal(a, b)) for a, b in zip(first, out))
 
 
 def phase_attention_bwd(torch, attn, gen):
@@ -2443,7 +2451,8 @@ def phase_attention_bwd(torch, attn, gen):
             check(rel <= BWD_RTOL[dn], f"attention_lse_bwd {dn} {name}: max abs err "
                                        f"{errs[name]} = {rel:.2e} of max |ref| > {BWD_RTOL[dn]}")
         del ref
-        check(repeats(torch, out, attn.attention_lse_bwd(q, k, v, do, m, s, scale)),
+        check(repeats(torch, out,
+                      lambda o: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=o)),
               f"attention_lse_bwd {dn}: a second call gave other bits")
         ms = time_ms(lambda: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out), iters=5)
         plain_ms = time_ms(lambda: attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale),
@@ -2484,6 +2493,40 @@ def check_layernorm_bwd(torch, ln, tag, x, g, dy, eps):
     for name, a, b in zip(("dx", "dgamma", "dbeta"), got, again):
         check(torch.equal(a, b), f"{tag} {name}: two calls on the same inputs differ")
     return err, max(max_err(got[1], ref[1]), max_err(got[2], ref[2]))
+
+
+STRESS_CALLS = 2000  # launches of #4 and of #2 at each shape of [attention_bwd stress]
+
+
+def phase_attention_bwd_stress(torch, attn, gen):
+    """#4 and #2 in bf16, STRESS_CALLS launches each at the pre-training
+    shapes, at the seq-cls encoder's (L = 281, H = 12) and on one tensor
+    rank's heads (H = 3), through `stress` of tools/time_attention_bwd.py:
+    the packed gradient and the scratch between the passes NaN-filled before
+    every launch, half the launches beside GEMMs on a second stream, each
+    launch's bits compared with the first's.  Fails on any launch that
+    differs.  Returns {kernel name: (calls, differing calls)}; these
+    launches are not counted on any path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "time_attention_bwd", os.path.join(ROOT, "tools", "time_attention_bwd.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    totals = {"attention_lse_bwd": [0, 0], "attention_bwd": [0, 0]}
+    for tag, b, l, h in (("pretrain", PRE_B, L, H), ("seq-cls", FT_BATCH, SEQ_CLS_L, 12),
+                         ("tensor split", PRE_B, L, H // 2)):
+        for name, (calls, n_diff) in tool.stress(attn, (b, l, h, D), STRESS_CALLS, gen,
+                                                 f"attention_bwd {tag}").items():
+            totals[name][0] += calls
+            totals[name][1] += n_diff
+        torch.cuda.empty_cache()
+    print("[attention_bwd stress] " + "; ".join(
+        f"{name}: {calls} calls, {n_diff} differing from their shape's first call"
+        for name, (calls, n_diff) in totals.items()))
+    for name, (_, n_diff) in totals.items():
+        check(n_diff == 0, f"attention_bwd stress: {n_diff} launches of {name} gave other bits")
+    return {name: tuple(v) for name, v in totals.items()}
 
 
 def phase_layernorm_bwd(torch, ln, gen):
@@ -2855,7 +2898,7 @@ def phase_attention_bwd_recompute(torch, attn, gen):
         to_lse = max(rel_err(a, c) for a, c in zip(out, lse))
         check(same, f"attention_bwd {dn}: not bitwise equal to attention_lse_bwd "
                     f"({to_lse:.2e} of max |grad| apart)")
-        check(repeats(torch, out, attn.attention_bwd(q, k, v, do, scale)),
+        check(repeats(torch, out, lambda o: attn.attention_bwd(q, k, v, do, scale, out=o)),
               f"attention_bwd {dn}: a second call gave other bits")
         del lse, m, s
         ms = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale, out=out), iters=5)
@@ -3360,7 +3403,8 @@ def phase_attention_at(torch, attn, gen, tag, b, l, h):
         check(all(bool(torch.isfinite(g.float()).all()) for g in out) and rel4 <= BWD_RTOL[dn],
               f"attention_lse_bwd L={l} {dn}: {rel4:.2e} of max |ref| > {BWD_RTOL[dn]}")
         del ref
-        check(repeats(torch, out, attn.attention_lse_bwd(q, k, v, do, m, s, scale)),
+        check(repeats(torch, out,
+                      lambda o: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=o)),
               f"attention_lse_bwd L={l} H={h} {dn}: a second call gave other bits")
         ms4 = time_ms(lambda: attn.attention_lse_bwd(q, k, v, do, m, s, scale, out=out), iters=5)
         plain4 = time_ms(lambda: attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale),
@@ -3368,7 +3412,7 @@ def phase_attention_at(torch, attn, gen, tag, b, l, h):
         rec = attn.attention_bwd(q, k, v, do, scale)
         check(all(bool(torch.equal(a, r)) for a, r in zip(out, rec)),
               f"attention_bwd L={l} {dn}: not bitwise equal to attention_lse_bwd")
-        check(repeats(torch, rec, attn.attention_bwd(q, k, v, do, scale)),
+        check(repeats(torch, rec, lambda o: attn.attention_bwd(q, k, v, do, scale, out=o)),
               f"attention_bwd L={l} H={h} {dn}: a second call gave other bits")
         ms2 = time_ms(lambda: attn.attention_bwd(q, k, v, do, scale), iters=5)
         # #1 recompute forward: o equal to #3's bit for bit
@@ -4150,6 +4194,7 @@ def main():
     ln_bwd_rows = phase_layernorm_bwd(torch, ln, gen)
     rec_rows = phase_attention_recompute(torch, attn, gen)
     rec_bwd_rows = phase_attention_bwd_recompute(torch, attn, gen)
+    stress_counts = phase_attention_bwd_stress(torch, attn, gen)
     colsum_row = phase_colsum(torch, fd, gen)
 
     phase_to_model_images(torch, np)
@@ -4194,10 +4239,12 @@ def main():
     paths.update({f"bench_torch {mode}, a step": want for mode, want in BENCH_LAUNCHES.items()})
 
     def row(name, source, replaces, measured, path):
+        stress = ({"stress_calls": stress_counts[name][0],
+                   "stress_differing": stress_counts[name][1]} if name in stress_counts else {})
         return dict(name=name, route="cuda", source=f"dig_tpu_torch/ops/csrc/{source}.cu",
                     replaces=replaces, launches=paths[path][name],
                     launches_by_path={p: c[name] for p, c in paths.items()}, design=DESIGN[name],
-                    bound_share=measured["bound_ms"] / measured["ms"], **measured)
+                    bound_share=measured["bound_ms"] / measured["ms"], **stress, **measured)
 
     kernels = [
         row("attention_fwd", "attention_fwd", "dig_tpu/ops/attention.py:65",

@@ -1,9 +1,10 @@
 """One gloo rank of tests/test_torch_port_dist.py, on the CPU.
 
-    python tests/_torch_port_dist_worker.py <scenario> <dir> <rank> <world> <port>
+    python tests/_torch_port_dist_worker.py <scenario> <dir> <rank> <world> <init_method>
 
 Reads ``<dir>/inputs.pt`` (written by the test), joins a process group of
-`world` gloo ranks at tcp://127.0.0.1:<port>, runs the scenario and writes
+`world` gloo ranks at <init_method> (tests/_torch_port_ranks.py gives a
+`file://` store), runs the scenario and writes
 ``<dir>/rank<rank>.pt``.  Scenarios:
 
 * ``steps``: one pre-training step, one fine-tuning step (AdamW, and
@@ -193,11 +194,10 @@ def _cli(inp, rank, world):
     return out
 
 
-def main(scenario, root, rank, world, port):
+def main(scenario, root, rank, world, init_method):
     torch.set_num_threads(1)
     inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
-    info = init_distributed_mode("cpu", rank=rank, world_size=world,
-                                 init_method=f"tcp://127.0.0.1:{port}")
+    info = init_distributed_mode("cpu", rank=rank, world_size=world, init_method=init_method)
     assert info["backend"] == "gloo" and info["created"], info
     try:
         out = {"steps": _steps, "cli": _cli}[scenario](inp, rank, world)
@@ -208,4 +208,4 @@ def main(scenario, root, rank, world, port):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2], *(int(a) for a in sys.argv[3:6]))
+    main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])

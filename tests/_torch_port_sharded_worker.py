@@ -1,9 +1,9 @@
 """One gloo rank of tests/test_torch_port_sharded_steps.py, on the CPU.
 
-    python tests/_torch_port_sharded_worker.py <DxFxT> <dir> <rank> <world> <port>
+    python tests/_torch_port_sharded_worker.py <DxFxT> <dir> <rank> <world> <init_method>
 
 Reads ``<dir>/inputs.pt`` (written by the test), joins a process group of
-`world` gloo ranks at tcp://127.0.0.1:<port> (none at world 1: the
+`world` gloo ranks at <init_method> (none at world 1: the
 one-process reference), lays them out as the mesh D x F x T
 (`parallel.mesh.create_mesh`), shards the models by the JAX package's rules
 (every >= 2-D leaf, ``min_size`` 1, so that FSDP covers the micro width)
@@ -219,7 +219,7 @@ def run_clis(inp):
     return {"steps": steps}
 
 
-def main(spec, root, rank, world, port):
+def main(spec, root, rank, world, init_method):
     from dig_tpu_torch.parallel.mesh import clear_mesh, create_mesh
 
     torch.set_num_threads(1)
@@ -236,8 +236,7 @@ def main(spec, root, rank, world, port):
     n_data, n_fsdp, n_tensor = (int(a) for a in spec.split("x"))
     info = None
     if world > 1:
-        info = init_distributed_mode("cpu", rank=rank, world_size=world,
-                                     init_method=f"tcp://127.0.0.1:{port}")
+        info = init_distributed_mode("cpu", rank=rank, world_size=world, init_method=init_method)
         assert info["backend"] == "gloo" and info["created"], info
     try:
         mesh = create_mesh(n_fsdp, n_tensor, n_data)
@@ -255,4 +254,4 @@ def main(spec, root, rank, world, port):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], sys.argv[2], *(int(a) for a in sys.argv[3:6]))
+    main(sys.argv[1], sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])

@@ -26,8 +26,16 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.data import device_aug as jaug
 from dig_tpu_torch.data import device_aug as taug
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 PIECE_ATOL = 1e-5
 # what test_geometry_matrices_from_the_jax_draws accepts of an entry

@@ -11,9 +11,9 @@ import subprocess
 import sys
 
 import pytest
-import torch
 
 import _torch_port_ranks as ranks
+from _torch_port_threads import one_thread
 import bench_torch
 from dig_tpu_torch.utils.flops import (
     FinetuneShape,
@@ -45,12 +45,10 @@ BASELINES = {"pretrain": bench_torch.A100_BASELINE_IMGS_PER_SEC,
              "eval": bench_torch.A100_EVAL_BASELINE_IMGS_PER_SEC}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _env(monkeypatch, mode, batch=2):

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.registry import create_model as j_create_model
 from dig_tpu.utils.checkpoint import convert_torch_moco, load_torch_checkpoint
 from dig_tpu_torch.models.moco import build_pretrain_model
@@ -36,12 +37,10 @@ MODEL_KW = dict(mlp_dim=32, dim=16, num_windows=4)
 STEPS = 4
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _fresh(seed=0, drop_path_rate=0.1):

@@ -10,8 +10,16 @@ import json
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 import dig_tpu.config as jcfg
 import dig_tpu_torch.config as tcfg
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 CONFIGS = ["PredictConfig", "PretrainConfig", "FinetuneConfig"]
 # each reference spelling, alone and among other flags, in both forms of a

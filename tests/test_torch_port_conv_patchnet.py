@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from _torch_port_pretrain_step import check_against_jax, close_to_max, jax_step, perturb, port_step
+from _torch_port_threads import one_thread
 from dig_tpu.models import moco as jmoco
 from dig_tpu.utils.checkpoint import convert_torch_moco
 from dig_tpu_torch.cli.run_pretrain import main
@@ -28,12 +29,10 @@ from dig_tpu_torch.models import moco as tmoco
 from dig_tpu_torch.utils.convert import _conv_patchnet
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.mark.parametrize("windows", [4, 5])

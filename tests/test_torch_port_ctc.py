@@ -19,7 +19,15 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_port_threads import one_thread
 from dig_tpu_torch.losses import ctc as tctc
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 B, FRAMES, K, BLANK = 4, 32, 98, 97
 

@@ -20,7 +20,9 @@ round the other way when its fp32 input differs by an ulp (the bf16 body's
 logits and dw are tensor-core sums), and that moves a sum of many terms by
 a fraction of one term."""
 
+import importlib.util
 import math
+import os
 
 import pytest
 import torch
@@ -575,6 +577,47 @@ def test_attention_bwd_bodies_at_their_edges(cuda, dtype, case):
         assert torch.equal(a, r), "attention_lse_bwd changed between launches"
     for g, r in zip(rec, tattn.attention_bwd(q, k, v, do, scale)):
         assert torch.equal(g, r), "attention_bwd changed between launches"
+
+
+def _bwd_tool():
+    """tools/time_attention_bwd.py, whose `launch` runs a backward's C entry
+    with the caller's scratch (the wrappers allocate theirs)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools",
+                        "time_attention_bwd.py")
+    spec = importlib.util.spec_from_file_location("time_attention_bwd", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BWD_EDGES))
+def test_attention_bwd_writes_every_element(cuda, dtype, case):
+    """#4 and #2 into NaN-filled gradients and a NaN-filled scratch between
+    their passes (c; #2's m, s and c): every element of what a launch
+    writes is finite, and three launches give the same bits."""
+    launch = _bwd_tool().launch
+    b, lq, lk, h, d = BWD_EDGES[case]()
+    scale = d**-0.5
+    q, k, v, do, out = _bwd_inputs(b, lq, lk, h, d, dtype, 8, 16.0 if case == "skewed" else 1.0)
+    _, m, s = tattn.attention_lse_fwd(q, k, v, scale)
+    scratch = torch.empty((3, b, lq, h), dtype=torch.float32, device="cuda")
+    for recompute in (False, True):
+        written = (*out, scratch if recompute else scratch[2])
+        runs = []
+        for _ in range(3):
+            for t in (*out, scratch):
+                t.fill_(math.nan)
+            stats = (scratch[0], scratch[1]) if recompute else (m, s)
+            launch(tattn, recompute, q, k, v, do, *stats, scratch[2], out, scale)
+            torch.cuda.synchronize()
+            for t in written:
+                assert torch.isfinite(t.float()).all(), f"recompute={recompute}: unwritten elements"
+            runs.append([t.clone() for t in written])
+        for later in runs[1:]:
+            for a, g in zip(runs[0], later):
+                assert torch.equal(a, g), f"recompute={recompute}: a launch gave other bits"
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ import cv2
 import numpy as np
 import pytest
 
+from _torch_port_threads import one_thread
 from dig_tpu.data import dataset as jds
 from dig_tpu.data import folder as jfolder
 from dig_tpu.data import masking as jmask
@@ -31,6 +32,21 @@ from dig_tpu_torch.data import samplers as tsamp
 from dig_tpu_torch.data import transforms as ttf
 from dig_tpu_torch.data.lmdb_store import LmdbWriter
 from dig_tpu_torch.utils import rng as trng
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stop_process_workers():
+    """The forkserver and the workers that the process-worker tests
+    started, stopped when the module ends instead of with the worker."""
+    yield
+    tpipe.stop_worker_processes()
+
 
 WORDS = ["hello", "World", "42abc", "x", "a-word-that-is-far-too-long-for-max-len", "Foo-Bar!",
          "qt", "zebra12", "corrupt", "last"]

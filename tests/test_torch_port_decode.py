@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.decoder import create_decoder as j_create_decoder
 from dig_tpu_torch.models import decoder as tdec
 from dig_tpu_torch.utils.convert import decoder_from_jax
@@ -24,12 +25,10 @@ EOS = 94
 PROB_ATOL = 1e-5
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

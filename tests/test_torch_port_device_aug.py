@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.data import device_aug as jaug
 from dig_tpu.data import masking as jmask
 from dig_tpu.train.pretrain import make_device_view_fn as j_make_device_view_fn
@@ -32,6 +33,13 @@ from dig_tpu_torch.data import device_aug as taug
 from dig_tpu_torch.data import masking as tmask
 from dig_tpu_torch.train.pretrain import make_device_view_fn
 from dig_tpu_torch.utils.rng import step_generator
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 ATOL = 1e-5
 # what test_affine_matrix_algebra_from_the_jax_draws accepts of an entry

@@ -39,6 +39,7 @@ import pytest
 import torch
 
 import _torch_port_ranks as launch
+from _torch_port_threads import one_thread
 from dig_tpu.losses import infonce as jinfonce
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
@@ -59,6 +60,13 @@ from dig_tpu_torch.train.pretrain import make_pretrain_step
 from dig_tpu_torch.train.state import TrainState
 from dig_tpu_torch.utils.convert import moco_params_from_jax, params_from_jax
 from dig_tpu_torch.utils.rng import step_generator
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 WORLD = 2
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_torch_port_dist_worker.py")
@@ -237,7 +245,6 @@ def steps(tmp_path_factory):
     """Both ranks' results, the one-process port's and the JAX mesh step's
     on the same weights and global batches.  The ranks run while this
     process computes the rest."""
-    torch.set_num_threads(1)
     root = tmp_path_factory.mktemp("dist_steps")
     sched = {"lr": np.full(4, LR, np.float32), "wd": np.full(4, WD, np.float32)}
     mom, cw = np.full(4, MOM, np.float32), np.full(4, CW, np.float32)
@@ -570,7 +577,6 @@ def test_cli_dist_eval_sums_equal_one_process(cli):
     from dig_tpu_torch.cli import run_finetune
     from dig_tpu_torch.config import FinetuneConfig, parse_config
 
-    torch.set_num_threads(1)
     one = run_finetune.main(parse_config(FinetuneConfig, cli["eval_args"] + [
         "--output_dir", str(cli["root"] / "eval1")]), device="cpu")
     for r in cli["ranks"]:

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.optim import create_optimizer as j_create_optimizer
@@ -48,12 +49,10 @@ RECOGNIZERS = {"rec": ("rec", "small_tf_decoder"), "attn": ("attn", "small_tf_de
                "decoupled": ("rec", "decoupled_tf_decoder"), "ctc": ("ctc", "small_tf_decoder")}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _jax_tool():

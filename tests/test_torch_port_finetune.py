@@ -21,6 +21,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.losses import seq_ce as jce
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.optim import create_optimizer as j_create_optimizer
@@ -45,12 +46,10 @@ LR, WD, OPT_EPS = 1e-3, 0.05, 1e-3
 LAYER_DECAY, FROZEN = 0.75, 1
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _np(t):

@@ -32,6 +32,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.cli import run_finetune as jcli
 from dig_tpu.config import FinetuneConfig as JFinetuneConfig
 from dig_tpu.config import parse_config as j_parse_config
@@ -60,12 +61,16 @@ RECIPE = ["--epochs", "2", "--lr", "0.032", "--opt_eps", "1e-3", "--layer_decay"
           "--num_view", "1", "--num_workers", "1", "--dtype", "float32", "--seed", "0"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
-def _one_thread_and_gelu():
-    n, exact = torch.get_num_threads(), tact.EXACT
-    torch.set_num_threads(1)
+def _gelu():
+    exact = tact.EXACT
     yield
-    torch.set_num_threads(n)
     tact.set_exact(exact)
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.models.registry import create_model as j_create_model
 from dig_tpu.optim import make_optimizer as j_make_optimizer
@@ -43,6 +44,13 @@ from dig_tpu_torch.utils.flops import (
     pretrain_shape,
     pretrain_step_flops,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 B = 2
 MICRO_PRE = PretrainShape(depth=2, width=64, heads=2)

@@ -16,8 +16,16 @@ import cv2
 import numpy as np
 import pytest
 
+from _torch_port_threads import one_thread
 from dig_tpu.data.dataset import decode_image as j_decode_image
 from dig_tpu_torch.data.images import cubic_resize_uint8, decode_image, resize_uint8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 EQUAL_SHARE = 0.9995  # of an image's pixels; the rest within 1 grey level
 SHAPES = [(17, 61), (32, 100), (48, 300), (64, 512), (120, 40), (31, 127), (5, 5), (200, 800)]

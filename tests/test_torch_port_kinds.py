@@ -19,6 +19,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.registry import create_model as j_create_model
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu_torch.models import decoder as tdec
@@ -31,12 +32,10 @@ EOS = 94
 MICRO = "vit_micro_patch4_32x128"
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _close_to_max(got, want, rtol, atol=0.0, what=""):

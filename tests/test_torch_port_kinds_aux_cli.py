@@ -27,6 +27,7 @@ from _torch_port_kinds_cli import (
     run_jax,
     write_lmdb,
 )
+from _torch_port_threads import one_thread
 from dig_tpu_torch.cli import run_finetune as tcli
 from dig_tpu_torch.config import FinetuneConfig, parse_config
 from dig_tpu_torch.data import masking as tmasking
@@ -36,12 +37,16 @@ from dig_tpu_torch.utils.convert import params_from_jax
 NUM_MIM = 4  # round(0.5 * 8) rows masked a step
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
-def _one_thread_and_gelu():
-    n, exact = torch.get_num_threads(), tact.EXACT
-    torch.set_num_threads(1)
+def _gelu():
+    exact = tact.EXACT
     yield
-    torch.set_num_threads(n)
     tact.set_exact(exact)
 
 

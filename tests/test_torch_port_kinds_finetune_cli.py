@@ -23,6 +23,7 @@ from _torch_port_kinds_cli import (
     make_data,
     run_both,
 )
+from _torch_port_threads import one_thread
 from dig_tpu_torch.cli import run_finetune as tcli
 from dig_tpu_torch.config import FinetuneConfig, parse_config
 from dig_tpu_torch.ops import activations as tact
@@ -34,12 +35,16 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
-def _one_thread_and_gelu():
-    n, exact = torch.get_num_threads(), tact.EXACT
-    torch.set_num_threads(1)
+def _gelu():
+    exact = tact.EXACT
     yield
-    torch.set_num_threads(n)
     tact.set_exact(exact)
 
 

@@ -32,6 +32,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.optim import create_optimizer as j_create_optimizer
 from dig_tpu.train import finetune as jft
@@ -64,12 +65,10 @@ STEPS = {
 }
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _close_to_max(got, want, rtol, atol=0.0, what=""):

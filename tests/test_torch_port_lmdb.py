@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 import dig_tpu.data.lmdb_store as jstore
 import dig_tpu_torch.data.lmdb_store as tstore
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
@@ -25,12 +26,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 BACKENDS = ["native", "python"]  # the `lmdb` package is not installed here
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
-def _one_thread_and_gelu():
-    n, exact = torch.get_num_threads(), tact.EXACT
-    torch.set_num_threads(1)
+def _gelu():
+    exact = tact.EXACT
     yield
-    torch.set_num_threads(n)
     tact.set_exact(exact)
 
 

@@ -5,10 +5,18 @@ predictions: F-measure, lexicon search, lexicon-constrained accuracy and
 import numpy as np
 import pytest
 
+from _torch_port_threads import one_thread
 from dig_tpu.metrics import text as jax_text
 from dig_tpu.utils.charset import build_charset as jax_charset
 from dig_tpu_torch.metrics import text as port_text
 from dig_tpu_torch.utils.charset import build_charset as port_charset
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 MAX_LEN = 12
 WORDS = ["Hello", "world", "tpu", "Scene", "text", "recog", "dig", "a1b2", "HELLO!", "wor1d"]

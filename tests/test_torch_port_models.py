@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.decoder import create_decoder as j_create_decoder
 from dig_tpu.models.layers import Block as JBlock
 from dig_tpu.models.registry import create_model as j_create_model
@@ -30,12 +31,10 @@ from dig_tpu_torch.utils.convert import (
 )
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _perturb(tree, seed, scale=0.05):

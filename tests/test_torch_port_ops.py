@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 import dig_tpu.ops.attention as jattn
 import dig_tpu.ops.layernorm as jln
 from dig_tpu.ops import activations as jact
@@ -22,12 +23,10 @@ from dig_tpu_torch.ops import layernorm as tln
 from dig_tpu_torch.ops.images import to_model_images as t_to_model_images
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.fixture

@@ -20,10 +20,18 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu import optim as joptim
 from dig_tpu_torch import optim as toptim
 from dig_tpu_torch.train.state import TrainState
 from dig_tpu_torch.utils import checkpoint as ckpt
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 SHAPES = {
     "encoder.pos_embed": (1, 4, 8),

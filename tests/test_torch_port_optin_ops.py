@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 import dig_tpu.ops.attention as jattn
 import dig_tpu.ops.fused_dense as jfd
 from dig_tpu.models.layers import Mlp as JMlp
@@ -22,12 +23,10 @@ from dig_tpu_torch.ops import attention as tattn
 from dig_tpu_torch.ops import fused_dense as tfd
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.fixture

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu_torch.models.rec_model import build_rec_model as t_build_rec_model
 from dig_tpu_torch.ops import activations as tact
@@ -23,12 +24,16 @@ from dig_tpu_torch.utils.convert import params_from_jax
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
 @pytest.fixture(autouse=True)
-def _one_thread_and_gelu():
-    n, exact = torch.get_num_threads(), tact.EXACT
-    torch.set_num_threads(1)
+def _gelu():
+    exact = tact.EXACT
     yield
-    torch.set_num_threads(n)
     tact.set_exact(exact)
 
 

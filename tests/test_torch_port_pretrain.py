@@ -20,6 +20,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.layers import CrossBlock as JCrossBlock
 from dig_tpu.models.registry import create_model as j_create_model
@@ -45,12 +46,10 @@ from dig_tpu_torch.utils.convert import (
 )
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _perturb(tree, seed, scale=0.05):

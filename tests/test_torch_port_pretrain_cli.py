@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.cli import run_pretrain as jcli
 from dig_tpu.config import PretrainConfig as JPretrainConfig
 from dig_tpu.config import parse_config as j_parse_config
@@ -54,12 +55,10 @@ COMMON = ["--model", NAME, "--epochs", "2", "--warmup_steps", "2", "--lr", "0.03
           "--seed", "0"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -14,16 +14,15 @@ import pytest
 import torch
 
 from _torch_port_pretrain_step import CFG, check_against_jax, jax_step, port_step
+from _torch_port_threads import one_thread
 from dig_tpu_torch.models import vit as tvit
 from dig_tpu_torch.models.rec_model import init_weights
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.fixture(scope="module")

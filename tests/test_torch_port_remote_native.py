@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.optim import create_optimizer as j_create_optimizer
@@ -42,12 +43,10 @@ NAME = "pretrain_simmim_moco_ori_vit_micro_patch4_32x128"
 KW = dict(mlp_dim=32, dim=16, num_windows=4)
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 def _state(seed=0):

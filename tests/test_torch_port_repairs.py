@@ -20,12 +20,20 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 from dig_tpu.ops.images import to_model_images as j_to_model_images
 from dig_tpu_torch.data import dataset as tds
 from dig_tpu_torch.data import pipeline as tpipe
 from dig_tpu_torch.data import samplers as tsamp
 from dig_tpu_torch.data.lmdb_store import LmdbWriter
 from dig_tpu_torch.ops.images import to_model_images, uint8_table
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 N = 48
 

@@ -33,6 +33,7 @@ import torch
 
 import _torch_port_ranks as ranks_mod
 import _torch_port_sharded_worker as W
+from _torch_port_threads import one_thread
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.optim import create_optimizer as j_create_optimizer
@@ -42,6 +43,13 @@ from dig_tpu.train.state import TrainState as JTrainState
 from dig_tpu_torch.parallel.mesh import clear_mesh, create_mesh
 from dig_tpu_torch.utils import convert
 from dig_tpu_torch.utils.checkpoint import save_checkpoint
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 MESHES = ["1x2x1", "1x1x2", "1x2x2", "2x1x2"]
 TENSOR_MESHES = [m for m in MESHES if m.endswith("x2")]
@@ -132,7 +140,6 @@ def _jax_finetune(params, batches, sched):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    torch.set_num_threads(1)
     root = tmp_path_factory.mktemp("sharded")
     rng = np.random.default_rng(90)
     sched = _sched()

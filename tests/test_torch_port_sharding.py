@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_port_threads import one_thread
 from dig_tpu.models.moco import DiGPretrainModel as JPretrainModel
 from dig_tpu.models.rec_model import build_rec_model as j_build_rec_model
 from dig_tpu.parallel.mesh import create_mesh as j_create_mesh
@@ -34,6 +35,13 @@ from dig_tpu_torch.parallel.mesh import (
     tp_param_shardings,
 )
 from dig_tpu_torch.utils.convert import jax_leaf, moco_params_from_jax, params_from_jax
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 # tests/test_tp_rules.py's trees
 PRE_CFG = dict(img_size=(32, 128), patch_size=4, encoder_embed_dim=64, encoder_depth=2,

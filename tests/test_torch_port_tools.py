@@ -13,6 +13,14 @@ import sys
 import cv2
 import numpy as np
 import pytest
+from _torch_port_threads import one_thread
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -17,6 +17,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_threads import one_thread
 import dig_tpu.ops.attention as jattn
 import dig_tpu.ops.layernorm as jln
 import dig_tpu.ops.patchify
@@ -34,12 +35,10 @@ from dig_tpu_torch.utils import schedules as tsched
 jpatch = sys.modules["dig_tpu.ops.patchify"]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(scope="module", autouse=True)
 def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+    with one_thread():
+        yield
 
 
 @pytest.fixture

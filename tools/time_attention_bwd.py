@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Check and time the port's bf16 attention backward kernels on the card.
 
-    python3 tools/time_attention_bwd.py [--rounds N] [--check-only | --time-only] [root ...]
+    python3 tools/time_attention_bwd.py [--rounds N] [--check-only | --time-only]
+                                        [--stress CALLS] [--sanitize] [root ...]
 
 For each root (a directory that holds a `dig_tpu_torch` package; default:
 this repository), builds the attention sources from that root's
@@ -10,8 +11,13 @@ bodies (registers, spills, and any C751x note: wgmma serialised), and
 checks #4 (`attention_lse_bwd`) against its plain version at
 chip_smoke.py's `BWD_RTOL`, #2 (`attention_bwd`) against #4 bit for bit and
 each against a second call bit for bit, on the path's shapes and at ragged
-edges.  A root whose `csrc/attention_probe.cu` has the operand-forms probe
-also reports whether each form the backward takes gives the forward's
+edges.  `--stress CALLS` then launches #4 and #2 CALLS times each at the
+three timed shapes (`stress`: NaN-filled gradients and scratch, half the
+launches beside a second stream's GEMMs, every launch compared bit for bit
+with the first).  `--sanitize` only launches each once at two small shapes,
+for a run under `compute-sanitizer --tool initcheck|racecheck|synccheck|
+memcheck`.  A root whose `csrc/attention_probe.cu` has the operand-forms
+probe also reports whether each form the backward takes gives the forward's
 logits bit for bit.  Then times #4, #2 and SDPA's backward (a yardstick)
 with CUDA events at the path's shapes: rounds of 30 launches, the roots
 taking turns inside each round, so that two bodies (this tree and a
@@ -45,6 +51,8 @@ TIMED = [("pretrain", 256, 256, 6, 64), ("seq-cls", 256, 281, 12, 64),
 EDGES = [(3, 200, 130, 2, 32), (2, 128, 320, 4, 128), (2, 77, 130, 3, 64), (1, 137, 137, 2, 64),
          (2, 256, 387, 2, 64), (1, 150, 419, 2, 32), (1, 128, 322, 2, 128), (3, 50, 40, 2, 64),
          (2, 300, 192, 3, 64), (2, 1, 129, 1, 64)]
+# (B, L, H, D) of --sanitize: a ragged L and the resident row pass
+SANITIZE = [(2, 137, 2, 64), (2, 256, 2, 64)]
 ITERS = 30
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BWD_RTOL = 2**-6  # chip_smoke.py's, bf16: relative to each gradient's max |value|
@@ -123,6 +131,91 @@ def check(tag, attn, shape, gen):
     return ok
 
 
+def launch(attn, recompute, q, k, v, do, m, s, c, out, scale):
+    """One launch of #2 (`recompute`) or #4 through the root's C entry, with
+    the caller's gradients `out` and fp32 [B, Lq, H] scratch: c, and for #2
+    m and s too, which its row pass writes (the wrappers allocate these with
+    `torch.empty`).  Not counted in the wrappers' launches."""
+    name, entry = ("attention_bwd", "dig_attn_bwd") if recompute else ("attention_lse_bwd",
+                                                                      "dig_attn_lse_bwd")
+    b, lq, h, d = q.shape
+    code = attn._entry(name, entry)(
+        attn._DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        m.data_ptr(), s.data_ptr(), *(g.data_ptr() for g in out), c.data_ptr(), b, lq,
+        k.shape[1], h, *attn._strides(q, k, v, do, *out), attn._qscale(q, scale), float(scale),
+        attn._build.stream_ptr(q))
+    attn._build.check(attn._build.load(name), code, name)
+
+
+def stress(attn, shape, calls, gen, tag=""):
+    """#4 and #2 in bf16, `calls` launches each at `shape` (B, L, H, D) on
+    the pre-training step's packed layout (q, k, v column slices of one
+    [B, L, 3 H D] tensor, dq | dk | dv those of one gradient).  Before each
+    launch the whole packed gradient and the scratch (c; #2's m, s, c) are
+    filled with NaN; every other launch runs beside `torch.matmul`s on a
+    second stream, so that the SMs and the L2 are shared.  Each launch's
+    gradient and scratch are compared bit for bit with the first launch's on
+    the card, and the first is held to the plain version at `BWD_RTOL`.
+    Returns {kernel name: (calls, differing calls)}; a first launch that is
+    not finite or not close counts as all `calls` differing."""
+    b, l, h, d = shape
+    c3 = 3 * h * d
+    scale = d**-0.5
+    qkv = torch.randn(b, l, c3, generator=gen, device="cuda").bfloat16()
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d) for i in range(3))
+    do = torch.randn(b, l, h, d, generator=gen, device="cuda").bfloat16()
+    _, m, s = attn.attention_lse_fwd(q, k, v, scale)
+    dqkv = torch.empty_like(qkv)
+    out = tuple(dqkv[..., i * h * d:(i + 1) * h * d].view(b, l, h, d) for i in range(3))
+    scratch = torch.empty((3, b, l, h), dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    ga, gb = (torch.randn(4096, 4096, generator=gen, device="cuda").bfloat16() for _ in range(2))
+    gc = torch.empty_like(ga)
+    torch.cuda.synchronize()
+    nan = float("nan")
+    result = {}
+    for name, recompute in (("attention_lse_bwd", False), ("attention_bwd", True)):
+        # what the launch writes: the gradient, and c (#4) or m, s, c (#2)
+        written = scratch if recompute else scratch[2]
+        stats = (scratch[0], scratch[1]) if recompute else (m, s)
+        differ = torch.zeros(calls, dtype=torch.bool, device="cuda")
+        first = None
+        for i in range(calls):
+            if i % 2:
+                with torch.cuda.stream(side):
+                    for _ in range(4):
+                        torch.matmul(ga, gb, out=gc)
+            dqkv.fill_(nan)
+            scratch.fill_(nan)
+            launch(attn, recompute, q, k, v, do, *stats, scratch[2], out, scale)
+            if first is None:
+                first = (dqkv.clone(), written.clone())
+                if recompute:
+                    ref = attn.attention_bwd_ref(q, k, v, do, scale)
+                else:
+                    ref = attn.attention_lse_bwd_ref(q, k, v, do, m, s, scale)
+                ok = (bool(torch.isfinite(dqkv.float()).all())
+                      and bool(torch.isfinite(written).all())
+                      and max(rel_err(g, r) for g, r in zip(out, ref)) <= BWD_RTOL)
+                del ref
+                if not ok:
+                    differ.fill_(True)
+                    break
+                continue
+            differ[i] = ((dqkv.view(torch.int16) != first[0].view(torch.int16)).any()
+                         | (written.view(torch.int32) != first[1].view(torch.int32)).any())
+        torch.cuda.synchronize()
+        n_diff = int(differ.sum())
+        at = differ.nonzero().flatten()[:8].tolist()
+        result[name] = (calls, n_diff)
+        print(f"[stress {tag}] {name} B={b} L={l} H={h} D={d}: {calls} calls (half beside a "
+              f"second stream's GEMMs), gradient and scratch NaN-filled before each; "
+              f"{n_diff} differ from the first bit for bit{f' (calls {at} ...)' if n_diff else ''}")
+        del first
+    side.synchronize()
+    return result
+
+
 def probe(tag, build, gen):
     """The backward's operand forms against the forward's logits; None if
     the root has no forms probe."""
@@ -188,6 +281,8 @@ def main():
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--time-only", action="store_true")
+    ap.add_argument("--stress", type=int, default=0, metavar="CALLS")
+    ap.add_argument("--sanitize", action="store_true")
     ap.add_argument("roots", nargs="*")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -207,6 +302,10 @@ def main():
             print(f"[build {tag}] FAILED:\n{str(e)[-8000:]}")
             ok = False
             continue
+        if args.sanitize:
+            for b, l, h, d in SANITIZE:
+                stress(attn, (b, l, h, d), 1, gen, tag)
+            continue
         ptxas(tag, build)
         if args.time_only:
             mods[tag] = attn
@@ -219,12 +318,17 @@ def main():
                 ok &= check(f"{tag} {name}", attn, (b, l, l, h, d), gen)
             for shape in EDGES:
                 ok &= check(f"{tag} edge", attn, shape, gen)
+            if args.stress:
+                for name, b, l, h, d in TIMED:
+                    res = stress(attn, (b, l, h, d), args.stress, gen, f"{tag} {name}")
+                    ok &= all(n_diff == 0 for _, n_diff in res.values())
+                    torch.cuda.empty_cache()
         except RuntimeError as e:  # a launch that fails: reported, the root left out
             print(f"[check {tag}] FAILED: {e}")
             ok = False
             continue
         mods[tag] = attn
-    if args.check_only:
+    if args.check_only or args.sanitize:
         return 0 if ok else 1
     for name, b, l, h, d in TIMED:
         q, k, v, do, _ = inputs(b, l, l, h, d, gen)
