@@ -72,6 +72,7 @@ import time
 import numpy as np
 import torch
 
+from dig_tpu_torch.ops import launch_counts
 from dig_tpu_torch.parallel.dist import broadcast_module, destroy, init_distributed_mode
 
 # bench.py's baselines for an A100: estimates it states, not measurements
@@ -122,18 +123,8 @@ def peak_tflops(device):
     return None
 
 
-def kernel_counts() -> dict:
-    """The launch count of every kernel wrapper of the port."""
-    from dig_tpu_torch.ops import attention, fused_dense, layernorm
-
-    fns = (attention.attention_lse_fwd, attention.attention_lse_bwd, attention.attention_fwd,
-           attention.attention_bwd, layernorm.layer_norm_fwd, layernorm.layer_norm_bwd,
-           fused_dense.column_sum)
-    return {fn.__name__: fn.launches for fn in fns}
-
-
 def report_launches(before: dict, n: int) -> None:
-    after = kernel_counts()
+    after = launch_counts()
     per = {k: (after[k] - before[k]) / n for k in after}
     print(f"bench_torch: launches per step {json.dumps(per)}", file=sys.stderr)
 
@@ -201,7 +192,7 @@ def timed_steps(run_step, steps: int):
     for _ in range(WARMUP):
         metrics = run_step()
     float(metrics["loss"])
-    before = kernel_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         metrics = run_step()
@@ -329,7 +320,7 @@ def eval_bench(device) -> dict:
              "targets": torch.zeros((per_chip, 25), dtype=torch.long, device=device),
              "lengths": torch.ones((per_chip,), dtype=torch.long, device=device)}
     float(eval_fn(batch)[1].sum())
-    before = kernel_counts()
+    before = launch_counts()
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()

@@ -185,8 +185,19 @@
    time (the step time and idle share of item 5's step), and the launches a step
    each child reports (pretrain and input's bare step 24 / 12 / 48 / 24,
    finetune at attention dropout 0 12 / 12 / 24 / 24, an eval batch 12 / 24).
-16. Prints one JSON line describing every kernel, then as the last line
-   {"ok": true, "device": {...}}.
+16. `[validation study]`: `python -m dig_tpu_torch.tools.validation_study`
+   as a user runs it, at a small scale of its protocol (ViT-tiny, 1,024
+   unlabeled, 1 pre-training epoch, 256 labeled, 128 test, 2 fine-tuning
+   epochs: corpora, pretrain, ft_scratch, ft_ssl): every stage on the card,
+   each training stage's launches equal to its steps' and eval batches'
+   (24 / 12 attention forward / backward a pre-training step, none a
+   fine-tuning step at attention dropout 0.1, 12 forwards an eval batch:
+   ViT-tiny's width, 192, takes no LayerNorm kernel), the SSL arm initialised
+   from the pre-training checkpoint, each arm's word accuracy in [0, 1];
+   each stage's wall seconds beside the card's name and power limit.
+17. Prints the seconds each phase took (`[phase seconds]`, a phase's
+   own phases counted in it too), one JSON line describing every kernel,
+   then as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, without the result lines, when no CUDA device is visible,
 when the package is not beside this script, or when any phase fails.
@@ -264,6 +275,20 @@ FT_EVAL_BATCH = per_step(attention_lse_fwd=12, layer_norm_fwd=24)  # greedy or b
 # attention dropout 0 (the resume run): the encoder's attention on the kernel pair
 FT_PER_STEP_RESUME = dict(FT_PER_STEP, attention_lse_fwd=12, attention_lse_bwd=12)
 PROCESS_WATCHDOG_S = 60
+# [validation study]: the runner's knobs (ViT-tiny, its default models) and
+# what follows from them: 1 eval batch of 128 an epoch
+STUDY_PRE_EPOCHS, STUDY_FT_EPOCHS, STUDY_TEST = 1, 2, 128
+STUDY_KNOBS = ["--unlabeled", "1024", "--pre_epochs", str(STUDY_PRE_EPOCHS), "--labeled", "256",
+               "--test", str(STUDY_TEST), "--ft_epochs", str(STUDY_FT_EPOCHS)]
+STUDY_EVAL_BATCHES = -(-STUDY_TEST // 128)
+# ViT-tiny's width, 192, is no multiple of 128: its LayerNorms take the
+# plain version under the gate both packages share (`_use_pallas_ln`), so
+# its steps run the attention kernels alone, and its fine-tuning step
+# (attention dropout 0.1: the unfused attention) no kernel at all
+STUDY_PRE_STEP = per_step(attention_lse_fwd=24, attention_lse_bwd=12)
+STUDY_FT_STEP = per_step()
+STUDY_EVAL_BATCH = per_step(attention_lse_fwd=12)
+STUDY_TIMEOUT = 600
 FC1_ROWS, FC1_COLS = PRE_B * 256, 4 * 384  # dy of fc1 in both trainers
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; fp32 FMA pipes
@@ -340,6 +365,26 @@ MARGIN_TOL = 1e-3  # greedy ids must agree where the CPU top-1 margin exceeds th
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+PHASE_SECONDS = {}
+
+
+def time_phases():
+    """Wrap every `phase_*` function of this script so that the seconds
+    each call takes add up in PHASE_SECONDS under its name."""
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(name[len("phase_"):], fn)
 
 
 def check(cond, msg):
@@ -2648,23 +2693,17 @@ def pretrain_setup(torch, np, dtype, batch, device, seed=0, start_step=0, mesh=N
     return model, state, step, batch_np
 
 
-def kernel_wrappers():
-    from dig_tpu_torch.ops import attention, fused_dense, layernorm
-
-    return {"attention_lse_fwd": attention.attention_lse_fwd,
-            "attention_lse_bwd": attention.attention_lse_bwd,
-            "attention_fwd": attention.attention_fwd, "attention_bwd": attention.attention_bwd,
-            "layer_norm_fwd": layernorm.layer_norm_fwd, "layer_norm_bwd": layernorm.layer_norm_bwd,
-            "column_sum": fused_dense.column_sum}
-
-
 def reset_counts():
+    from dig_tpu_torch.ops import kernel_wrappers
+
     for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    from dig_tpu_torch.ops import launch_counts
+
+    return launch_counts()
 
 
 @contextlib.contextmanager
@@ -4033,6 +4072,72 @@ def phase_bench_torch(smi):
     print(f"[bench_torch] four modes in {time.perf_counter() - t_phase:.1f} s")
 
 
+def study_steps(log, pattern):
+    """Steps an epoch, from a training stage's log line."""
+    found = re.findall(pattern, log)
+    check(found, f"[validation study] no {pattern!r} line")
+    return int(found[-1])
+
+
+def phase_validation_study(smi, paths):
+    """The validation study's runner as a child at STUDY_KNOBS: each
+    training stage's device, launches and result (see item 16)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "dig_tpu_torch.tools.validation_study", d,
+                               *STUDY_KNOBS], cwd=ROOT, capture_output=True, text=True,
+                              timeout=STUDY_TIMEOUT)
+        dt = time.perf_counter() - t0
+        check(proc.returncode == 0, f"[validation study] exit {proc.returncode}: "
+                                    f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+        check("=== results (best test word accuracy per arm) ===" in proc.stdout,
+              "[validation study] printed no results block")
+        with open(os.path.join(d, "results.json")) as f:
+            res = json.load(f)
+        logs = {}
+        for name in ("pretrain", "ft_scratch", "ft_ssl"):
+            with open(os.path.join(d, "logs", f"{name}.log")) as f:
+                logs[name] = f.read()
+        ck = os.path.join(d, "pre", f"checkpoint-{STUDY_PRE_EPOCHS - 1}")
+    check(res["card"] == smi, f"[validation study] card {res['card']!r} != {smi!r}")
+    stages = res["stages"]
+    check(set(stages) == {"corpusA", "corpusB", "pretrain", "ft_scratch", "ft_ssl"},
+          f"[validation study] stages {sorted(stages)}")
+    pre_steps = study_steps(logs["pretrain"], r"dataset: \d+ imgs, (\d+) steps/epoch")
+    want = {"pretrain": {k: v * pre_steps * STUDY_PRE_EPOCHS for k, v in STUDY_PRE_STEP.items()}}
+    for arm in ("ft_scratch", "ft_ssl"):
+        steps = study_steps(logs[arm], r"train: \d+ imgs, (\d+) steps/epoch")
+        want[arm] = {k: (STUDY_FT_STEP[k] * steps + STUDY_EVAL_BATCH[k] * STUDY_EVAL_BATCHES)
+                     * STUDY_FT_EPOCHS for k in KERNEL_NAMES}
+        r = res["arms"][arm]
+        accs = [r["best_word_acc"], r["best_char_f"], *r["word_acc_by_epoch"]]
+        check(len(r["word_acc_by_epoch"]) == STUDY_FT_EPOCHS
+              and all(a is not None and 0 <= a <= 1 for a in accs), f"[validation study] {arm} {r}")
+    init = res["arms"]["ft_ssl"]["init"]
+    check(init is not None and int(init[0]) > 0 and init[1] == ck,
+          f"[validation study] ft_ssl initialised from {init}, not {ck}")
+    for name, counts in want.items():
+        got = stages[name]
+        check(got["device"].startswith("cuda"), f"[validation study] {name} on {got['device']}")
+        check(got["launches"] == counts, f"[validation study] {name} launches "
+                                         f"{got['launches']} != {counts}")
+        paths[f"validation study {name}, a run"] = counts
+    pre = res["pretrain"]
+    check(all(math.isfinite(pre[k]["last"]) for k in ("loss_contrast", "loss_pixel", "q1_acc1")),
+          f"[validation study] pretrain {pre}")
+    print(f"[validation study] {smi}: " + "; ".join(
+        f"{n} {s['seconds']:.1f} s on {s['device']}" for n, s in stages.items())
+          + f"; the runner took {dt:.1f} s; launches asserted: " + "; ".join(
+        f"{n} {launches_text(c)}" for n, c in want.items()))
+    print("[validation study] best word acc " + ", ".join(
+        f"{arm} {r['best_word_acc']}" for arm, r in res["arms"].items())
+          + f"; pretrain loss_contrast {pre['loss_contrast']['first']} -> "
+            f"{pre['loss_contrast']['last']}, loss_pixel {pre['loss_pixel']['first']} -> "
+            f"{pre['loss_pixel']['last']}")
+
+
 def kernel_text(name):
     """A mangled kernel name as its template arguments, for an attention body."""
     for pattern, text in PTXAS_NAMES:
@@ -4182,6 +4287,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
+    time_phases()
     _build.build_all(SOURCES)
     print(f"[build] {len(SOURCES)} kernels in {time.perf_counter() - t_start:.1f} s")
     print_ptxas()
@@ -4236,6 +4342,7 @@ def main():
                                     H // 2)
     phase_sharded_steps(torch, np)
     phase_bench_torch(smi)
+    phase_validation_study(smi, paths)
     paths.update({f"bench_torch {mode}, a step": want for mode, want in BENCH_LAUNCHES.items()})
 
     def row(name, source, replaces, measured, path):
@@ -4276,6 +4383,8 @@ def main():
     ]
     left = stop_children()
     check(not left, f"processes left running at the end: {left}")
+    print("[phase seconds] " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in sorted(PHASE_SECONDS.items(), key=lambda x: -x[1])))
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

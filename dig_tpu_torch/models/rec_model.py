@@ -41,6 +41,7 @@ from dig_tpu_torch.models.layers import (
     Conv3x3,
     Dense,
     LayerNorm,
+    Mlp,
     PatchEmbed,
     training_generator,
 )
@@ -311,14 +312,19 @@ def _trunc_normal(w, std, generator):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Random init in the JAX package's distributions: truncated normal
-    (std 0.02) for the encoder's dense layers and the learned tokens,
+    (std 0.02) for the encoder's dense layers, every `Mlp`'s (flax's `Mlp`
+    takes it wherever it sits, the window extractor's CrossBlocks included:
+    `dig_tpu/models/layers.py:93-99`) and the learned tokens,
     xavier-uniform for the patch projection, flax's lecun-normal for the
-    other dense layers, the convolutions and the GRU's weights, N(0, 1) for the embeddings,
-    zero biases, unit norm scales."""
+    other dense layers, the convolutions and the GRU's weights, N(0, 1) for
+    the transformer decoder's token embedding and lecun-normal over the
+    features for the other embeddings (flax's `nn.Embed` default), zero
+    biases, unit norm scales."""
+    mlp_dense = {id(d) for m in model.modules() if isinstance(m, Mlp) for d in (m.fc1, m.fc2)}
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, Dense):
-                if name.startswith("encoder."):
+                if name.startswith("encoder.") or id(mod) in mlp_dense:
                     _trunc_normal(mod.weight, 0.02, generator)
                 else:
                     # lecun_normal: truncated normal, variance 1 / fan_in
@@ -337,7 +343,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                               / 0.87962566103423978, generator)
                 mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
-                nn.init.normal_(mod.weight, 0.0, 1.0, generator=generator)
+                if name.rsplit(".", 1)[-1] == "trg_word_emb":  # N(0, 1), set explicitly there
+                    nn.init.normal_(mod.weight, 0.0, 1.0, generator=generator)
+                else:  # flax's default Embed init: lecun-normal over the features
+                    _trunc_normal(mod.weight, math.sqrt(1.0 / mod.embedding_dim)
+                                  / 0.87962566103423978, generator)
             elif isinstance(mod, GRU):
                 for w in (mod.weight_ih_l0, mod.weight_hh_l0):
                     _trunc_normal(w, math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978,

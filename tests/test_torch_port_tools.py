@@ -117,9 +117,23 @@ def test_create_lmdb_writes_the_same_bytes(case, tmp_path):
         _same_tree(tmp_path / "crops_jax", tmp_path / "crops_port")
 
 
-def test_gen_synth_writes_the_same_bytes(tmp_path):
-    flags = ["--train", "12", "--labeled", "6", "--test", "8", "--train_words", "20",
-             "--test_words", "10", "--max_word_len", "6", "--seed", "3"]
+# the validation study's corpora (tools/validation_study.sh:53-58) at tiny
+# counts: corpus A's and corpus B's shapes and seeds, easy renders, shared test pool
+GEN_SYNTH_FLAGS = {
+    "default": ["--train", "12", "--labeled", "6", "--test", "8", "--train_words", "20",
+                "--test_words", "10", "--max_word_len", "6", "--seed", "3"],
+    "study_corpus_a": ["--easy", "--test_pool", "shared", "--train", "16", "--labeled", "4",
+                       "--test", "4", "--train_words", "1500", "--test_words", "10",
+                       "--max_word_len", "6", "--seed", "3"],
+    "study_corpus_b": ["--easy", "--test_pool", "shared", "--train", "4", "--labeled", "16",
+                       "--test", "8", "--train_words", "400", "--test_words", "10",
+                       "--max_word_len", "6", "--seed", "5"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEN_SYNTH_FLAGS))
+def test_gen_synth_writes_the_same_bytes(case, tmp_path):
+    flags = GEN_SYNTH_FLAGS[case]
     _both("gen_synth", lambda side: [tmp_path / side, *flags])
     _same_tree(tmp_path / "jax", tmp_path / "port")
 
