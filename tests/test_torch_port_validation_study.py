@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 from _torch_port_threads import one_thread
@@ -231,3 +232,35 @@ def test_carried_files_resume_the_study(micro_study, tmp_path):
     assert [s.name for s in vs.to_run(vs.plan(str(carried), knobs), ["ft_ssl_low"],
                                       str(carried))] == \
         ["corpusA", "corpusB", "pretrain", "ft_ssl_low"]
+
+
+def _probe_tool():
+    """tools/encoder_ctc_probe.py, the study's probe of a frozen encoder."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "encoder_ctc_probe", os.path.join(ROOT, "tools", "encoder_ctc_probe.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("init", ["random", "pretrain"])
+def test_encoder_probe_reads_the_study_corpora(init, micro_study):
+    """The linear CTC probe over a random encoder and over the micro study's
+    pre-training checkpoint: finite losses, an accuracy in [0, 1], every
+    image of both sets; the checkpoint's encoder gives other features."""
+    workdir, _, _ = micro_study
+    probe = _probe_tool().probe
+    args = (str(workdir / "corpusB" / "labeled"), str(workdir / "corpusB" / "test"))
+    kw = dict(model="vit_micro_patch4_32x128", epochs=2, device="cpu")
+    got = probe(*args, checkpoint=str(workdir / "pre" / "checkpoint-0")
+                if init == "pretrain" else "", **kw)
+    assert (got["n_train"], got["n_test"]) == (128, 32)
+    assert all(np.isfinite(got[k]) and got[k] > 0 for k in ("train_ctc_loss", "test_ctc_loss"))
+    assert 0 <= got["test_word_acc"] <= 1
+    if init == "pretrain":
+        assert got["train_ctc_loss"] != probe(*args, **kw)["train_ctc_loss"]
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no card"):
+                probe(*args, model="vit_micro_patch4_32x128", epochs=1)
