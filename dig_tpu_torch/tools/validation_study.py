@@ -46,7 +46,10 @@ At the end the script's "=== results ===" block is printed and
 WORKDIR/results.json written: each arm's best test word accuracy (the
 CLI's `max accuracy:` line), best char F-measure, word accuracy at each
 epoch (from its log.txt), the pre-training losses, each stage's seconds,
-and the card's name and power limit.
+the card's name and power limit, and the OpenCV build that rendered each
+corpus: `gen_synth` draws its words with OpenCV's Hershey faces, which
+OpenCV 4.13 and 5.0 draw as different glyphs, so accuracies compare only
+between corpora rendered by the same OpenCV.
 """
 
 from __future__ import annotations
@@ -316,6 +319,8 @@ def run_stage(stage, workdir, device):
     marker = {"argv": portable(stage.argv, workdir), "seconds": seconds,
               "device": devices[-1] if devices else None,
               "launches": launches[-1] if launches else None}
+    if stage.name.startswith("corpus"):
+        marker["opencv"] = opencv_version()
     os.makedirs(os.path.join(workdir, "stages"), exist_ok=True)
     with open(marker_path(workdir, stage.name), "w") as f:
         json.dump(marker, f, indent=1)
@@ -333,6 +338,13 @@ def stage_child(device, argv):
     module.main(parse_config(config_class(argv[0]), argv[1:]), device=device)
     print(LAUNCHES_PREFIX + json.dumps(launch_counts()), flush=True)
     return 0
+
+
+def opencv_version():
+    """The OpenCV build `gen_synth` renders with in this environment."""
+    import cv2
+
+    return cv2.__version__
 
 
 def card_name_and_limit():
@@ -391,7 +403,8 @@ def results(stages, workdir):
                 marker = json.load(f)
         except OSError:
             continue
-        res["stages"][s.name] = {k: marker[k] for k in ("seconds", "device", "launches")}
+        res["stages"][s.name] = {k: marker[k] for k in ("seconds", "device", "launches",
+                                                         "opencv") if k in marker}
         if s.name.startswith("ft_"):
             res["arms"][s.name] = arm_result(s.out)
         elif s.name.startswith("eval_"):
@@ -464,6 +477,9 @@ def run_study(workdir, knobs: Knobs, preset=None, stages=None, device="cuda"):
     for ft in sorted(glob.glob(os.path.join(workdir, "ft_*"))):
         best = re.findall(r"max accuracy: [0-9.]*", read(os.path.join(ft, "screen.txt")))
         print(f"{os.path.basename(ft)}: {best[-1] if best else ''}")
+    builds = sorted({st["opencv"] for st in res["stages"].values() if "opencv" in st})
+    if builds:
+        print(f"corpora rendered with OpenCV {', '.join(builds)}")
     return res
 
 

@@ -182,6 +182,10 @@ def test_micro_study_runs_every_stage(micro_study):
         assert 0 <= res["arms"][mode]["word_acc"] <= 1
     pre = res["pretrain"]
     assert all(pre[k]["first"] is not None for k in ("loss_contrast", "loss_pixel", "q1_acc1"))
+    # the corpora's renderer: OpenCV 4.x and 5.x draw gen_synth's Hershey faces differently
+    import cv2
+
+    assert {res["stages"][c].get("opencv") for c in ("corpusA", "corpusB")} == {cv2.__version__}
     with open(workdir / "results.json") as f:
         assert json.load(f)["arms"] == json.loads(json.dumps(res["arms"]))
 
@@ -264,3 +268,70 @@ def test_encoder_probe_reads_the_study_corpora(init, micro_study):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no card"):
                 probe(*args, model="vit_micro_patch4_32x128", epochs=1)
+
+
+def test_ssl_swap_runs_end_to_end(tmp_path):
+    """tests/_torch_port_ssl_swap.py, the encoder x fine-tuner swap across the
+    two packages, at its smallest size (16 unlabeled, 16 labeled, 8 test
+    images, batch 8, one pre-training epoch and one epoch an arm, each stage
+    on one thread): every arm ends with one epoch's accuracy, and each SSL
+    arm's `--finetune` copied every tensor of the encoder it names that the
+    recognizer has (the counts both CLIs print), the scratch arms none."""
+    from dig_tpu_torch.models.rec_model import build_rec_model
+    from dig_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", SWAP_TORCH_THREADS="1",
+               SWAP_XLA_FLAGS="--xla_cpu_multi_thread_eigen=false")
+    w = tmp_path / "swap"
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tests", "_torch_port_ssl_swap.py"), str(w),
+         "--unlabeled", "16", "--labeled", "16", "--test", "8", "--words", "4",
+         "--pre_epochs", "1", "--warmup_steps", "1", "--ft_epochs", "1", "--batch_size", "8",
+         "--moco_mlp_dim", "32", "--moco_dim", "16", "--jobs", "8",
+         "--jax_cache", os.path.join(ROOT, "tests", ".jax_cache")],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    enc = [k for k in restore_checkpoint(str(w / "pre_port" / "checkpoint-0"))["model"]
+           if k.startswith("encoder.")]
+    rec = build_rec_model("vit_micro_patch4_32x128", "small_tf_decoder", device="cpu")
+    n_enc = len(set(enc) & set(rec.state_dict()))
+    assert n_enc == 28  # the patch embedding and 2 blocks of 13; not the mask token
+    sources = {"jax": str(w / "pre_jax" / "checkpoint-0"), "port": str(w / "enc_port.pth")}
+    assert sorted(res["arms"]) == sorted(
+        [f"ssl_{e}_{f}_s0" for e in ("jax", "port") for f in ("jax", "port")]
+        + ["scratch_jax_s0", "scratch_port_s0"])
+    for name, arm in res["arms"].items():
+        assert len(arm["word_acc"]) == 1 and 0 <= arm["word_acc"][0] <= 1, name
+        if name.startswith("ssl_"):
+            assert (arm["init_tensors"], arm["init_from"]) == (n_enc, sources[name.split("_")[1]])
+        else:
+            assert arm["init_tensors"] is None, name
+
+
+def _card_checks_tool():
+    """tools/pretrain_card_checks.py, the pre-training path's checks on the card."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "pretrain_card_checks", os.path.join(ROOT, "tools", "pretrain_card_checks.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def test_pretrain_card_checks_run_on_the_cpu(micro_study):
+    """The card checks' CPU paths on the micro study's corpus A: flat images
+    give targets of exactly 0, the weight-gradient products sit within bf16
+    rounding of fp64 (on the CPU the reduced-precision switch changes
+    nothing), the 8-worker loader gives the sampler's records, and the
+    draws' statistics are those of the generator it was handed."""
+    tool = _card_checks_tool()
+    workdir, _, _ = micro_study
+    assert tool.check_flat_targets("cpu") == {"max_abs": 0.0, "share_nonzero": 0.0}
+    for row in tool.check_gemm("cpu", k=4096).values():
+        assert row["rpr on"] == row["rpr off"] < 2.0**-8
+    got = tool.check_loader(str(workdir / "corpusA"))
+    assert got["equal"] == got["batches"] >= 1 and got["distinct"] == 128 * got["batches"]
+    draws = tool.check_draws("cpu", n=1024)
+    assert draws["cpu"]["mask_count"] == (179.0, 0.0)
