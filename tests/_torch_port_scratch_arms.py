@@ -38,7 +38,7 @@ def main(pkg, corpus, out, epochs, seed="0"):
     else:
         import torch
 
-        torch.set_num_threads(int(os.environ.get("SWAP_TORCH_THREADS", "4")))
+        torch.set_num_threads(4)
         from dig_tpu_torch.cli.run_finetune import main as run
         from dig_tpu_torch.config import FinetuneConfig, parse_config
 

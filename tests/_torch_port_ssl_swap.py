@@ -6,41 +6,37 @@ the scratch arm in each package.
     python tests/_torch_port_ssl_swap.py WORKDIR [--seeds 0,1] [size knobs]
 
 Stages, each a process of its own (so that neither package's threads or
-compiled programs reach the other's):
+compiled programs reach the other's), run and recorded by the study
+runner's `run_stage` (a finished stage is skipped on a second call; a stage
+that fails ends the run once the stages beside it have ended):
 
 * the corpora: `tools/gen_synth.py` with the study's flags (`--easy
   --test_pool shared`, seeds 3 and 5), at `--unlabeled` / `--labeled` /
   `--test` images over `--words` words;
 * `pre_jax`, `pre_port`: the study's pre-training recipe (`--device_aug`,
-  batch 128, `--warmup_steps`) at `--pre_model`, one loader worker, in fp32
+  batch 128, `--warmup_steps`) at the micro width, one loader worker, in fp32
   (the CPU's own dtype in both packages);
-* `enc_port.pth`: the port's checkpoint through
+* `export_port`: the port's checkpoint through
   `python -m dig_tpu_torch.tools.export_pth <ckpt> enc.pth --encoder_only`,
   the form `dig_tpu`'s `--finetune` reads (with `--exact_gelu false`: both
   packages pre-trained with the tanh GELU);
 * arms `ssl_<encoder>_<finetuner>_s<seed>` and `scratch_<finetuner>_s<seed>`:
-  the study's arm recipe (`tests/_torch_port_scratch_arms.py`'s flags:
-  batch 128, lr 8e-4, warm-up 2 epochs, one worker) at `--ft_model`; the
-  port's fine-tuner reads `dig_tpu`'s native checkpoint directory as it is
-  (`utils/native_ckpt.py`);
-* with `--frozen`, the same six arms again with the encoder frozen
-  (`--fixed_encoder_layers`, named `frozen_ssl_...`, `frozen_scratch_...`):
-  what the decoder reads from the encoder alone.
+  the study's arm recipe (batch 128, lr 8e-4, warm-up 2 epochs, one
+  worker) at the micro width; the port's fine-tuner reads `dig_tpu`'s native
+  checkpoint directory as it is (`utils/native_ckpt.py`).
 
-Each finished stage leaves a record under WORKDIR/records, and a second
-call skips it.  The last line printed is a JSON object: per arm the
-tensors its `--finetune` reported, the word accuracy by epoch and the
-best; `WORKDIR/swap.json` holds the same."""
+Stages that do not need each other run side by side; give them threads with
+OMP_NUM_THREADS and XLA_FLAGS.  The last line printed is a JSON object: per
+arm the tensors its `--finetune` reported, the word accuracy by epoch and
+the best; `WORKDIR/swap.json` holds the same."""
 
 import argparse
+import concurrent.futures
 import glob
 import json
 import os
 import re
-import signal
-import subprocess
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -48,8 +44,8 @@ sys.path.insert(0, ROOT)
 # the `[finetune] N tensors initialized from ...` line of the port's CLI,
 # and the count printed by `dig_tpu`'s wrapper below
 INIT_RE = re.compile(r"\[finetune\] (\d+) tensors initialized from (\S+)")
-# each epoch's eval line, the same in both CLIs
-EVAL_RE = re.compile(r"\* \S+: \d+ images, Acc ([\d.]+) loss ([\d.]+) Rec_fmeasure ([\d.]+)")
+PRE_MODEL = "pretrain_simmim_moco_ori_vit_micro_patch4_32x128"
+FT_MODEL = "vit_micro_patch4_32x128"
 
 
 def corpus_argv(kind, out, args):
@@ -59,32 +55,67 @@ def corpus_argv(kind, out, args):
     else:
         counts = ["--train", "100", "--labeled", str(args.labeled), "--test", str(args.test),
                   "--train_words", str(args.words), "--seed", "5"]
-    return [sys.executable, os.path.join(ROOT, "tools", "gen_synth.py"), out, "--easy",
-            "--test_pool", "shared", *counts, "--test_words", "10", "--max_word_len", "6"]
+    return [os.path.join(ROOT, "tools", "gen_synth.py"), out, "--easy", "--test_pool", "shared",
+            *counts, "--test_words", "10", "--max_word_len", "6"]
 
 
 def pretrain_flags(args, corpus_a, out):
-    return ["--model", args.pre_model, "--image_alone_path", os.path.join(corpus_a, "train"),
+    return ["--model", PRE_MODEL, "--image_alone_path", os.path.join(corpus_a, "train"),
             "--batch_size", str(args.batch_size), "--epochs", str(args.pre_epochs),
             "--warmup_steps", str(args.warmup_steps), "--device_aug", "--num_workers", "1",
-            "--output_dir", out, "--save_ckpt_freq", "1000", "--eval_freq", "0",
-            "--dtype", "float32", "--seed", "0", "--moco_mlp_dim", str(args.moco_mlp_dim),
-            "--moco_dim", str(args.moco_dim)]
+            "--output_dir", out, "--eval_freq", "0", "--dtype", "float32", "--seed", "0",
+            "--moco_mlp_dim", str(args.moco_mlp_dim), "--moco_dim", str(args.moco_dim)]
 
 
-def finetune_flags(args, corpus_b, out, seed, init=None, frozen=False):
-    flags = ["--model", args.ft_model, "--decoder_name", "small_tf_decoder",
+def finetune_flags(args, corpus_b, out, seed, init=None):
+    flags = ["--model", FT_MODEL, "--decoder_name", "small_tf_decoder",
              "--data_path", os.path.join(corpus_b, "labeled"),
              "--eval_data_path", os.path.join(corpus_b, "test"),
              "--batch_size", str(args.batch_size), "--epochs", str(args.ft_epochs),
-             "--warmup_epochs", "2",
-             "--num_workers", "1", "--lr", "8e-4", "--no_save_ckpt", "--output_dir", out,
-             "--eval_freq", "0", "--seed", str(seed), "--dtype", "float32"]
+             "--warmup_epochs", "2", "--num_workers", "1", "--lr", "8e-4", "--no_save_ckpt",
+             "--output_dir", out, "--eval_freq", "0", "--seed", str(seed), "--dtype", "float32"]
     if init:
         flags += ["--finetune", init, "--exact_gelu", "false"]
-    if frozen:  # the encoder's embeddings and blocks keep their initial values
-        flags += ["--fixed_encoder_layers", str(args.frozen_layers)]
     return flags
+
+
+def cli_argv(pkg, cli, flags):
+    """A stage's interpreter arguments: the port's CLIs as the study runs
+    them, `dig_tpu`'s through this file's `--child`."""
+    if pkg == "port":
+        return ["-m", f"dig_tpu_torch.cli.{cli}", *flags]
+    return [os.path.abspath(__file__), "--child", cli, *flags]
+
+
+def run_jax_cli(cli, flags):
+    """Child entry: one of `dig_tpu`'s CLIs in this process, on the CPU;
+    the fine-tuner prints how many tensors `--finetune` changed, as the
+    port's does."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from dig_tpu import config as jcfg
+
+    if cli == "run_pretrain":
+        from dig_tpu.cli.run_pretrain import main
+
+        main(jcfg.parse_config(jcfg.PretrainConfig, flags))
+        return
+    import numpy as np
+    from dig_tpu.cli import run_finetune as rf
+
+    load = rf.load_finetune_init
+
+    def counted(cfg, state, model=None):
+        new = load(cfg, state, model)
+        n = sum(1 for a, b in zip(jax.tree_util.tree_leaves(state.params),
+                                  jax.tree_util.tree_leaves(new.params))
+                if not np.array_equal(np.asarray(a), np.asarray(b)))
+        print(f"[finetune] {n} tensors initialized from {cfg.finetune}", flush=True)
+        return new
+
+    rf.load_finetune_init = counted
+    rf.main(jcfg.parse_config(jcfg.FinetuneConfig, flags))
 
 
 def last_checkpoint(out):
@@ -93,158 +124,13 @@ def last_checkpoint(out):
     return max(cks, key=lambda p: int(p.rsplit("-", 1)[1]))
 
 
-def run_cli(pkg, cli, flags):
-    """Child entry: one CLI's main in this process, on the CPU."""
-    if pkg == "jax":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-        from dig_tpu import config as jcfg
-
-        if cli == "run_pretrain":
-            from dig_tpu.cli.run_pretrain import main
-
-            main(jcfg.parse_config(jcfg.PretrainConfig, flags))
-        else:
-            from dig_tpu.cli import run_finetune as rf
-
-            load = rf.load_finetune_init
-
-            def counted(cfg, state, model=None):  # the tensors --finetune changed
-                import numpy as np
-
-                new = load(cfg, state, model)
-                before = jax.tree_util.tree_leaves(state.params)
-                after = jax.tree_util.tree_leaves(new.params)
-                n = sum(1 for a, b in zip(before, after)
-                        if not np.array_equal(np.asarray(a), np.asarray(b)))
-                print(f"[finetune] {n} tensors initialized from {cfg.finetune}", flush=True)
-                return new
-
-            rf.load_finetune_init = counted
-            rf.main(jcfg.parse_config(jcfg.FinetuneConfig, flags))
-    else:
-        import torch
-
-        torch.set_num_threads(int(os.environ.get("SWAP_TORCH_THREADS", "4")))
-        from dig_tpu_torch import config as pcfg
-
-        if cli == "run_pretrain":
-            from dig_tpu_torch.cli.run_pretrain import main
-
-            main(pcfg.parse_config(pcfg.PretrainConfig, flags), device="cpu")
-        else:
-            from dig_tpu_torch.cli.run_finetune import main
-
-            main(pcfg.parse_config(pcfg.FinetuneConfig, flags), device="cpu")
-
-
-def child_env(threads, workdir, jax_cache):
-    """The stages' environment: one CPU device for JAX, `threads` for
-    torch, and TensorBoard scalars off (a stand-in `tensorflow` that fails
-    to import: both CLIs then skip them, and its import alone takes
-    seconds)."""
-    stub = os.path.join(workdir, "no_tf")
-    if not os.path.exists(os.path.join(stub, "tensorflow", "__init__.py")):
-        os.makedirs(os.path.join(stub, "tensorflow"), exist_ok=True)
-        with open(os.path.join(stub, "tensorflow", "__init__.py"), "w") as f:
-            f.write("raise ImportError('TensorBoard scalars off')\n")
-    env = dict(os.environ)
-    env.setdefault("SWAP_TORCH_THREADS", str(threads))
-    env["XLA_FLAGS"] = " ".join(["--xla_force_host_platform_device_count=1",
-                                 env.get("SWAP_XLA_FLAGS", "")]).strip()
-    env["JAX_PLATFORMS"] = "cpu"
-    if jax_cache:
-        env["JAX_COMPILATION_CACHE_DIR"] = jax_cache
-    env["PYTHONPATH"] = os.pathsep.join([stub, ROOT] + ([env["PYTHONPATH"]]
-                                                        if env.get("PYTHONPATH") else []))
-    return env
-
-
-class Stages:
-    """Runs stages as child processes, `jobs` at a time, each once its
-    dependencies have finished; a finished stage leaves a record and is
-    not run again.  A stage's argv may be a function, called when it
-    starts (it may name what a dependency made)."""
-
-    def __init__(self, workdir, jobs, jax_cache=""):
-        self.workdir, self.jobs, self.jax_cache = workdir, jobs, jax_cache
-        os.makedirs(os.path.join(workdir, "records"), exist_ok=True)
-        os.makedirs(os.path.join(workdir, "logs"), exist_ok=True)
-        self.pending = []
-
-    def record(self, name):
-        path = os.path.join(self.workdir, "records", name + ".json")
-        if os.path.exists(path):
-            with open(path) as f:
-                return json.load(f)
-        return None
-
-    def add(self, name, argv, deps=()):
-        if self.record(name) is None:
-            self.pending.append((name, argv, tuple(deps)))
-
-    def run(self):
-        running = []
-        threads = max(1, (os.cpu_count() or 1) // self.jobs)
-        try:
-            while self.pending or running:
-                ready = [s for s in self.pending
-                         if all(self.record(d) is not None for d in s[2])]
-                for stage in ready[:self.jobs - len(running)]:
-                    self.pending.remove(stage)
-                    name, argv = stage[0], stage[1]
-                    argv = argv() if callable(argv) else argv
-                    log = open(os.path.join(self.workdir, "logs", name + ".log"), "w")
-                    proc = subprocess.Popen(
-                        argv, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
-                        env=child_env(threads, self.workdir, self.jax_cache),
-                        start_new_session=True)
-                    running.append((name, argv, proc, log, time.time()))
-                    print(f"[swap] started {name}", flush=True)
-                if not running:
-                    raise RuntimeError("stages wait for stages that never run: "
-                                       f"{[s[0] for s in self.pending]}")
-                time.sleep(0.2)
-                for item in list(running):
-                    name, argv, proc, log, t0 = item
-                    if proc.poll() is None:
-                        continue
-                    running.remove(item)
-                    log.close()
-                    if proc.returncode != 0:
-                        raise RuntimeError(f"stage {name} exited {proc.returncode}: see "
-                                           f"{os.path.join(self.workdir, 'logs', name + '.log')}")
-                    rec = {"argv": argv, "seconds": round(time.time() - t0, 1)}
-                    with open(os.path.join(self.workdir, "records", name + ".json"), "w") as f:
-                        json.dump(rec, f)
-                    print(f"[swap] {name} done in {rec['seconds']} s", flush=True)
-        finally:
-            for _, _, proc, log, _ in running:
-                proc.kill()
-                proc.wait()
-                log.close()
-
-
-def cli_argv(pkg, cli, flags):
-    return [sys.executable, os.path.abspath(__file__), "--child", pkg, cli, *flags]
-
-
 def arm_result(workdir, name):
-    out = os.path.join(workdir, name)
-    with open(os.path.join(out, "log.txt")) as f:
-        rows = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, name, "log.txt")) as f:
+        accs = [json.loads(line)["val_acc"] for line in f]
     with open(os.path.join(workdir, "logs", name + ".log")) as f:
         init = INIT_RE.findall(f.read())
-    with open(os.path.join(out, "screen.txt")) as f:
-        evals = EVAL_RE.findall(f.read())
-    accs = [r["val_acc"] for r in rows]
     return {"init_tensors": int(init[-1][0]) if init else None,
-            "init_from": init[-1][1] if init else None,
-            "train_loss": [round(r["train_loss"], 4) for r in rows],
-            "test_loss": [float(e[1]) for e in evals],
-            "char_f": [float(e[2]) for e in evals],
-            "word_acc": accs, "best": max(accs)}
+            "init_from": init[-1][1] if init else None, "word_acc": accs, "best": max(accs)}
 
 
 def pretrain_last_epoch(workdir, pkg):
@@ -255,72 +141,82 @@ def pretrain_last_epoch(workdir, pkg):
             if k in ("epoch", "train_loss_contrast", "train_loss_pixel", "train_q1_acc1")}
 
 
+def stage_env(workdir):
+    """The stages' environment: one CPU device for JAX, and TensorBoard
+    scalars off (a stand-in `tensorflow` that fails to import: both CLIs
+    then skip them, and its import alone takes seconds)."""
+    stub = os.path.join(workdir, "no_tf")
+    os.makedirs(os.path.join(stub, "tensorflow"), exist_ok=True)
+    with open(os.path.join(stub, "tensorflow", "__init__.py"), "w") as f:
+        f.write("raise ImportError('TensorBoard scalars off')\n")
+    os.environ["XLA_FLAGS"] = " ".join([os.environ.get("XLA_FLAGS", ""),
+                                        "--xla_force_host_platform_device_count=1"]).strip()
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [stub, ROOT] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else []))
+
+
 def main(argv=None):
+    from dig_tpu_torch.tools.validation_study import Stage, finished, run_stage
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("workdir")
     ap.add_argument("--unlabeled", type=int, default=8192)
     ap.add_argument("--labeled", type=int, default=2048)
     ap.add_argument("--test", type=int, default=512)
     ap.add_argument("--words", type=int, default=100)
-    ap.add_argument("--pre_model", default="pretrain_simmim_moco_ori_vit_micro_patch4_32x128")
-    ap.add_argument("--ft_model", default="vit_micro_patch4_32x128")
     ap.add_argument("--pre_epochs", type=int, default=4)
     ap.add_argument("--warmup_steps", type=int, default=20)
-    ap.add_argument("--moco_mlp_dim", type=int, default=4096,
-                    help="the MoCo heads' hidden width (the study's: 4096)")
-    ap.add_argument("--moco_dim", type=int, default=256)
     ap.add_argument("--batch_size", type=int, default=128, help="both stages' (the study's: 128)")
+    # the MoCo heads' widths (the study's: 4096 / 256); the Tier-1 case narrows
+    # them, which leaves the encoder that the arms read as it is
+    ap.add_argument("--moco_mlp_dim", type=int, default=4096)
+    ap.add_argument("--moco_dim", type=int, default=256)
     ap.add_argument("--ft_epochs", type=int, default=20)
     ap.add_argument("--seeds", default="0", help="fine-tuning seeds, comma-separated")
-    ap.add_argument("--arms", default="",
-                    help="only these arms (comma-separated names); 'pretrain': none")
-    ap.add_argument("--frozen", action="store_true",
-                    help="also the arms with the encoder frozen (--fixed_encoder_layers)")
-    ap.add_argument("--frozen_layers", type=int, default=2, help="the encoder's depth")
-    ap.add_argument("--jobs", type=int, default=4, help="arms run side by side")
-    ap.add_argument("--jax_cache", default="", help="a persistent XLA compilation cache")
     args = ap.parse_args(argv)
-    # a SIGTERM ends the run through `Stages.run`'s clean-up: no stage outlives it
-    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     w = os.path.abspath(args.workdir)
-    st = Stages(w, args.jobs, args.jax_cache)
+    stage_env(w)
+
+    def wave(*stages):  # stages that do not need each other, side by side
+        todo = [s for s in stages if not finished(s, w)]
+        if todo:
+            with concurrent.futures.ThreadPoolExecutor(len(todo)) as ex:
+                list(ex.map(lambda s: run_stage(s, w, "cpu"), todo))
+
     ca, cb = os.path.join(w, "corpusA"), os.path.join(w, "corpusB")
-    st.add("corpusA", corpus_argv("A", ca, args))
-    st.add("corpusB", corpus_argv("B", cb, args))
-    for pkg in ("jax", "port"):
-        out = os.path.join(w, "pre_" + pkg)
-        st.add("pre_" + pkg, cli_argv(pkg, "run_pretrain", pretrain_flags(args, ca, out)),
-               deps=["corpusA"])
-    enc_port = os.path.join(w, "enc_port.pth")
-    st.add("export_port", lambda: [sys.executable, "-m", "dig_tpu_torch.tools.export_pth",
-                                   last_checkpoint(os.path.join(w, "pre_port")), enc_port,
-                                   "--encoder_only"], deps=["pre_port"])
-    # (fine-tuner, encoder: None or (stage that makes it, its path), seed)
-    encoders = {"jax": ("pre_jax", lambda: last_checkpoint(os.path.join(w, "pre_jax"))),
-                "port": ("export_port", lambda: enc_port)}
-    arms = {}  # name: (fine-tuner, encoder, seed, frozen)
-    for seed in [int(s) for s in args.seeds.split(",")]:
-        for frozen, ssl, scratch in ((False, "ssl", "scratch"),
-                                     (True, "frozen_ssl", "frozen_scratch")):
-            for enc in ("jax", "port"):
-                for ft in ("jax", "port"):
-                    arms[f"{ssl}_{enc}_{ft}_s{seed}"] = (ft, encoders[enc], seed, frozen)
-            for ft in ("jax", "port"):
-                arms[f"{scratch}_{ft}_s{seed}"] = (ft, None, seed, frozen)
-    chosen = ([] if args.arms == "pretrain"
-              else [a for a in args.arms.split(",") if a]
-              or [a for a in arms if args.frozen or not arms[a][3]])
-    for name in chosen:
-        ft, enc, seed, frozen = arms[name]
+    wave(Stage("corpusA", corpus_argv("A", ca, args), ca),
+         Stage("corpusB", corpus_argv("B", cb, args), cb))
+    seeds = [int(s) for s in args.seeds.split(",")]
+    arm = {}  # name: (fine-tuner, encoder checkpoint or None, seed)
+    for seed in seeds:
+        for ft in ("jax", "port"):
+            arm[f"scratch_{ft}_s{seed}"] = (ft, None, seed)
+
+    def arm_stage(name):
+        ft, init, seed = arm[name]
         out = os.path.join(w, name)
-        st.add(name, (lambda ft=ft, enc=enc, seed=seed, out=out, frozen=frozen: cli_argv(
-            ft, "run_finetune", finetune_flags(args, cb, out, seed, enc and enc[1](), frozen))),
-            deps=["corpusB"] + ([enc[0]] if enc else []))
-    st.run()
-    result = {"size": {k: v for k, v in vars(args).items() if k not in ("workdir", "arms")},
-              "pretrain_seconds": {p: st.record("pre_" + p)["seconds"] for p in ("jax", "port")},
+        return Stage(name, cli_argv(ft, "run_finetune",
+                                    finetune_flags(args, cb, out, seed, init)), out)
+
+    wave(*[Stage("pre_" + p, cli_argv(p, "run_pretrain",
+                                      pretrain_flags(args, ca, os.path.join(w, "pre_" + p))),
+                 os.path.join(w, "pre_" + p)) for p in ("jax", "port")],
+         *[arm_stage(name) for name in arm])
+    enc = {"jax": last_checkpoint(os.path.join(w, "pre_jax")),
+           "port": os.path.join(w, "enc_port.pth")}
+    wave(Stage("export_port", ["-m", "dig_tpu_torch.tools.export_pth",
+                               last_checkpoint(os.path.join(w, "pre_port")), enc["port"],
+                               "--encoder_only"], os.path.join(w, "export_port")))
+    ssl = [f"ssl_{e}_{ft}_s{seed}" for seed in seeds for e in ("jax", "port")
+           for ft in ("jax", "port")]
+    for name in ssl:
+        _, e, ft, s = name.split("_")
+        arm[name] = (ft, enc[e], int(s[1:]))
+    wave(*[arm_stage(name) for name in ssl])
+    result = {"size": {k: v for k, v in vars(args).items() if k != "workdir"},
               "pretrain_last_epoch": {p: pretrain_last_epoch(w, p) for p in ("jax", "port")},
-              "arms": {name: arm_result(w, name) for name in chosen}}
+              "arms": {name: arm_result(w, name) for name in arm}}
     with open(os.path.join(w, "swap.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
@@ -329,6 +225,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        run_cli(sys.argv[2], sys.argv[3], sys.argv[4:])
+        run_jax_cli(sys.argv[2], sys.argv[3:])
     else:
         main()
