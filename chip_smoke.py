@@ -83,21 +83,21 @@
    one fp32 step and one greedy eval batch of each kind at batch 2, rates
    0, card against CPU (every gradient leaf, the ids equal).
 9. Drives the pre-training data path and CLI at full width on an LMDB of
-   1,024 seeded PNG word images (8 steps an epoch at batch 128): the
+   512 seeded PNG word images (4 steps an epoch at batch 128): the
    on-device view generator on one batch (exact mask counts, range, and in
    fp32 the card against the CPU under one set of draws); the loader alone
    over one epoch, with host SeqCLR augmentation and without (thread
    workers), and on 8 process workers started from this process with CUDA
    initialised, one iterator abandoned half-way first (a watchdog fails the
    run if it hangs); `run_pretrain.main` itself for
-   two epochs with host augmentation and with `--device_aug` (16 steps, the
+   two epochs with host augmentation and with `--device_aug` (8 steps, the
    launch counts of item 5 at every step, finite losses in log.txt, both
    checkpoints, parameters moved); and resume equivalence in fp32: two
    epochs straight against one epoch, a fresh `main` that auto-resumes, and
    the second epoch, every parameter, momentum parameter and AdamW moment
    compared bit for bit.
 10. Drives the fine-tuning CLI at the FinetuneConfig defaults on labelled
-   LMDBs (1,024 train records, 4 steps an epoch; 512 eval records), its
+   LMDBs (512 train records, 2 steps an epoch; 256 eval records), its
    encoder from item 9's last pre-training checkpoint directory (checked bit
    for bit): `run_finetune.main` with host ABI augmentation and with
    `--device_abi_aug` (2 epochs, eval after each; 24 / 24 LayerNorm launches
@@ -111,10 +111,10 @@
    timed; `[kinds cli]`: `run_finetune.main` with `--decoder_type
    attention`, with `--use_seq_cls_token --model
    vit_seq_cls_base_patch4_32x128` and with `--use_feat_distill
-   --teacher_ckpt` the fine-tuning CLI's checkpoint directory (1 epoch of 4
+   --teacher_ckpt` the fine-tuning CLI's checkpoint directory (1 epoch of 2
    steps + eval, launches of every step and eval batch asserted), and
    `run_predict.main` with `--model_kind ctc` and with `--decoder_name
-   decoupled_tf_decoder` on the 1,024-record LMDB (every TSV line checked).
+   decoupled_tf_decoder` on the 512-record LMDB (every TSV line checked).
    `to_model_images` on the card against the CPU for all 256
    values, and `torch.cuda.set_sync_debug_mode("warn")` over one
    fine-tuning step and one beam batch.
@@ -162,7 +162,7 @@
    (the packed [256, 256, 576] layout) against their plain versions,
    timed beside SDPA.  `[sharded pretrain one card]` (meshes 1x2x1, 1x1x2,
    1x2x2) and `[sharded finetune one card]` (1x2x1, 1x1x2): the full-width
-   steps, bf16, 3 steps at the global batch (128; 256), the parameters,
+   steps, bf16, 1 step at the global batch (128; 256), the parameters,
    momentum branch and AdamW state sharded by the rules: each rank's
    launches a step, the grad norm equal on every rank and the loss on
    tensor peers, tensor peers' replicated parameters bit-equal, each
@@ -188,7 +188,10 @@
 16. `[validation study]`: `python -m dig_tpu_torch.tools.validation_study`
    as a user runs it, at a small scale of its protocol (ViT-tiny, 1,024
    unlabeled, 1 pre-training epoch, 256 labeled, 128 test, 2 fine-tuning
-   epochs: corpora, pretrain, ft_scratch, ft_ssl): every stage on the card,
+   epochs: corpora, pretrain, ft_scratch, ft_ssl), started after item 14's
+   `[attention at the tensor split]` timings and running beside `[two ranks
+   one card]` and `[sharded ...]` (gloo correctness checks; the card's
+   timed phases run alone): every stage on the card,
    each training stage's launches equal to its steps' and eval batches'
    (24 / 12 attention forward / backward a pre-training step, none a
    fine-tuning step at attention dropout 0.1, 12 forwards an eval batch:
@@ -225,7 +228,7 @@ PRE_BATCH = 128            # images per pre-training step; 2 views -> 256 sequen
 PRE_B = 2 * PRE_BATCH
 PRE_WARMUP, PRE_STEPS = 3, 10
 PRE_MASKED = 179           # exact-count SimMIM masks: 179 of 256 patches per view
-PRE_CLI_RECORDS, PRE_CLI_EPOCHS = 1024, 2  # the pre-training CLI's LMDB: 8 steps an epoch
+PRE_CLI_RECORDS, PRE_CLI_EPOCHS = 512, 2  # the pre-training CLI's LMDB: 4 steps an epoch
 PRE_CLI_STEPS = PRE_CLI_RECORDS // PRE_BATCH * PRE_CLI_EPOCHS
 # the view generator, card vs CPU under the same draws, fp32 images in [-1, 1].
 # With the matrices given, the warp's source coordinates are equal to the bit
@@ -268,9 +271,9 @@ SOURCES = ["attention_lse_fwd", "attention_lse_bwd", "attention_fwd", "attention
            "layernorm_fwd", "layernorm_bwd", "colsum", "attention_probe"]
 FT_BATCH = 256
 FT_WARMUP, FT_STEPS = 3, 10
-# the fine-tuning CLI's LMDBs: 4 steps an epoch, 2 eval batches (the second
+# the fine-tuning CLI's LMDBs: 2 steps an epoch, 1 eval batch (the second
 # eval set ends in a partial batch)
-FT_CLI_RECORDS, FT_CLI_EVAL_RECORDS, FT_CLI_EVAL2_RECORDS, FT_CLI_EPOCHS = 1024, 512, 300, 2
+FT_CLI_RECORDS, FT_CLI_EVAL_RECORDS, FT_CLI_EVAL2_RECORDS, FT_CLI_EPOCHS = 512, 256, 300, 2
 FT_EVAL_BATCH = per_step(attention_lse_fwd=12, layer_norm_fwd=24)  # greedy or beam alike
 # attention dropout 0 (the resume run): the encoder's attention on the kernel pair
 FT_PER_STEP_RESUME = dict(FT_PER_STEP, attention_lse_fwd=12, attention_lse_bwd=12)
@@ -1264,7 +1267,7 @@ def phase_two_ranks_one_card(torch, np):
 # parameter sharding: torchrun children over gloo, all on the one card
 # ---------------------------------------------------------------------------
 
-SHARDED_STEPS = 3  # bf16 steps a mesh and a trainer
+SHARDED_STEPS = 1  # bf16 steps a mesh and a trainer
 SHARDED_FP32_BATCH = 8  # the fp32 checks' global batch
 SHARDED_FP32_DEPTH = 4  # the fp32 pre-training check's encoder depth (full width)
 # (mesh, the trainers it runs); the meshes of one world size share a torchrun call
@@ -1599,7 +1602,7 @@ def eval_line(screen, path):
 def phase_sharded_cli(torch, d, db, pre_ckpt):
     """`[sharded cli]`: on two gloo ranks on the card, `run_pretrain.main`
     with --n_fsdp 2 at PretrainConfig defaults (64 rows a rank: the global
-    batch 128) for PRE_CLI_EPOCHS epochs on the 1,024-PNG LMDB, then
+    batch 128) for PRE_CLI_EPOCHS epochs on the 512-PNG LMDB, then
     `run_finetune.main` with --n_tensor 2 (128 rows a rank) from
     [pretrain cli]'s checkpoint for one epoch and its eval.  A one-process
     run then auto-resumes the sharded pre-training's last checkpoint, and
@@ -1916,7 +1919,7 @@ def phase_finetune_cli(torch, np, d, pre_ckpt, tag, extra_argv):
     """`run_finetune.main` as a user calls it: FinetuneConfig defaults (the
     full-width recognizer, bf16, batch 256, dropouts 0.1, 10 loader
     threads), the encoder from the pre-training CLI's checkpoint directory,
-    2 epochs of 4 steps, eval on the eval LMDB after each."""
+    2 epochs of 2 steps, eval on the eval LMDB after each."""
     from dig_tpu_torch.cli import run_finetune
     from dig_tpu_torch.config import FinetuneConfig, parse_config
     from dig_tpu_torch.utils.checkpoint import restore_checkpoint
@@ -3476,9 +3479,9 @@ def phase_attention_at(torch, attn, gen, tag, b, l, h):
 
 def phase_kinds_cli(torch, np, d, ft_out):
     """The fine-tuning CLI for three of the kinds on [finetune cli]'s LMDBs
-    (1 epoch of 4 steps + eval, launches of every step and eval batch
+    (1 epoch of 2 steps + eval, launches of every step and eval batch
     asserted, log.txt finite), then the predict CLI for two more on the
-    1,024-record LMDB (every TSV line checked)."""
+    512-record LMDB (every TSV line checked)."""
     from dig_tpu_torch.cli.run_predict import main as predict_main
     from dig_tpu_torch.config import PredictConfig, parse_config
 
@@ -3850,7 +3853,7 @@ def phase_optimizers(torch, np):
 def phase_pretrain_cli_options(torch, np, db, root):
     """`run_pretrain.main` with `--remat --patchnet_name conv --opt lamb
     --drop_path 0.1` at the PretrainConfig defaults on the LMDB, 2 epochs of
-    8 steps (launches asserted at every step); then the same argv in fp32
+    4 steps (launches asserted at every step); then the same argv in fp32
     with `--device_aug` (which makes a run a function of (seed, step)):
     straight against auto-resumed, bit for bit, LAMB's state included."""
     tag = "pretrain cli options"
@@ -3901,7 +3904,7 @@ def phase_pretrain_cli_options(torch, np, db, root):
 def phase_finetune_cli_opt(torch, d, pre_ckpt):
     """`run_finetune.main` with `--opt adamp` (AdamP's projection and its
     wd_ratio) at the FinetuneConfig defaults from `[pretrain cli]`'s
-    checkpoint: 1 epoch of 4 steps + eval, launches asserted."""
+    checkpoint: 1 epoch of 2 steps + eval, launches asserted."""
     tag = "finetune cli opt"
     out = os.path.join(d, "ft_adamp")
     argv = ["--data_path", os.path.join(d, "labelled"), "--eval_data_path",
@@ -4079,28 +4082,44 @@ def study_steps(log, pattern):
     return int(found[-1])
 
 
-def phase_validation_study(smi, paths):
-    """The validation study's runner as a child at STUDY_KNOBS: each
-    training stage's device, launches and result (see item 16)."""
+def start_validation_study():
+    """The validation study's runner as a child at STUDY_KNOBS, in a
+    temporary directory, its output in files there; `phase_validation_study`
+    waits for it.  Returns (process, directory, start time)."""
     import tempfile
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "dig_tpu_torch.tools.validation_study", d,
-                               *STUDY_KNOBS], cwd=ROOT, capture_output=True, text=True,
-                              timeout=STUDY_TIMEOUT)
+    d = tempfile.TemporaryDirectory()
+    with open(os.path.join(d.name, "stdout"), "w") as out, \
+            open(os.path.join(d.name, "stderr"), "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "dig_tpu_torch.tools.validation_study",
+                                 os.path.join(d.name, "w"), *STUDY_KNOBS], cwd=ROOT, stdout=out,
+                                stderr=err)
+    return proc, d, time.perf_counter()
+
+
+def phase_validation_study(smi, paths, started):
+    """Waits for the runner `start_validation_study` started: each training
+    stage's device, launches and result (see item 16)."""
+    proc, tmp, t0 = started
+    with tmp:
+        def text(*parts):
+            with open(os.path.join(tmp.name, *parts)) as f:
+                return f.read()
+
+        try:
+            rc = proc.wait(timeout=max(1.0, STUDY_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
         dt = time.perf_counter() - t0
-        check(proc.returncode == 0, f"[validation study] exit {proc.returncode}: "
-                                    f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
-        check("=== results (best test word accuracy per arm) ===" in proc.stdout,
+        stdout = text("stdout")
+        check(rc == 0, f"[validation study] exit {rc}: {stdout[-2000:]}{text('stderr')[-3000:]}")
+        check("=== results (best test word accuracy per arm) ===" in stdout,
               "[validation study] printed no results block")
-        with open(os.path.join(d, "results.json")) as f:
-            res = json.load(f)
-        logs = {}
-        for name in ("pretrain", "ft_scratch", "ft_ssl"):
-            with open(os.path.join(d, "logs", f"{name}.log")) as f:
-                logs[name] = f.read()
-        ck = os.path.join(d, "pre", f"checkpoint-{STUDY_PRE_EPOCHS - 1}")
+        res = json.loads(text("w", "results.json"))
+        logs = {name: text("w", "logs", f"{name}.log") for name in ("pretrain", "ft_scratch",
+                                                                  "ft_ssl")}
+        ck = os.path.join(tmp.name, "w", "pre", f"checkpoint-{STUDY_PRE_EPOCHS - 1}")
     check(res["card"] == smi, f"[validation study] card {res['card']!r} != {smi!r}")
     stages = res["stages"]
     check(set(stages) == {"corpusA", "corpusB", "pretrain", "ft_scratch", "ft_ssl"},
@@ -4129,7 +4148,8 @@ def phase_validation_study(smi, paths):
           f"[validation study] pretrain {pre}")
     print(f"[validation study] {smi}: " + "; ".join(
         f"{n} {s['seconds']:.1f} s on {s['device']}" for n, s in stages.items())
-          + f"; the runner took {dt:.1f} s; launches asserted: " + "; ".join(
+          + f"; the runner took {dt:.1f} s (beside the gloo phases); launches asserted: "
+          + "; ".join(
         f"{n} {launches_text(c)}" for n, c in want.items()))
     print("[validation study] best word acc " + ", ".join(
         f"{arm} {r['best_word_acc']}" for arm, r in res["arms"].items())
@@ -4336,13 +4356,15 @@ def main():
     phase_optimizers(torch, np)
     phase_sync_debug_step(torch, np)
     phase_pretrain_data(torch, np, paths)
-    phase_two_ranks_one_card(torch, np)
     # the pre-training step's attention on one tensor rank's heads (H / 2)
     split_rows = phase_attention_at(torch, attn, gen, "attention at the tensor split", PRE_B, L,
                                     H // 2)
+    # the study's runner beside the gloo checks, which time nothing the line reports
+    study = start_validation_study()
+    phase_two_ranks_one_card(torch, np)
     phase_sharded_steps(torch, np)
+    phase_validation_study(smi, paths, study)
     phase_bench_torch(smi)
-    phase_validation_study(smi, paths)
     paths.update({f"bench_torch {mode}, a step": want for mode, want in BENCH_LAUNCHES.items()})
 
     def row(name, source, replaces, measured, path):

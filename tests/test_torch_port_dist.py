@@ -39,6 +39,7 @@ import pytest
 import torch
 
 import _torch_port_ranks as launch
+from _torch_port_pretrain_step import check_relu_margin
 from _torch_port_threads import one_thread
 from dig_tpu.losses import infonce as jinfonce
 from dig_tpu.models import moco as jmoco
@@ -140,8 +141,10 @@ def _pretrain_inputs():
             batch["mask"][r, v, rng.permutation(256)[:179]] = True
     variables = jm.init(jax.random.PRNGKey(0), jnp.zeros((2 * PRE_BATCH, 32, 128, 3)),
                         jnp.zeros((2 * PRE_BATCH, 256), bool), True)
-    params = _perturb(variables["params"], 61)
+    # a draw whose ReLU inputs sit off the kink (tests/_torch_port_pretrain_step.py)
+    params = _perturb(variables["params"], 139)
     ema = _perturb({k: params[k] for k in jm.ema_submodules()}, 62)
+    check_relu_margin(PRE_CFG, params, ema, batch)
     return jm, params, ema, batch
 
 

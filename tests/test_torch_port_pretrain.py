@@ -20,6 +20,7 @@ import optax
 import pytest
 import torch
 
+from _torch_port_pretrain_step import assert_relu_margin, check_relu_margin
 from _torch_port_threads import one_thread
 from dig_tpu.models import moco as jmoco
 from dig_tpu.models.layers import CrossBlock as JCrossBlock
@@ -235,10 +236,13 @@ def jax_run():
             mask[r, v, rng.permutation(256)[:179]] = True
     variables = model.init(jax.random.PRNGKey(0), jnp.zeros((2 * B, 32, 128, 3)),
                            jnp.zeros((2 * B, 256), bool), True)
-    params = _perturb(variables["params"], 21)
+    # a draw whose ReLU inputs sit off the kink (tests/_torch_port_pretrain_step.py)
+    params = _perturb(variables["params"], 191)
     # the momentum branch perturbed away from the student, so the EMA and
     # its order before the momentum forward show in the keys and the loss
     ema = _perturb({k: params[k] for k in model.ema_submodules()}, 22)
+    batch = {"images": images, "aug_images": aug, "mask": mask}
+    check_relu_margin(CFG, params, ema, batch)
     total = 4
     lr = np.full(total, LR, np.float32)
     wd = np.full(total, WD, np.float32)
@@ -247,7 +251,6 @@ def jax_run():
     state = JTrainState.create(jparams, tx, ema_params=jax.tree_util.tree_map(jnp.asarray, ema))
     step = j_make_pretrain_step(model, np.full(total, MOM, np.float32),
                                 np.full(total, CW, np.float32))
-    batch = {"images": images, "aug_images": aug, "mask": mask}
     new_state, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                               jax.random.PRNGKey(1))
     return dict(model=model, params=params, ema=ema, batch=batch, lr=lr, wd=wd,
@@ -429,6 +432,28 @@ def _check_ema_and_update(jax_run, port_run):
         np.testing.assert_allclose(state[name].numpy() - before, want.numpy() - before,
                                    rtol=0, atol=1e-3 * LR, err_msg=name)
         assert not np.array_equal(state[name].numpy(), before), name
+
+
+@pytest.mark.parametrize("third", [0.0, 0.5], ids=["at_the_kink", "off_the_kink"])
+def test_relu_margin_check_fires_on_a_kink(third):
+    """`assert_relu_margin` on a two-layer head whose first BN normalizes
+    channel 0 over the rows 1, -1 and `third`: at 0 the mean is 0 and the
+    third row's ReLU input is exactly 0, which the check refuses; at 0.5
+    every input sits O(1) from zero and it passes."""
+    heads = [tmoco.MLPHead(2, 2, 2, 2), tmoco.MLPHead(2, 2, 2, 2, dtype=torch.float64).double()]
+    for head in heads:
+        with torch.no_grad():
+            head[0].weight.copy_(torch.eye(2))
+    x = [[1.0, 1.0], [-1.0, 2.0], [third, 4.0]]
+
+    def forward(model):
+        model(torch.tensor(x, dtype=next(model.parameters()).dtype))
+
+    if third == 0.0:
+        with pytest.raises(AssertionError, match="within the margin"):
+            assert_relu_margin(*heads, forward)
+    else:
+        assert_relu_margin(*heads, forward)
 
 
 def test_init_pretrain_state_copies_student():

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_pretrain_step import assert_relu_margin, pretrain_forward
 from _torch_port_threads import one_thread
 from dig_tpu.cli import run_pretrain as jcli
 from dig_tpu.config import PretrainConfig as JPretrainConfig
@@ -498,7 +499,7 @@ def test_cli_resumes_a_native_dig_tpu_checkpoint(both_runs, lmdb_path, tmp_path)
     jstate = jstate.replace(params=payload["params"], opt_state=payload["opt_state"],
                             ema_params=payload["ema_params"],
                             step=jax.numpy.asarray(payload["step"], jax.numpy.int32))
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(13)  # a batch that meets `assert_relu_margin` below
     batch = {"images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
              "aug_images": rng.integers(0, 256, (4, 32, 128, 3), dtype=np.uint8),
              "mask": np.zeros((4, 2, 256), bool)}
@@ -513,6 +514,10 @@ def test_cli_resumes_a_native_dig_tpu_checkpoint(both_runs, lmdb_path, tmp_path)
                                                         wd, eps=1e-3))
     state = ckpt.load_into_state(state, ckpt.restore_checkpoint(native))
     assert state.step == state.optimizer.count == 4
+    model64 = build_pretrain_model(NAME, dtype=torch.float64, device="cpu", mlp_dim=32,
+                                   dim=16, num_windows=4).double()
+    model64.load_state_dict(model.state_dict())
+    assert_relu_margin(model, model64, pretrain_forward(batch))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     make_pretrain_step(model, mom, cw)(state, batch)
     want = moco_params_from_jax(jax.tree_util.tree_map(np.asarray, jnew.params),

@@ -238,12 +238,12 @@ def test_carried_files_resume_the_study(micro_study, tmp_path):
         ["corpusA", "corpusB", "pretrain", "ft_ssl_low"]
 
 
-def _probe_tool():
-    """tools/encoder_ctc_probe.py, the study's probe of a frozen encoder."""
+def _tool(name):
+    """tools/<name>.py as a module: `encoder_ctc_probe`, the study's probe of
+    a frozen encoder, or `study_arm_at_epoch`, its SSL arm read early."""
     import importlib.util
 
-    spec = importlib.util.spec_from_file_location(
-        "encoder_ctc_probe", os.path.join(ROOT, "tools", "encoder_ctc_probe.py"))
+    spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     return tool
@@ -255,7 +255,7 @@ def test_encoder_probe_reads_the_study_corpora(init, micro_study):
     pre-training checkpoint: finite losses, an accuracy in [0, 1], every
     image of both sets; the checkpoint's encoder gives other features."""
     workdir, _, _ = micro_study
-    probe = _probe_tool().probe
+    probe = _tool("encoder_ctc_probe").probe
     args = (str(workdir / "corpusB" / "labeled"), str(workdir / "corpusB" / "test"))
     kw = dict(model="vit_micro_patch4_32x128", epochs=2, device="cpu")
     got = probe(*args, checkpoint=str(workdir / "pre" / "checkpoint-0")
@@ -268,6 +268,32 @@ def test_encoder_probe_reads_the_study_corpora(init, micro_study):
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no card"):
                 probe(*args, model="vit_micro_patch4_32x128", epochs=1)
+
+
+def test_study_arm_at_epoch_reads_the_ssl_arm(micro_study, tmp_path, capsys):
+    """tools/study_arm_at_epoch.py on a copy of the micro study's workdir:
+    the corpus and pretrain stages' records stand, so none of them runs
+    again; ft_ssl runs from the pre-training checkpoint until its log holds
+    one epoch, and arm.json names the corpora's OpenCV build, the
+    pre-training losses and the word accuracy by epoch."""
+    import cv2
+
+    workdir, _, res = micro_study
+    w = tmp_path / "w"
+    shutil.copytree(workdir, w)
+    stamps = {p: os.stat(w / "stages" / p).st_mtime_ns for p in os.listdir(w / "stages")}
+    assert _tool("study_arm_at_epoch").main([str(w), *MICRO, "--stop_epoch", "1"]) == 0
+    assert {p: os.stat(w / "stages" / p).st_mtime_ns for p in os.listdir(w / "stages")} == stamps
+    out = capsys.readouterr().out
+    assert "[ft_ssl] 1 epochs in" in out and "[corpusA]" not in out and "[pretrain]" not in out
+    with open(w / "arm.json") as f:
+        arm = json.load(f)
+    assert arm["opencv"] == {"corpusA": cv2.__version__, "corpusB": cv2.__version__}
+    assert arm["pretrain"] == json.loads(json.dumps(res["pretrain"]))
+    assert arm["ft_ssl_init"][1] == str(w / "pre" / "checkpoint-0")
+    acc = arm["ft_ssl_word_acc_by_epoch"]
+    assert len(acc) == 1 and 0 <= acc[0] <= 1 and arm["ft_ssl_word_acc_at"] == {}
+    assert arm["seconds"]["ft_ssl"] > 0
 
 
 def test_ssl_swap_runs_end_to_end(tmp_path):
