@@ -197,7 +197,13 @@
    fine-tuning step at attention dropout 0.1, 12 forwards an eval batch:
    ViT-tiny's width, 192, takes no LayerNorm kernel), the SSL arm initialised
    from the pre-training checkpoint, each arm's word accuracy in [0, 1];
-   each stage's wall seconds beside the card's name and power limit.
+   each stage's wall seconds beside the card's name and power limit.  Its
+   corpora are carried in as a user carries a render from another machine:
+   the runner renders them into a directory of their own, `pack` of
+   `tools/study_corpora.py` writes them into an xz archive and `unpack`
+   puts them into the runner's workdir (the archive's mode opens on this
+   machine); the runner then makes no corpus, and results.json names the
+   manifest's sha256 beside this machine's OpenCV build.
 17. Prints the seconds each phase took (`[phase seconds]`, a phase's
    own phases counted in it too), one JSON line describing every kernel,
    then as the last line {"ok": true, "device": {...}}.
@@ -4085,22 +4091,43 @@ def study_steps(log, pattern):
 def start_validation_study():
     """The validation study's runner as a child at STUDY_KNOBS, in a
     temporary directory, its output in files there; `phase_validation_study`
-    waits for it.  Returns (process, directory, start time)."""
+    waits for it.  Its corpora are rendered first, packed and unpacked
+    into its workdir.  Returns (process, directory, start time, the
+    corpora's manifest sha256)."""
+    import importlib.util
     import tempfile
 
     d = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    runner = [sys.executable, "-m", "dig_tpu_torch.tools.validation_study"]
+    made = subprocess.run([*runner, os.path.join(d.name, "render"), *STUDY_KNOBS, "--stages",
+                           "corpusA,corpusB"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=STUDY_TIMEOUT)
+    check(made.returncode == 0, f"[validation study] render exit {made.returncode}: "
+                                f"{made.stdout[-2000:]}{made.stderr[-2000:]}")
+    spec = importlib.util.spec_from_file_location(
+        "study_corpora", os.path.join(ROOT, "tools", "study_corpora.py"))
+    corpora = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(corpora)
+    archive = os.path.join(d.name, "corpora.tar.xz")
+    digest = corpora.pack(os.path.join(d.name, "render"), archive)
+    check(corpora.unpack(archive, os.path.join(d.name, "w")) == digest,
+          "[validation study] unpack's manifest sha256 is not pack's")
+    print(f"[validation study] corpora rendered, packed ({os.path.getsize(archive)} B, xz) and "
+          f"unpacked in {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(d.name, "stdout"), "w") as out, \
             open(os.path.join(d.name, "stderr"), "w") as err:
-        proc = subprocess.Popen([sys.executable, "-m", "dig_tpu_torch.tools.validation_study",
-                                 os.path.join(d.name, "w"), *STUDY_KNOBS], cwd=ROOT, stdout=out,
-                                stderr=err)
-    return proc, d, time.perf_counter()
+        proc = subprocess.Popen([*runner, os.path.join(d.name, "w"), *STUDY_KNOBS], cwd=ROOT,
+                                stdout=out, stderr=err)
+    return proc, d, time.perf_counter(), digest
 
 
 def phase_validation_study(smi, paths, started):
     """Waits for the runner `start_validation_study` started: each training
     stage's device, launches and result (see item 16)."""
-    proc, tmp, t0 = started
+    import cv2
+
+    proc, tmp, t0, digest = started
     with tmp:
         def text(*parts):
             with open(os.path.join(tmp.name, *parts)) as f:
@@ -4124,6 +4151,12 @@ def phase_validation_study(smi, paths, started):
     stages = res["stages"]
     check(set(stages) == {"corpusA", "corpusB", "pretrain", "ft_scratch", "ft_ssl"},
           f"[validation study] stages {sorted(stages)}")
+    check(not re.search(r"^\[corpus[AB]\]", stdout, re.M),
+          "[validation study] the runner made a corpus that was carried in")
+    for name in ("corpusA", "corpusB"):
+        check((stages[name].get("opencv"), stages[name].get("manifest_sha256"))
+              == (cv2.__version__, digest), f"[validation study] {name} {stages[name]}: "
+                                            f"not OpenCV {cv2.__version__}, manifest {digest}")
     pre_steps = study_steps(logs["pretrain"], r"dataset: \d+ imgs, (\d+) steps/epoch")
     want = {"pretrain": {k: v * pre_steps * STUDY_PRE_EPOCHS for k, v in STUDY_PRE_STEP.items()}}
     for arm in ("ft_scratch", "ft_ssl"):
@@ -4148,6 +4181,7 @@ def phase_validation_study(smi, paths, started):
           f"[validation study] pretrain {pre}")
     print(f"[validation study] {smi}: " + "; ".join(
         f"{n} {s['seconds']:.1f} s on {s['device']}" for n, s in stages.items())
+          + f"; corpora carried in, manifest sha256 {digest}, OpenCV {cv2.__version__}"
           + f"; the runner took {dt:.1f} s (beside the gloo phases); launches asserted: "
           + "; ".join(
         f"{n} {launches_text(c)}" for n, c in want.items()))

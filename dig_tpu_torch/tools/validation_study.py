@@ -49,7 +49,10 @@ epoch (from its log.txt), the pre-training losses, each stage's seconds,
 the card's name and power limit, and the OpenCV build that rendered each
 corpus: `gen_synth` draws its words with OpenCV's Hershey faces, which
 OpenCV 4.13 and 5.0 draw as different glyphs, so accuracies compare only
-between corpora rendered by the same OpenCV.
+between corpora rendered by the same OpenCV.  Corpora rendered on another
+machine are carried in by `tools/study_corpora.py` (pack there, unpack into
+WORKDIR here): their records stand, so the corpus stages are skipped, and
+results.json names the sha256 of the archive's manifest beside their build.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ import argparse
 import contextlib
 import dataclasses
 import glob
+import hashlib
 import importlib
 import io
 import json
@@ -77,6 +81,7 @@ PRETRAIN = ["-m", "dig_tpu_torch.cli.run_pretrain"]
 FINETUNE = ["-m", "dig_tpu_torch.cli.run_finetune"]
 CONFIGS = {"dig_tpu_torch.cli.run_pretrain": "PretrainConfig",
            "dig_tpu_torch.cli.run_finetune": "FinetuneConfig"}
+CORPORA_MANIFEST = "corpora_manifest.json"  # under WORKDIR/stages, left by study_corpora unpack
 
 
 @dataclasses.dataclass
@@ -395,8 +400,26 @@ def pretrain_result(out):
     return res
 
 
+def corpora_manifest(workdir):
+    """The sha256 of the manifest `tools/study_corpora.py unpack` left in
+    WORKDIR/stages, while the corpus records it lists are the ones standing
+    (a corpus made again here writes a new record); else None."""
+    try:
+        with open(os.path.join(workdir, "stages", CORPORA_MANIFEST), "rb") as f:
+            raw = f.read()
+        for rel, entry in json.loads(raw)["files"].items():
+            if rel.startswith("stages" + os.sep):
+                with open(os.path.join(workdir, rel), "rb") as f:
+                    if hashlib.sha256(f.read()).hexdigest() != entry["sha256"]:
+                        return None
+    except (OSError, ValueError, KeyError):
+        return None
+    return hashlib.sha256(raw).hexdigest()
+
+
 def results(stages, workdir):
     res = {"card": card_name_and_limit(), "stages": {}, "arms": {}}
+    manifest = corpora_manifest(workdir)
     for s in stages:
         try:
             with open(marker_path(workdir, s.name)) as f:
@@ -405,6 +428,8 @@ def results(stages, workdir):
             continue
         res["stages"][s.name] = {k: marker[k] for k in ("seconds", "device", "launches",
                                                          "opencv") if k in marker}
+        if s.name.startswith("corpus") and manifest:
+            res["stages"][s.name]["manifest_sha256"] = manifest
         if s.name.startswith("ft_"):
             res["arms"][s.name] = arm_result(s.out)
         elif s.name.startswith("eval_"):
@@ -479,7 +504,9 @@ def run_study(workdir, knobs: Knobs, preset=None, stages=None, device="cuda"):
         print(f"{os.path.basename(ft)}: {best[-1] if best else ''}")
     builds = sorted({st["opencv"] for st in res["stages"].values() if "opencv" in st})
     if builds:
-        print(f"corpora rendered with OpenCV {', '.join(builds)}")
+        manifest = corpora_manifest(workdir)
+        print(f"corpora rendered with OpenCV {', '.join(builds)}"
+              + (f", carried in (manifest sha256 {manifest})" if manifest else ""))
     return res
 
 

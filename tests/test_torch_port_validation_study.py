@@ -8,13 +8,20 @@ those commands, with `dig_tpu.` as `dig_tpu_torch.` and `tools/gen_synth.py`
 as `-m dig_tpu_torch.tools.gen_synth`.  Every flag of every plan parses in
 the port's CLIs.  Then the runner runs every stage at the micro width on
 the CPU (corpora of a few dozen images, one epoch each), and a second call
-runs nothing.  Asked for CUDA without a card, it raises."""
+runs nothing.  Asked for CUDA without a card, it raises.  The micro study's
+corpora, carried by `tools/study_corpora.py` (pack, unpack) into a fresh
+workdir, are not made again, and the fine-tuning arm on them reads what it
+read on the originals; a changed byte, another render over a standing corpus
+and a workdir without records are refused."""
 
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import tarfile
+import time
 
 import numpy as np
 import pytest
@@ -240,7 +247,9 @@ def test_carried_files_resume_the_study(micro_study, tmp_path):
 
 def _tool(name):
     """tools/<name>.py as a module: `encoder_ctc_probe`, the study's probe of
-    a frozen encoder, or `study_arm_at_epoch`, its SSL arm read early."""
+    a frozen encoder, `study_arm_at_epoch`, its SSL arm read early,
+    `study_corpora`, its corpora's carry path, or `study_pretrain_gate`, the
+    go / no-go of a pre-training inside one call."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(name, os.path.join(ROOT, "tools", f"{name}.py"))
@@ -337,3 +346,233 @@ def test_ssl_swap_runs_end_to_end(tmp_path):
         else:
             assert arm["init_tensors"] is None, name
 
+
+
+CORPORA = ("corpusA", "corpusB")
+
+
+@pytest.fixture(scope="module")
+def packed(micro_study, tmp_path_factory):
+    """The micro study's corpora packed in both forms: (directory, {form:
+    manifest sha256})."""
+    workdir, _, _ = micro_study
+    tmp = tmp_path_factory.mktemp("packed")
+    pack = _tool("study_corpora").pack
+    return tmp, {fmt: pack(str(workdir), str(tmp / f"c.tar.{fmt}"), fmt) for fmt in ("xz", "gz")}
+
+
+def test_carried_corpora_skip_their_stages(micro_study, packed, tmp_path, capsys):
+    """unpack into a fresh workdir, then the runner: no corpus stage runs,
+    the corpora's bytes are the originals', and results.json names the
+    manifest's sha256 beside the corpora's OpenCV build (the micro study's
+    own, rendered in place, names none).  Those are the check.  ft_scratch's
+    word accuracies are 0.0 at this size in both runs, so their equality
+    shows only that the arm ran; its char F-measure is held to [0, 1] only:
+    the loader's 8 workers take their augmentation streams by arrival
+    (`data/pipeline.py`), so it moves between runs on the same corpora
+    (0.2035-0.2142 in the micro runs seen)."""
+    import cv2
+
+    workdir, knobs, res = micro_study
+    arch, digests = packed
+    assert digests["xz"] == digests["gz"]  # the manifest lists files, not the archive
+    w = tmp_path / "w"
+    assert _tool("study_corpora").unpack(str(arch / "c.tar.xz"), str(w)) == digests["xz"]
+    assert vs.corpora_manifest(str(w)) == digests["xz"]
+    assert [s.name for s in vs.to_run(vs.plan(str(w), knobs), ["ft_scratch"], str(w))] == \
+        ["ft_scratch"]
+    capsys.readouterr()
+    again = vs.run_study(str(w), knobs, stages=["ft_scratch"], device="cpu")
+    out = capsys.readouterr().out
+    assert "[corpusA]" not in out and "[corpusB]" not in out and "[ft_scratch] ended in" in out
+    assert f"manifest sha256 {digests['xz']}" in out
+    got, want = again["arms"]["ft_scratch"], res["arms"]["ft_scratch"]
+    assert (got["best_word_acc"], got["word_acc_by_epoch"]) == \
+        (want["best_word_acc"], want["word_acc_by_epoch"])
+    assert 0 <= got["best_char_f"] <= 1
+    for c in CORPORA:
+        for sub in ("train", "labeled", "test"):
+            assert (w / c / sub / "data.mdb").read_bytes() == \
+                (workdir / c / sub / "data.mdb").read_bytes()
+    with open(w / "results.json") as f:
+        stages = json.load(f)["stages"]
+    for c in CORPORA:
+        assert (stages[c]["opencv"], stages[c]["manifest_sha256"]) == (cv2.__version__,
+                                                                        digests["xz"])
+        assert "manifest_sha256" not in res["stages"][c]
+        with open(workdir / "stages" / f"{c}.json") as f, open(w / "stages" / f"{c}.json") as g:
+            assert json.load(f) == json.load(g)
+
+
+def test_a_corpus_made_again_drops_the_manifest(packed, tmp_path):
+    """A corpus record rewritten after unpack (the runner made the corpus
+    again) is no longer the carried render: results name no manifest."""
+    arch, digests = packed
+    w = tmp_path / "w"
+    _tool("study_corpora").unpack(str(arch / "c.tar.gz"), str(w))
+    record = w / "stages" / "corpusB.json"
+    rec = json.loads(record.read_text())
+    record.write_text(json.dumps(dict(rec, seconds=rec["seconds"] + 1)))
+    assert vs.corpora_manifest(str(w)) is None
+    assert all("manifest_sha256" not in st for st in
+               vs.results([s for s in vs.plan(str(w), vs.Knobs()) if s.name in CORPORA],
+                          str(w))["stages"].values())
+
+
+def _repack(src_archive, dest, edit):
+    """src_archive's members through `edit(directory)`, written to `dest`
+    behind the same manifest."""
+    src = dest.parent / "x"
+    with tarfile.open(src_archive) as tar:
+        names = tar.getnames()
+        tar.extractall(src, filter="data")
+    names = edit(src, names)
+    with tarfile.open(dest, "w:gz") as tar:
+        for name in names:
+            tar.add(src / name, arcname=name)
+
+
+def _flip_byte(src, names):
+    mdb = src / "corpusA" / "train" / "data.mdb"
+    data = bytearray(mdb.read_bytes())
+    data[len(data) // 2] ^= 1
+    mdb.write_bytes(bytes(data))
+    return names
+
+
+def _add_file(src, names):
+    (src / "corpusB" / "extra.txt").write_text("not rendered\n")
+    return names + ["corpusB/extra.txt"]
+
+
+def _drop_file(src, names):
+    return [n for n in names if n != "corpusB/test/data.mdb"]
+
+
+@pytest.mark.parametrize("edit,named", [(_flip_byte, "corpusA/train/data.mdb"),
+                                        (_add_file, "corpusB/extra.txt"),
+                                        (_drop_file, "corpusB/test/data.mdb")],
+                         ids=["changed_byte", "extra_file", "missing_file"])
+def test_unpack_refuses_what_the_manifest_does_not_list(packed, tmp_path, edit, named):
+    arch, _ = packed
+    bad = tmp_path / "bad.tar.gz"
+    _repack(arch / "c.tar.gz", bad, edit)
+    w = tmp_path / "w"
+    with pytest.raises(ValueError, match=f"differ from its manifest: .*{named}"):
+        _tool("study_corpora").unpack(str(bad), str(w))
+    assert sorted(os.listdir(w)) == []  # nothing put in place, the scratch gone
+
+
+@pytest.mark.parametrize("field", ["opencv", "argv"])
+def test_unpack_refuses_another_render_over_a_standing_corpus(micro_study, packed, tmp_path,
+                                                              field):
+    """A corpus whose record in WORKDIR names another OpenCV build (or was
+    made with another argv) stays as it is, and nothing is unpacked."""
+    workdir, _, _ = micro_study
+    arch, _ = packed
+    w = tmp_path / "w"
+    (w / "stages").mkdir(parents=True)
+    (w / "corpusA" / "train").mkdir(parents=True)
+    (w / "corpusA" / "train" / "data.mdb").write_bytes(b"standing")
+    rec = json.loads((workdir / "stages" / "corpusA.json").read_text())
+    rec[field] = "4.13.0" if field == "opencv" else rec["argv"][:-1] + ["4"]
+    (w / "stages" / "corpusA.json").write_text(json.dumps(rec))
+    with pytest.raises(ValueError, match="corpusA stands with .*not overwritten"):
+        _tool("study_corpora").unpack(str(arch / "c.tar.xz"), str(w))
+    assert (w / "corpusA" / "train" / "data.mdb").read_bytes() == b"standing"
+    assert sorted(os.listdir(w)) == ["corpusA", "stages"]
+    assert os.listdir(w / "stages") == ["corpusA.json"]
+
+
+@pytest.mark.parametrize("case", ["no_record", "two_builds"])
+def test_pack_refuses_a_workdir_without_one_render(micro_study, tmp_path, case):
+    workdir, _, _ = micro_study
+    w = tmp_path / "w"
+    for c in CORPORA:
+        shutil.copytree(workdir / c, w / c)
+    (w / "stages").mkdir()
+    for c in CORPORA:
+        shutil.copy(workdir / "stages" / f"{c}.json", w / "stages")
+    record = w / "stages" / "corpusB.json"
+    if case == "no_record":
+        record.unlink()
+        match = "no record of corpusB"
+    else:
+        record.write_text(json.dumps(dict(json.loads(record.read_text()), opencv="4.13.0")))
+        match = "name the OpenCV builds"
+    with pytest.raises(ValueError, match=match):
+        _tool("study_corpora").pack(str(w), str(tmp_path / "c.tar.xz"))
+    assert not os.path.exists(tmp_path / "c.tar.xz")
+
+
+def test_unpack_of_xz_without_lzma_fails(packed, tmp_path, monkeypatch):
+    """No lzma module: an xz archive is refused with the way out named, and
+    never read another way; the gzip form still unpacks."""
+    arch, digests = packed
+    monkeypatch.setitem(sys.modules, "lzma", None)
+    corpora = _tool("study_corpora")
+    with pytest.raises(RuntimeError, match="no lzma module; pack it again with --format gz"):
+        corpora.unpack(str(arch / "c.tar.xz"), str(tmp_path / "w"))
+    assert not os.path.exists(tmp_path / "w" / "corpusA")
+    assert corpora.unpack(str(arch / "c.tar.gz"), str(tmp_path / "w")) == digests["gz"]
+
+
+@pytest.mark.parametrize("now,late,go", [(316.1, 0.2281, False), (254.9, 0.2123, True)],
+                         ids=["no_go", "go"])
+def test_pretrain_gate_projects_the_end_from_epoch_0(now, late, go):
+    """The gate's projection on the round-4 pretrain's epoch-0 lines (937
+    steps, 15 epochs): now + 14 epochs at the rate from step 300 on + 30 s,
+    against a 3,600 s limit less 5 minutes; nothing before epoch 0 ends."""
+    gate = _tool("study_pretrain_gate")
+    text = ("dataset: 120000 imgs, 937 steps/epoch\n"
+            "Epoch: [0] [0/937]  eta: 0:00:00  time: 4.6110  data: 1.4155\n"
+            "Epoch: [0] [936/937]  eta: 0:00:00  time: 0.1594  data: 0.0044\n")
+    seen = {0: 0.0, 300: now - 636 * late, 936: now}
+    assert gate.projection(text, seen, now, 15) is None
+    text += "Epoch: [0] Total time: 0:03:23 (0.2168 s / it)\n"
+    message, proj = gate.projection(text, seen, now, 15)
+    assert proj == pytest.approx(now + 14 * 937 * late + 30)
+    assert f"{late:.4f} s/step from step 300 on" in message
+    assert (proj <= 3600 - gate.NO_GO_MARGIN_S) == go
+    # another print interval: the rate runs from the first line past the warm-up
+    seen = {0: 0.0, 500: now - 436 * late, 936: now}
+    assert gate.projection(text, seen, now, 15)[1] == pytest.approx(proj)
+
+
+_SLEEP = "import time; time.sleep(120)"
+# a runner that starts one stage child in a session of its own, as run_stage
+# does; the child starts a worker in its session, as the loader does
+_RUNNER = f"""
+import subprocess, sys, time
+child = ("import subprocess, sys, time; "
+         "w = subprocess.Popen([sys.executable, '-c', {_SLEEP!r}]); "
+         "print('worker', w.pid, flush=True); time.sleep(120)")
+p = subprocess.Popen([sys.executable, '-c', child, '--stage-child'], start_new_session=True)
+print('stage', p.pid, flush=True)
+print('rc', p.wait(), flush=True)
+time.sleep(120)
+"""
+
+
+def test_pretrain_gate_kills_only_its_runners_stage_child():
+    """end_stage kills the stage child of the runner it watches, and that
+    child's session, and leaves a `--stage-child` of another runner."""
+    gate = _tool("study_pretrain_gate")
+    runner = subprocess.Popen([sys.executable, "-c", _RUNNER], stdout=subprocess.PIPE, text=True)
+    other = subprocess.Popen([sys.executable, "-c", _SLEEP, "--stage-child"],
+                             start_new_session=True)
+    try:
+        pids = dict(runner.stdout.readline().split() for _ in range(2))
+        stage, worker = int(pids["stage"]), int(pids["worker"])
+        assert sorted(gate.end_stage("test", 0.0, runner.pid)) == sorted([stage, worker])
+        assert runner.stdout.readline().split() == ["rc", str(-signal.SIGKILL)]
+        for _ in range(100):
+            if not gate.alive(worker):
+                break
+            time.sleep(0.05)
+        assert not gate.alive(worker)
+        assert gate.alive(other.pid) and gate.alive(runner.pid)
+    finally:
+        for p in (runner, other):
+            p.kill()
+            p.wait()
